@@ -1,0 +1,174 @@
+"""Where one image's time goes on a CUDA card, stage by stage.
+
+    python -m topiaxl_torch.cli.profile configs/inference_dit.yml [k=v ...]
+
+Builds the models from the config as ``topiaxl_torch.cli.infer`` does
+(random weights unless the config names checkpoints) and measures, on
+synthetic inputs (``pipelines/synthetic.py``):
+
+- ``prepare``: host matting and recentring of a 512² image (wall);
+- ``encode``: DINOv2 on that image;
+- ``precompute``: the DiT's per-block cross K/V and null outputs;
+- ``cfg_step``: one CFG'd DiT step (``forward_with_cfg_fast``);
+- ``chain``: the whole DDIM chain (``sample_tokens``);
+- ``vae_decode``: ``decode_primx`` of 2048 primitives;
+- ``stage2``: ``extract_glb`` on the 2048-prim sphere shell at the config's
+  ``mc_resolution`` and ``decimate`` (texture 1024, ``pos_scale`` 1.0),
+  with the box and the LSCM unwrap in turn, twice each, so that the
+  second pair shows the warm times.
+
+For each device region: wall ms per call (perf_counter around
+synchronised calls, no profiler attached), device ms per call (the sum
+of kernel self times under ``torch.profiler``), the idle share
+1 - device / wall, and the kernels that take the most device time. The
+last line is one JSON object with every number printed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+# kernel-name substrings -> the layer they belong to
+_GROUPS = {"flash_attn_fwd": ("flash_fwd_kernel",),
+           "ln_modulate": ("ln_modulate_kernel",),
+           "gemm": ("gemm", "cutlass", "nvjet", "xmma", "cublas"),
+           "conv": ("conv", "cudnn", "implicit"),
+           "norm": ("norm",)}
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in _GROUPS.items():
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
+    """Time ``fn`` on the card: wall without the profiler, device time
+    with it. Prints a summary and returns it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                    # warm-up: allocator, kernel build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / repeats
+    groups: dict = {}
+    for e in kernels:
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / repeats
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
+           "groups_ms": groups, "repeats": repeats}
+    idle = ("not measured (the profiler saw no device time)" if not device_ms
+            else f"{out['idle_share']:.3f}")
+    print(f"[{name}] wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, idle "
+          f"share {idle}, over {repeats} calls", flush=True)
+    print("  by layer (device ms per call): " + ", ".join(
+        f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3 / repeats
+        print(f"  {ms:8.3f} ms  x{e.count // repeats:<4d} {e.key[:100]}")
+    return out
+
+
+def main(argv=None) -> int:
+    from topiaxl.core.config import load_config
+
+    from ..diffusion.schedule import create_diffusion
+    from ..ops import _cuda
+    from ..pipelines import infer as P
+    from ..pipelines.synthetic import sphere_asset, write_bench_image
+    from .infer import build_models, prepare_image
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(__doc__)
+        return 1
+    cfg = load_config(argv[0], overrides=argv[1:])
+    device = torch.device(cfg.inference.get("device", "cuda"))
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise SystemExit("profile: needs a CUDA card (inference.device=cuda)")
+    gen = torch.Generator(device=device).manual_seed(int(cfg.inference.seed))
+    dit, vae, encoder = build_models(cfg, device, gen)
+    diffusion = create_diffusion(
+        timestep_respacing=(f"ddim{cfg.inference.ddim}"
+                            if cfg.inference.ddim > 0 else None),
+        noise_schedule=cfg.diffusion.noise_schedule,
+        diffusion_steps=cfg.diffusion.diffusion_steps,
+        parameterization=cfg.diffusion.parameterization, device=device)
+    cfg_scale = float(cfg.inference.get("cfg", 0.0))
+    report: dict = {}
+
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        png = os.path.join(tmp, "asset.png")
+        write_bench_image(png)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            image = prepare_image(png)
+        report["prepare"] = {"wall_ms": (time.perf_counter() - t0) * 1e3 / 3}
+        print(f"[prepare] wall {report['prepare']['wall_ms']:.3f} ms (host)")
+        img = torch.from_numpy(image[None]).to(device)
+        report["encode"] = profile_region("encode", lambda: encoder(img), 5)
+
+        y = encoder(img)
+        kvs = dit.precompute_kv(y)
+        null_outs = dit.precompute_null_out()
+        report["precompute"] = profile_region(
+            "precompute", lambda: (dit.precompute_kv(y),
+                                   dit.precompute_null_out()), 5)
+        x = torch.randn((1, dit.seq_length, dit.in_channels), device=device,
+                        generator=gen)
+        t = torch.full((1,), 500, device=device, dtype=torch.long)
+        report["cfg_step"] = profile_region(
+            "cfg_step", lambda: dit.forward_with_cfg_fast(
+                x, t, kvs, null_outs, cfg_scale), 5)
+        report["chain"] = profile_region(
+            "chain", lambda: P.sample_tokens(dit, diffusion, y, cfg_scale,
+                                             generator=gen), 1, top=4)
+        tokens = torch.randn((1, dit.seq_length, dit.in_channels),
+                             device=device, generator=gen)
+        report["vae_decode"] = profile_region(
+            "vae_decode", lambda: P.decode_primx(
+                vae, tokens, cfg.model.prim_shape, cfg.model.dim_feat), 3)
+
+        sphere = sphere_asset(device, S=cfg.model.prim_shape)
+        runs = []
+        for fast_unwrap in (True, False, True, False):
+            tm: dict = {}
+            t0 = time.perf_counter()
+            P.extract_glb(sphere, os.path.join(tmp, "sphere"),
+                          mc_resolution=cfg.inference.mc_resolution,
+                          decimate=cfg.inference.decimate, texture_size=1024,
+                          batch_size=32768, pos_scale=1.0,
+                          fast_unwrap=fast_unwrap, timings_out=tm)
+            tm = dict(fast_unwrap=fast_unwrap,
+                      seconds=time.perf_counter() - t0, **tm)
+            print(f"[stage2] {json.dumps(tm)}", flush=True)
+            runs.append(tm)
+        report["stage2"] = runs
+    report["launches"] = dict(_cuda.launches)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

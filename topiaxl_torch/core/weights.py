@@ -1,0 +1,157 @@
+"""JAX parameter trees -> the port's state_dicts.
+
+The exact inverses of ``topiaxl/core/convert.py``'s ``convert_dit``,
+``convert_vae`` and ``convert_dinov2``: each takes the JAX package's
+parameter tree (``{"params": ...}`` or its inner dict) as numpy arrays
+and returns a state_dict in the released reference's key layout, which
+the port's modules load with ``load_state_dict(strict=True)``.
+
+Layouts (inverse of the converter's rules):
+* Dense kernel [in, out]            -> Linear weight [out, in]
+* Conv kernel [kd, kh, kw, in, out] -> Conv3d weight [out, in, kd, kh, kw]
+* ConvTranspose kernel [k..., in, out] with spatially flipped taps
+  -> ConvTranspose3d weight [in, out, k...] (flip undone)
+* norm scale/bias                   -> weight/bias
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _inner(tree: Mapping) -> Mapping:
+    return tree["params"] if "params" in tree else tree
+
+
+def _linear(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv3d(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose3d(sd, prefix, p):
+    w = np.asarray(p["kernel"]).transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
+    sd[f"{prefix}.weight"] = _t(w)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _norm(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _count(p: Mapping, stem: str) -> int:
+    return sum(1 for k in p if k.startswith(stem) and k[len(stem):].isdigit())
+
+
+def dit_from_jax(tree: Mapping) -> dict:
+    p = _inner(tree)
+    sd: dict = {}
+    _linear(sd, "x_embedder", p["x_embedder"])
+    _linear(sd, "t_embedder.mlp.0", p["t_embedder"]["fc1"])
+    _linear(sd, "t_embedder.mlp.2", p["t_embedder"]["fc2"])
+    if "null_cond_embedding" in p:
+        sd["null_cond_embedding"] = _t(p["null_cond_embedding"])
+    for i in range(_count(p, "blocks_")):
+        b, q = f"blocks.{i}", p[f"blocks_{i}"]
+        _linear(sd, f"{b}.adaLN_modulation.1", q["adaLN_modulation"])
+        for name in ("to_q", "to_k", "to_v", "proj"):
+            _linear(sd, f"{b}.crossattn.{name}", q["crossattn"][name])
+        _linear(sd, f"{b}.attn.qkv", q["attn"]["qkv"])
+        _linear(sd, f"{b}.attn.proj", q["attn"]["proj"])
+        _linear(sd, f"{b}.mlp.fc1", q["mlp"]["fc1"])
+        _linear(sd, f"{b}.mlp.fc2", q["mlp"]["fc2"])
+    _linear(sd, "final_layer.adaLN_modulation.1",
+            p["final_layer"]["adaLN_modulation"])
+    _linear(sd, "final_layer.linear", p["final_layer"]["linear"])
+    return sd
+
+
+def _resblock(sd, prefix, p):
+    _norm(sd, f"{prefix}.norm1", p["norm1"]["GroupNorm_0"])
+    _conv3d(sd, f"{prefix}.conv1", p["conv1"])
+    _norm(sd, f"{prefix}.norm2", p["norm2"]["GroupNorm_0"])
+    _conv3d(sd, f"{prefix}.conv2", p["conv2"])
+    if "shortcut" in p:
+        _conv3d(sd, f"{prefix}.shortcut", p["shortcut"])
+
+
+def _midblock(sd, prefix, p):
+    for i in range(_count(p, "res")):
+        _resblock(sd, f"{prefix}.nets.{i}", p[f"res{i}"])
+    for i in range(_count(p, "attn")):
+        a = p[f"attn{i}"]
+        _norm(sd, f"{prefix}.attns.{i}.norm", a["GroupNorm32_0"]["GroupNorm_0"])
+        _linear(sd, f"{prefix}.attns.{i}.attn.qkv", a["attn"]["qkv"])
+        _linear(sd, f"{prefix}.attns.{i}.attn.proj", a["attn"]["proj"])
+
+
+def vae_from_jax(tree: Mapping) -> dict:
+    p = _inner(tree)
+    sd: dict = {}
+    enc, dec = p["encoder"], p["decoder"]
+    _conv3d(sd, "encoder.conv_in", enc["conv_in"])
+    for i in range(_count(enc, "down")):
+        blk = enc[f"down{i}"]
+        for j in range(_count(blk, "res")):
+            _resblock(sd, f"encoder.down_blocks.{i}.nets.{j}", blk[f"res{j}"])
+        if "down" in blk:
+            _conv3d(sd, f"encoder.down_blocks.{i}.downsample", blk["down"])
+    _midblock(sd, "encoder.mid_block", enc["mid"])
+    _norm(sd, "encoder.norm_out", enc["GroupNorm32_0"]["GroupNorm_0"])
+    _conv3d(sd, "encoder.conv_out", enc["conv_out"])
+
+    _conv3d(sd, "decoder.conv_in", dec["conv_in"])
+    _midblock(sd, "decoder.mid_block", dec["mid"])
+    for i in range(_count(dec, "up")):
+        blk = dec[f"up{i}"]
+        for j in range(_count(blk, "res")):
+            _resblock(sd, f"decoder.up_blocks.{i}.nets.{j}", blk[f"res{j}"])
+        if "up" in blk:
+            _conv_transpose3d(sd, f"decoder.up_blocks.{i}.upsample", blk["up"])
+    _norm(sd, "decoder.norm_out", dec["GroupNorm32_0"]["GroupNorm_0"])
+    _conv_transpose3d(sd, "decoder.conv_out", dec["conv_out"])
+    _conv3d(sd, "quant_conv", p["quant_conv"])
+    _conv3d(sd, "post_quant_conv", p["post_quant_conv"])
+    return sd
+
+
+def dinov2_from_jax(tree: Mapping) -> dict:
+    """The JAX tree has no ``mask_token`` (unused at inference); it comes
+    back as zeros so the state_dict still loads strictly."""
+    p = _inner(tree)
+    sd: dict = {}
+    sd["patch_embed.proj.weight"] = _t(
+        np.asarray(p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
+    sd["patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
+    sd["cls_token"] = _t(p["cls_token"])
+    sd["pos_embed"] = _t(p["pos_embed"])
+    if "register_tokens" in p:
+        sd["register_tokens"] = _t(p["register_tokens"])
+    sd["mask_token"] = torch.zeros(1, np.asarray(p["cls_token"]).shape[-1])
+    for i in range(_count(p, "block")):
+        b, q = f"blocks.{i}", p[f"block{i}"]
+        _norm(sd, f"{b}.norm1", q["norm1"])
+        _norm(sd, f"{b}.norm2", q["norm2"])
+        _linear(sd, f"{b}.attn.qkv", q["attn"]["qkv"])
+        _linear(sd, f"{b}.attn.proj", q["attn"]["proj"])
+        _linear(sd, f"{b}.mlp.fc1", q["fc1"])
+        _linear(sd, f"{b}.mlp.fc2", q["fc2"])
+        sd[f"{b}.ls1.gamma"] = _t(q["ls1_gamma"])
+        sd[f"{b}.ls2.gamma"] = _t(q["ls2_gamma"])
+    _norm(sd, "norm", p["norm"])
+    return sd

@@ -1,0 +1,44 @@
+"""Image conditioner (counterpart of
+``topiaxl/models/conditioner/image.py:DinoV2Wrapper``).
+
+Preprocessing as the reference: [0, 255] HWC -> /255 -> antialiased
+bicubic resize to the encoder's size -> CLIP-stat normalisation -> ViT
+-> cat(cls, patch tokens) = [B, 1 + (518/14)^2, 768] = [B, 1370, 768]
+for ViT-B/14-reg.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...ops.resize import resize_bicubic
+from .dinov2 import DinoViT, dinov2_config
+
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+class DinoV2Wrapper(torch.nn.Module):
+    """Frozen DINOv2 encoder; ``vit`` holds the Meta-layout weights."""
+
+    def __init__(self, model_name: str = "dinov2_vitb14_reg",
+                 image_size: int = 518, dtype=torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cfg = dinov2_config(model_name)
+        if model_name == "dinov2_tiny_test":
+            image_size = min(image_size, 28)
+            cfg = dict(cfg, pos_embed_size=image_size // cfg["patch_size"])
+        self.image_size = image_size
+        self.vit = DinoViT(dtype=dtype, device=device, generator=generator,
+                           **cfg)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        """image [B, H, W, 3] in [0, 255] -> tokens [B, 1 + hw, D] f32."""
+        x = resize_bicubic(image.float() / 255.0, self.image_size,
+                           self.image_size)
+        mean = torch.tensor(CLIP_MEAN, device=x.device)
+        std = torch.tensor(CLIP_STD, device=x.device)
+        outs = self.vit((x - mean) / std)
+        return torch.cat([outs["x_norm_clstoken"][:, None, :],
+                          outs["x_norm_patchtokens"]], dim=1)

@@ -1,0 +1,170 @@
+"""PrimX Diffusion Transformer (counterpart of ``topiaxl/models/dit.py``).
+
+2048 prim tokens x 68 channels, Linear token embedding, sinusoidal
+t-embedding, ``depth`` blocks of [adaLN-Zero 9-way modulation ->
+cross-attention to the image tokens -> self-attention -> GELU-tanh MLP],
+adaLN final layer, ``learn_sigma`` doubling the output channels, and a
+learned null-conditioning embedding for CFG.
+
+Serving path: ``precompute_kv`` projects the per-block cross-attention
+K/V once per asset; ``precompute_null_out`` collapses the CFG null
+branch's cross-attention to one vector per block;
+``forward_with_cfg_fast`` runs self-attention at batch 2 (cond + uncond)
+and cross-attention on the cond half only. Every block's three
+LN+modulate boundaries go through the fused kernels in
+``ops/fused_ln.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.fused_ln import ln_modulate, ln_modulate_residual
+from .layers import (
+    CrossAttention,
+    Mlp,
+    SelfAttention,
+    TimestepEmbedder,
+    default_init_,
+    linear,
+    materialize_,
+)
+
+
+class DiTBlock(nn.Module):
+    def __init__(self, hidden_size: int, cond_dim: int, num_heads: int,
+                 mlp_ratio: float = 4.0, proj_bias: bool = True,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.crossattn = CrossAttention(hidden_size, cond_dim, num_heads,
+                                        qkv_bias=True, proj_bias=proj_bias,
+                                        dtype=dtype)
+        self.attn = SelfAttention(hidden_size, num_heads, qkv_bias=True,
+                                  proj_bias=proj_bias, dtype=dtype)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
+                       dtype=dtype)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), linear(hidden_size, 9 * hidden_size))
+
+    def cond_kv(self, y):
+        return self.crossattn.kv(y)
+
+    def cond_null_out(self, y_null):
+        """[1, 1, C] null token -> [1, 1, D] cross-attention output."""
+        _, v = self.crossattn.kv(y_null)
+        return self.crossattn.uniform_out(v)
+
+    def forward(self, x, kv, t_emb, null_out=None):
+        """x [B, N, D] residual stream in the compute dtype; kv precomputed;
+        t_emb [B, D] f32; ``null_out`` selects the CFG fast path, where x is
+        [cond; uncond] and the uncond half's cross-attention is null_out."""
+        mods = self.adaLN_modulation(t_emb).to(self.dtype)
+        (s_mca, sc_mca, g_mca, s_msa, sc_msa, g_msa,
+         s_mlp, sc_mlp, g_mlp) = mods.chunk(9, dim=-1)
+        h = ln_modulate(x, s_mca, sc_mca, out_dtype=self.dtype)
+        if null_out is None:
+            att = self.crossattn.attend(h, *kv)
+        else:
+            B = x.shape[0] // 2
+            att_c = self.crossattn.attend(h[:B], *kv)
+            att = torch.cat(
+                [att_c, null_out.to(att_c.dtype).expand_as(att_c)], dim=0)
+        x, h = ln_modulate_residual(x, att, g_mca, s_msa, sc_msa,
+                                    out_dtype=self.dtype)
+        x, h = ln_modulate_residual(x, self.attn(h), g_msa, s_mlp, sc_mlp,
+                                    out_dtype=self.dtype)
+        return x + g_mlp[:, None, :] * self.mlp(h)
+
+
+class FinalLayer(nn.Module):
+    """adaLN (2-way) + projection; the result is returned in f32."""
+
+    def __init__(self, hidden_size: int, out_channels: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.linear = linear(hidden_size, out_channels, dtype=dtype)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), linear(hidden_size, 2 * hidden_size))
+
+    def forward(self, x, t_emb):
+        shift, scale = self.adaLN_modulation(t_emb).to(self.dtype).chunk(2, -1)
+        x = ln_modulate(x, shift, scale, out_dtype=self.dtype)
+        return self.linear(x).float()
+
+
+class DiT(nn.Module):
+    """Flagship generator; keys follow the reference's DiT state_dict."""
+
+    def __init__(self, seq_length: int = 2048, in_channels: int = 68,
+                 condition_channels: int = 768, hidden_size: int = 1152,
+                 depth: int = 28, num_heads: int = 16, mlp_ratio: float = 4.0,
+                 attn_proj_bias: bool = True, learn_sigma: bool = True,
+                 dtype=torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.seq_length = seq_length
+        self.in_channels = in_channels
+        self.condition_channels = condition_channels
+        self.hidden_size = hidden_size
+        self.depth = depth
+        self.dtype = dtype
+        self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.x_embedder = linear(in_channels, hidden_size, dtype=dtype)
+        self.t_embedder = TimestepEmbedder(hidden_size)
+        self.blocks = nn.ModuleList(
+            DiTBlock(hidden_size, condition_channels, num_heads, mlp_ratio,
+                     attn_proj_bias, dtype) for _ in range(depth))
+        self.final_layer = FinalLayer(hidden_size, self.out_channels, dtype)
+        self.null_cond_embedding = nn.Parameter(
+            torch.empty(condition_channels, device="meta"))
+        materialize_(self, device, generator, DiT.init_weights)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """The JAX package's init: xavier linears, N(0, 0.02) timestep MLP,
+        zero adaLN and final projection (each block starts as the
+        identity), N(0, 1) null embedding."""
+        default_init_(self, gen)
+        for lin in (self.t_embedder.mlp[0], self.t_embedder.mlp[2]):
+            lin.weight.normal_(0.0, 0.02, generator=gen)
+        for m in [b.adaLN_modulation[1] for b in self.blocks] + [
+                self.final_layer.adaLN_modulation[1], self.final_layer.linear]:
+            m.weight.zero_()
+            m.bias.zero_()
+        self.null_cond_embedding.normal_(0.0, 1.0, generator=gen)
+
+    # ---- conditioning helpers -------------------------------------------
+
+    def precompute_kv(self, y: torch.Tensor):
+        """Per-block cross-attention K/V of conditioning tokens [B, M, C]."""
+        return [blk.cond_kv(y) for blk in self.blocks]
+
+    def precompute_null_out(self):
+        """Per-block [1, 1, D] cross-attention outputs of the null branch."""
+        y_null = self.null_cond_embedding[None, None, :]
+        return [blk.cond_null_out(y_null) for blk in self.blocks]
+
+    # ---- forward passes ---------------------------------------------------
+
+    def forward_kv(self, x, t, kvs):
+        """Denoise step against precomputed per-block K/V; x [B, N, C_in],
+        t [B] -> [B, N, C_out] f32."""
+        h = self.x_embedder(x.to(self.dtype))
+        t_emb = self.t_embedder(t)
+        for blk, kv in zip(self.blocks, kvs):
+            h = blk(h, kv, t_emb)
+        return self.final_layer(h, t_emb)
+
+    def forward_with_cfg_fast(self, x, t, kvs_cond, null_outs,
+                              cfg_scale: float):
+        """Classifier-free guidance: ``uncond + s * (cond - uncond)`` with
+        cond-only K/V and the per-block null vectors."""
+        h = self.x_embedder(torch.cat([x, x], dim=0).to(self.dtype))
+        t_emb = self.t_embedder(torch.cat([t, t], dim=0))
+        for blk, kv, no in zip(self.blocks, kvs_cond, null_outs):
+            h = blk(h, kv, t_emb, null_out=no)
+        cond, uncond = self.final_layer(h, t_emb).chunk(2, dim=0)
+        return uncond + cfg_scale * (cond - uncond)

@@ -1,0 +1,185 @@
+"""Shared building blocks (counterparts of ``topiaxl/models/layers.py``).
+
+Reference torch key layout (``topiaxl/core/convert.py``): every module
+here names its parameters the way the released checkpoints do, so a
+reference state_dict loads with ``load_state_dict(strict=True)``.
+
+Mixed precision as in the JAX package: the matmul layers hold their
+weights in the compute dtype (bf16 when serving) and cast their input to
+it; LayerNorm statistics, softmax and the timestep/adaLN MLPs stay f32.
+
+Models are built on the ``meta`` device and materialised by
+``materialize_``: parameters are filled from an explicit
+``torch.Generator`` (never the global RNG) or later overwritten by
+``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multi_head_attention
+
+META = torch.device("meta")
+
+
+def linear(in_f: int, out_f: int, bias: bool = True,
+           dtype=torch.float32) -> nn.Linear:
+    return nn.Linear(in_f, out_f, bias=bias, dtype=dtype, device=META)
+
+
+def xavier_(w: torch.Tensor, gen: torch.Generator) -> None:
+    fan_out, fan_in = w.shape[0], w[0].numel()
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    w.uniform_(-bound, bound, generator=gen)
+
+
+def lecun_(w: torch.Tensor, gen: torch.Generator) -> None:
+    w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=gen)
+
+
+@torch.no_grad()
+def materialize_(module: nn.Module, device, generator: torch.Generator | None,
+                 init) -> None:
+    """Allocate a meta-built module on ``device`` and fill it with
+    ``init(module, generator)``; the generator defaults to seed 0 on
+    ``device``."""
+    device = torch.device(device if device is not None else "cpu")
+    module.to_empty(device=device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    init(module, generator)
+
+
+@torch.no_grad()
+def default_init_(module: nn.Module, gen: torch.Generator) -> None:
+    """Xavier-uniform linear weights, LeCun-normal conv weights, zero
+    biases, unit norm gains (the JAX package's initialisers)."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            xavier_(m.weight, gen)
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            lecun_(m.weight, gen)
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
+    """adaLN modulation ``x * (1 + scale) + shift`` over tokens."""
+    return x * (1 + scale[:, None, :]) + shift[:, None, :]
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000):
+    """Sinusoidal timestep embedding, cos before sin."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device)
+                      / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class TimestepEmbedder(nn.Module):
+    """freq(256) -> Linear -> SiLU -> Linear, in f32 (keys ``mlp.0``/``mlp.2``)."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
+        super().__init__()
+        self.frequency_embedding_size = frequency_embedding_size
+        self.mlp = nn.Sequential(
+            linear(frequency_embedding_size, hidden_size), nn.SiLU(),
+            linear(hidden_size, hidden_size))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mlp(timestep_embedding(t, self.frequency_embedding_size))
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU(tanh) -> fc2 in the compute dtype."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int, dtype=torch.bfloat16,
+                 approximate: str = "tanh"):
+        super().__init__()
+        self.fc1 = linear(in_features, hidden_features, dtype=dtype)
+        self.fc2 = linear(hidden_features, out_features, dtype=dtype)
+        self.approximate = approximate
+
+    def forward(self, x):
+        x = self.fc1(x.to(self.fc1.weight.dtype))
+        return self.fc2(F.gelu(x, approximate=self.approximate))
+
+
+class SelfAttention(nn.Module):
+    """Fused-QKV self-attention (keys ``qkv``, ``proj``)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 proj_bias: bool = True, dtype=torch.bfloat16):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
+        self.proj = linear(dim, dim, bias=proj_bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, _ = x.shape
+        hd = self.dim // self.num_heads
+        qkv = self.qkv(x.to(self.qkv.weight.dtype))
+        q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).unbind(2)
+        out = multi_head_attention(q, k, v, scale=hd ** -0.5)
+        return self.proj(out.reshape(B, N, self.dim))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention with separate q/k/v projections.
+
+    Reproduces the reference's double scaling: q is pre-scaled by
+    ``head_dim**-0.5`` on top of the attention's own, so the effective
+    scale is ``head_dim**-1`` (the released checkpoints were trained so).
+    """
+
+    def __init__(self, dim: int, cond_dim: int, num_heads: int,
+                 qkv_bias: bool = True, proj_bias: bool = True,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.to_q = linear(dim, dim, bias=qkv_bias, dtype=dtype)
+        self.to_k = linear(cond_dim, dim, bias=qkv_bias, dtype=dtype)
+        self.to_v = linear(cond_dim, dim, bias=qkv_bias, dtype=dtype)
+        self.proj = linear(dim, dim, bias=proj_bias, dtype=dtype)
+
+    def kv(self, ctx: torch.Tensor):
+        """Per-head K/V [B, M, H, hd] of the conditioning sequence; constant
+        over the denoise chain, so callers compute it once per asset."""
+        B, M, _ = ctx.shape
+        hd = self.dim // self.num_heads
+        ctx = ctx.to(self.to_k.weight.dtype)
+        k = self.to_k(ctx).reshape(B, M, self.num_heads, hd)
+        v = self.to_v(ctx).reshape(B, M, self.num_heads, hd)
+        return k, v
+
+    def uniform_out(self, v: torch.Tensor) -> torch.Tensor:
+        """Output when every kv token is the same (the CFG null branch):
+        softmax over equal logits is uniform, so attention returns v for
+        every query and the block reduces to proj(v). [B,1,H,hd] -> [B,1,dim]."""
+        return self.proj(v.reshape(v.shape[0], 1, self.dim))
+
+    def attend(self, x, k, v):
+        B, N, _ = x.shape
+        hd = self.dim // self.num_heads
+        q = self.to_q(x.to(self.to_q.weight.dtype)).reshape(
+            B, N, self.num_heads, hd)
+        out = multi_head_attention(q, k, v, scale=float(hd) ** -1.0)
+        return self.proj(out.reshape(B, N, self.dim))
+
+    def forward(self, x, ctx):
+        return self.attend(x, *self.kv(ctx))
