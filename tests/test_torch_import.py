@@ -30,6 +30,12 @@ def test_port_imports_without_jax():
         import topiaxl_torch.models.conditioner.image
         import topiaxl_torch.models.latent_stats
         import topiaxl_torch.ops.matting
+        import topiaxl_torch.diffusion.timestep_sampler
+        import topiaxl_torch.pipelines.train
+        import topiaxl_torch.pipelines.data
+        import topiaxl_torch.core.checkpoint
+        import topiaxl_torch.core.profiling
+        import topiaxl_torch.cli.train
         import topiaxl.extract, topiaxl.core.config
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
         assert not bad, bad

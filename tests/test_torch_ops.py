@@ -4,7 +4,10 @@ LN+modulate pair against the Pallas LN kernels (interpret mode), the
 attention dispatch rule and the cross-attention scale. Inputs come from
 numpy and are handed to both frameworks; f32 throughout, tolerance 1e-5
 (the two differ only in summation order and in where the softmax scale
-is applied)."""
+is applied). Gradients: the port's attention backward against
+``jax.vjp`` through the Pallas backward kernels (interpret mode) at 5e-5,
+the JAX tests' own bar for them; the LN backward against ``jax.vjp`` of
+the Pallas LN functions at 1e-5."""
 
 from pathlib import Path
 
@@ -20,8 +23,13 @@ from topiaxl.ops.fused_ln import ln_modulate_residual as jax_ln_res
 from topiaxl_torch.ops import _cuda
 from topiaxl_torch.ops.attention import multi_head_attention, use_flash
 from topiaxl_torch.ops.flash_attention import (
+    FUSED_BWD_MAX_KEYS,
     KEY_TILE,
+    bwd_form,
     flash_attention,
+    flash_attention_backward,
+    flash_attention_bwd_plain,
+    flash_attention_bwd_unmasked,
     flash_attention_plain,
     flash_attention_unmasked,
 )
@@ -148,6 +156,9 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     q = torch.empty(1, 8, 1, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention(q, q, q, 0.125)
+    lse = torch.empty(1, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_backward(q, q, q, q, lse, q, 0.125)
     x = torch.empty(1, 8, 64, device="meta")
     m = torch.empty(1, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -158,12 +169,70 @@ def test_wrappers_raise_on_devices_without_a_kernel():
 
 
 def test_kernel_sources_build_key():
-    """The build is keyed on the sources: both .cu files are found, and
-    editing nothing gives the same directory."""
+    """The build is keyed on the sources: every .cu file and shared header
+    is found, and editing nothing gives the same directory."""
     names = [p.name for p in _cuda.sources()]
-    assert names == ["flash_attn_fwd.cu", "ln_modulate.cu"]
+    assert names == ["flash_attn_bwd.cu", "flash_attn_fwd.cu", "ln_modulate.cu"]
+    assert [p.name for p in _cuda.headers()] == ["mma_tile.cuh"]
     assert _cuda.build_dir() == _cuda.build_dir()
     assert _cuda.build_dir().parent.name == "topiaxl_torch_kernels"
+
+
+def test_kernel_build_key_covers_shared_header(tmp_path, monkeypatch):
+    """Editing the header the kernels share gives a new build directory,
+    so the next launch rebuilds them."""
+    for src in _cuda.sources() + _cuda.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    before = _cuda.build_dir()
+    with open(tmp_path / "mma_tile.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _cuda.build_dir() != before
+
+
+_FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if any(a.endswith("{fail}") for a in args):
+    print("error: {fail} does not compile")
+    sys.exit(2)
+print("ptxas info    : Used 8 registers")
+open(args[args.index("-o") + 1], "w").write("obj")
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "flash_attn_bwd.cu"])
+def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch,
+                                                      fail):
+    """One nvcc per source, each with ``-c``, then one link of the objects
+    into the library; a failing source raises with its output and leaves
+    no library and no objects behind."""
+    import sys
+
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log),
+                                      fail=fail or "never"))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_cuda, "build_root", lambda: tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match=f"{fail} does not compile"):
+            _cuda.build()
+        assert not list((tmp_path / "build").rglob("*.so"))
+    else:
+        lib = _cuda.build()
+        assert lib == _cuda.build_dir() / _cuda.LIB_NAME and lib.exists()
+        assert "Used 8 registers" in (lib.parent / "build.log").read_text()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split()[-1] for c in compiles) == sorted(
+        str(p) for p in _cuda.sources())
+    links = [c for c in calls if c.startswith("-shared")]
+    assert len(links) == (0 if fail else 1)
+    assert not list((tmp_path / "build").rglob("*.o"))
 
 
 def test_kernel_build_root_outside_checkout(tmp_path, monkeypatch):
@@ -198,3 +267,163 @@ def test_modulate_and_timestep_embedding_match_jax():
             tl.timestep_embedding(torch.from_numpy(t), dim).numpy(),
             np.asarray(jl.timestep_embedding(jnp.asarray(t), dim)),
             atol=1e-4, rtol=0)
+
+
+BWD_TOL = 5e-5
+
+
+def _port_vjp(q, k, v, g, scale):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*ts, scale)
+    out.backward(torch.from_numpy(g))
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,scale", [
+    (2, 40, 37, 2, 72, 72 ** -0.5),      # ragged Sk
+    (1, 24, 40, 3, 72, 1.0 / 72),        # the cross-attention scale
+    (1, 48, 21, 2, 64, 64 ** -0.5),      # Sk < Sq
+])
+def test_flash_backward_matches_jax_vjp(B, Sq, Sk, H, D, scale):
+    """The autograd backward against jax.vjp of the JAX flash attention,
+    whose custom_vjp runs the single-pass Pallas backward (#4)."""
+    import jax
+
+    rng = np.random.default_rng(20)
+    q, k, v = _qkv(rng, B, Sq, Sk, H, D)
+    g = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    ref_out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, scale),
+                           *map(jnp.asarray, (q, k, v)))
+    out, grads = _port_vjp(q, k, v, g, scale)
+    np.testing.assert_allclose(out, np.asarray(ref_out), atol=TOL, rtol=0)
+    for got, ref, name in zip(grads, vjp(jnp.asarray(g)), "qkv"):
+        np.testing.assert_allclose(got, np.asarray(ref), atol=BWD_TOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_flash_backward_matches_jax_two_pass():
+    """The plain backward against the JAX two-pass Pallas pair (#5, #6),
+    reached with 128-key blocks, and the port's lse against the Pallas
+    forward's."""
+    from topiaxl.ops import flash_attention as fa
+
+    rng = np.random.default_rng(21)
+    B, Sq, Sk, H, D, scale = 1, 96, 300, 2, 72, 72 ** -0.5
+    q, k, v = _qkv(rng, B, Sq, Sk, H, D)
+    g = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out, lse = fa._flash_forward(jq, jk, jv, scale, block_q=128,
+                                 block_k=128, return_lse=True)
+    ref = fa._flash_backward(jq, jk, jv, out, lse, jg, scale, block_q=128,
+                             block_k=128, dkv_block_q=128, dkv_block_k=128)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, t_lse = flash_attention_plain(tq, tk, tv, scale, return_lse=True)
+    ref_lse = np.asarray(lse)[:, 0, :Sq].reshape(B, H, Sq)
+    np.testing.assert_allclose(t_lse.numpy(), ref_lse, atol=TOL, rtol=0)
+    got = flash_attention_backward(tq, tk, tv, o, t_lse, torch.from_numpy(g),
+                                   scale)
+    for a, b, name in zip(got, ref, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BWD_TOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_flash_lse_matches_jax_kernel():
+    from topiaxl.ops import flash_attention as fa
+
+    rng = np.random.default_rng(22)
+    B, Sq, Sk, H, D = 2, 33, 45, 2, 72
+    q, k, v = _qkv(rng, B, Sq, Sk, H, D)
+    _, lse = fa._flash_forward(*map(jnp.asarray, (q, k, v)), 0.2,
+                               return_lse=True)
+    _, got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)), 0.2,
+                                   return_lse=True)
+    assert got.shape == (B, H, Sq) and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(lse)[:, 0, :Sq].reshape(B, H, Sq),
+        atol=TOL, rtol=0)
+
+
+def test_backward_form_is_a_shape_rule():
+    """The single pass while the whole KV is one block of at most 2048
+    keys (the DiT's self- and cross-attention), the two-pass pair above."""
+    assert bwd_form(2048) == bwd_form(1370) == bwd_form(1) == "fused"
+    assert bwd_form(FUSED_BWD_MAX_KEYS + 1) == bwd_form(4096) == "two_pass"
+
+
+def test_backward_without_delta_fault():
+    """The planted fault of the backward checks moves dq and dk, not dv."""
+    rng = np.random.default_rng(23)
+    q, k, v = map(torch.from_numpy, _qkv(rng, 1, 12, 20, 2, 64))
+    g = torch.from_numpy(rng.standard_normal((1, 12, 2, 64)).astype("f"))
+    o, lse = flash_attention_plain(q, k, v, 0.125, return_lse=True)
+    good = flash_attention_bwd_plain(q, k, v, o, lse, g, 0.125)
+    bad = flash_attention_bwd_plain(q, k, v, o, lse, g, 0.125,
+                                    with_delta=False)
+    assert not torch.allclose(good[0], bad[0], atol=1e-3)
+    assert not torch.allclose(good[1], bad[1], atol=1e-3)
+    assert torch.equal(good[2], bad[2])
+
+
+def test_backward_unmasked_padding_fault():
+    """The planted fault that moves dv: with no padded keys it is the
+    plain backward; with padded keys every gradient moves, dv included."""
+    rng = np.random.default_rng(26)
+    for Sk, same in ((KEY_TILE, True), (KEY_TILE + 5, False)):
+        q, k, v = map(torch.from_numpy, _qkv(rng, 1, 12, Sk, 2, 64))
+        g = torch.from_numpy(rng.standard_normal((1, 12, 2, 64)).astype("f"))
+        o, lse = flash_attention_plain(q, k, v, 0.125, return_lse=True)
+        good = flash_attention_bwd_plain(q, k, v, o, lse, g, 0.125)
+        bad = flash_attention_bwd_unmasked(q, k, v, g, 0.125)
+        for a, b in zip(good, bad):
+            assert a.shape == b.shape
+            assert torch.equal(a, b) == same
+
+
+def test_no_grad_forward_saves_nothing():
+    """Serving (no input needs a gradient) keeps the plain forward: no
+    autograd node, the same values as under autograd."""
+    q, k, v = map(torch.from_numpy, _qkv(np.random.default_rng(24),
+                                         1, 9, 11, 2, 64))
+    out = flash_attention(q, k, v, 0.1)
+    assert out.grad_fn is None
+    qg = q.clone().requires_grad_()
+    out_g = flash_attention(qg, k, v, 0.1)
+    assert out_g.grad_fn is not None
+    assert torch.equal(out, out_g.detach())
+
+
+def test_ln_modulate_backward_matches_jax_vjp():
+    import jax
+
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((2, 16, 128)).astype(np.float32) * 3 + 1
+    sh, sc = (rng.standard_normal((2, 128)).astype(np.float32) for _ in "ab")
+    g = rng.standard_normal((2, 16, 128)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_ln(a, b, c, interpret=True),
+                     *map(jnp.asarray, (x, sh, sc)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, sh, sc)]
+    ln_modulate(*ts).backward(torch.from_numpy(g))
+    for t, ref, name in zip(ts, vjp(jnp.asarray(g)), ("x", "shift", "scale")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=0, err_msg=name)
+
+
+def test_ln_modulate_residual_backward_matches_jax_vjp():
+    import jax
+
+    rng = np.random.default_rng(26)
+    x, d, gx, gh = (rng.standard_normal((2, 8, 256)).astype(np.float32)
+                    for _ in range(4))
+    gate, sh, sc = (rng.standard_normal((2, 256)).astype(np.float32)
+                    for _ in "gsc")
+    _, vjp = jax.vjp(lambda *a: jax_ln_res(*a, interpret=True),
+                     *map(jnp.asarray, (x, d, gate, sh, sc)))
+    refs = vjp((jnp.asarray(gx), jnp.asarray(gh)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, d, gate, sh, sc)]
+    xn, h = ln_modulate_residual(*ts)
+    torch.autograd.backward((xn, h), (torch.from_numpy(gx),
+                                      torch.from_numpy(gh)))
+    for t, ref, name in zip(ts, refs, ("x", "delta", "gate", "shift",
+                                       "scale")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=0, err_msg=name)

@@ -15,7 +15,10 @@ synthetic inputs (``pipelines/synthetic.py``):
 - ``stage2``: ``extract_glb`` on the 2048-prim sphere shell at the config's
   ``mc_resolution`` and ``decimate`` (texture 1024, ``pos_scale`` 1.0),
   with the box and the LSCM unwrap in turn, twice each, so that the
-  second pair shows the warm times.
+  second pair shows the warm times;
+- ``train_step``: one training step of ``topiaxl_torch.cli.train`` (the
+  config's ``model.generator`` with f32 master weights, a synthetic batch
+  of ``train.batch_size``: forward, backward, fused AdamW + EMA).
 
 For each device region: wall ms per call (perf_counter around
 synchronised calls, no profiler attached), device ms per call (the sum
@@ -36,7 +39,9 @@ import torch
 
 # kernel-name substrings -> the layer they belong to
 _GROUPS = {"flash_attn_fwd": ("flash_fwd_kernel",),
+           "flash_attn_bwd": ("flash_bwd_",),
            "ln_modulate": ("ln_modulate_kernel",),
+           "optimizer": ("foreach", "multi_tensor"),
            "gemm": ("gemm", "cutlass", "nvjet", "xmma", "cublas"),
            "conv": ("conv", "cudnn", "implicit"),
            "norm": ("norm",)}
@@ -87,6 +92,37 @@ def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / repeats
         print(f"  {ms:8.3f} ms  x{e.count // repeats:<4d} {e.key[:100]}")
+    return out
+
+
+def profile_train_step(cfg, device) -> dict:
+    """One step of the trainer on one synthetic batch, repeated."""
+    from ..diffusion.schedule import create_diffusion
+    from ..pipelines.data import synthetic_batches
+    from ..pipelines.train import (
+        create_train_state, make_optimizer, make_train_step)
+    from .train import build_dit
+
+    g = cfg.model.generator
+    dit = build_dit(g, device, torch.Generator(device=device).manual_seed(0))
+    diffusion = create_diffusion(
+        timestep_respacing=None, noise_schedule=cfg.diffusion.noise_schedule,
+        diffusion_steps=cfg.diffusion.diffusion_steps,
+        parameterization=cfg.diffusion.parameterization, device=device)
+    state = create_train_state(dit)
+    step = make_train_step(dit, diffusion, make_optimizer(
+        lr=float(cfg.optimizer.lr), warmup_iters=int(cfg.scheduler.warmup_iters),
+        max_iters=int(cfg.scheduler.max_iters)))
+    batch = next(synthetic_batches(
+        int(cfg.train.batch_size), dit.seq_length, dit.in_channels,
+        cond_seq=int(cfg.train.get("cond_seq", 1370)),
+        cond_ch=dit.condition_channels))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats(device)
+    out = profile_region("train_step", lambda: step(state, batch, 0), 3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"  peak device memory {out['peak_gib']:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
     return out
 
 
@@ -165,6 +201,8 @@ def main(argv=None) -> int:
             print(f"[stage2] {json.dumps(tm)}", flush=True)
             runs.append(tm)
         report["stage2"] = runs
+    del dit, vae, encoder
+    report["train_step"] = profile_train_step(cfg, device)
     report["launches"] = dict(_cuda.launches)
     print(json.dumps(report))
     return 0

@@ -12,6 +12,12 @@ Layouts (inverse of the converter's rules):
 * ConvTranspose kernel [k..., in, out] with spatially flipped taps
   -> ConvTranspose3d weight [in, out, k...] (flip undone)
 * norm scale/bias                   -> weight/bias
+
+The maps are linear in the leaves, so any tree shaped like the
+parameters maps the same way: a gradient tree or an Adam moment tree
+(optax's ``mu`` / ``nu``) comes back under the port's parameter names.
+``dit_from_jax`` also takes the ``scan_blocks`` layout (``blocks.block.*``
+stacked on a leading depth axis, ``topiaxl/models/dit.py:502-530``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, np.float32))
 
 
 def _inner(tree: Mapping) -> Mapping:
@@ -58,8 +64,32 @@ def _count(p: Mapping, stem: str) -> int:
     return sum(1 for k in p if k.startswith(stem) and k[len(stem):].isdigit())
 
 
+def _unstack_blocks(p: Mapping) -> dict:
+    """The scan layout's ``blocks.block`` subtree, stacked on a leading
+    depth axis, as ``blocks_<i>`` entries (unstack_block_params, numpy)."""
+    p = dict(p)
+    stacked = p.pop("blocks")["block"]
+
+    def take(t, i):
+        if isinstance(t, Mapping):
+            return {k: take(v, i) for k, v in t.items()}
+        return np.asarray(t)[i]
+
+    def depth(t):
+        return depth(next(iter(t.values()))) if isinstance(t, Mapping) \
+            else np.asarray(t).shape[0]
+
+    for i in range(depth(stacked)):
+        p[f"blocks_{i}"] = take(stacked, i)
+    return p
+
+
 def dit_from_jax(tree: Mapping) -> dict:
+    """A DiT parameter tree (unrolled ``blocks_<i>`` or the scan layout),
+    or a gradient / moment tree of the same shape, as a state_dict."""
     p = _inner(tree)
+    if "blocks" in p:
+        p = _unstack_blocks(p)
     sd: dict = {}
     _linear(sd, "x_embedder", p["x_embedder"])
     _linear(sd, "t_embedder.mlp.0", p["t_embedder"]["fc1"])

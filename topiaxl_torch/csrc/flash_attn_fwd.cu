@@ -4,7 +4,10 @@
 // (wrapped by _flash_forward / flash_attention). It computes
 // softmax(q k^T * scale) v with an online softmax: logits, running max,
 // denominator and accumulator are f32; P is rounded to bf16 before the
-// P.V product, as the TPU kernel does; the output is bf16.
+// P.V product, as the TPU kernel does; the output is bf16. Given an lse
+// buffer it also writes the logsumexp of the scaled logits, f32 [B, H,
+// Sq] (the TPU kernel's lse_ref), which the backward kernels
+// (flash_attn_bwd.cu) rebuild the softmax from.
 //
 // What bounds it on an H100: tensor-core FLOPs. At the DiT's shapes
 // (2 x 2048 x 2048, 16 heads of 72) the kernel does ~2*2*Sq*Sk*D FLOPs
@@ -24,81 +27,34 @@
 //     exactly D/8 output column tiles;
 //   * ragged Sq and Sk (1370, 1374) are masked inside the kernel.
 // It is a simple first kernel: loads are synchronous (no cp.async/TMA
-// pipeline) and no wgmma. Those are later work.
+// pipeline) and no wgmma. Those are later work. The block shape and the
+// mma/tile helpers (mma_tile.cuh) are shared with the backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;   // q rows per block (16 per warp)
-constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegBig = -1e30f;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> packed bf16x2, `lo` in the low half (lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_u16(const __nv_bfloat16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
-}
-
-// rows [row0, row0 + 64) of one head into shared memory (row stride LD);
-// rows at or past `len` are written as zeros. Only columns < D are
-// written: the padding columns keep the zeros set at kernel start.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int len) {
-  constexpr int kVec = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < kBlockN * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = i - r * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int H, int Sq, int Sk,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int H, int Sq, int Sk,
                  long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
                  long long osb, long long oss, long long osh,
                  float scale_log2) {
-  constexpr int kSteps = (D + 15) / 16;  // Q K^T contraction steps
-  constexpr int DP = kSteps * 16;        // head dim padded in smem
-  constexpr int LD = DP + 8;             // smem row stride: no bank conflicts
-  constexpr int kDTiles = D / 8;         // output column tiles
-  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+  constexpr int kSteps = Dims<D>::kSteps;    // Q K^T contraction steps
+  constexpr int LD = Dims<D>::LD;
+  constexpr int kDTiles = Dims<D>::kDTiles;  // output column tiles
 
   __shared__ __align__(16) __nv_bfloat16 Qs[kBlockM * LD];
   __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * LD];
@@ -117,7 +73,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kh = k + b * ksb + h * ksh;
   const __nv_bfloat16* vh = v + b * vsb + h * vsh;
 
-  // zero all three tiles once, so the head-dim padding stays zero
+  // zero all three tiles once, so the head-dim padding stays zero and
+  // the tile loads write only the D real columns
   {
     constexpr int kWords = kBlockM * LD / 8;
     uint4 z = make_uint4(0u, 0u, 0u, 0u);
@@ -128,7 +85,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  load_tile<D, LD>(Qs, qh, qss, m0, Sq);
+  load_tile<D, false>(Qs, qh, qss, m0, Sq);
   __syncthreads();
 
   // this warp's 16 q rows as mma A fragments, kept in registers
@@ -157,8 +114,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, LD>(Ks, kh, kss, n0, Sk);
-    load_tile<D, LD>(Vs, vh, vss, n0, Sk);
+    load_tile<D, false>(Ks, kh, kss, n0, Sk);
+    load_tile<D, false>(Vs, vh, vss, n0, Sk);
     __syncthreads();
 
     // S = Q K^T over 8 column tiles of 8 keys
@@ -225,10 +182,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int dt = 0; dt < kDTiles; ++dt) {
         const int col = dt * 8 + g;
         uint32_t bf[2];
-        bf[0] = ld_u16(&Vs[key * LD + col]) |
-                (ld_u16(&Vs[(key + 1) * LD + col]) << 16);
-        bf[1] = ld_u16(&Vs[(key + 8) * LD + col]) |
-                (ld_u16(&Vs[(key + 9) * LD + col]) << 16);
+        bf[0] = ld_col2(&Vs[key * LD + col], LD);
+        bf[1] = ld_col2(&Vs[(key + 8) * LD + col], LD);
         mma_16816(acc[dt], pa, bf);
       }
     }
@@ -236,14 +191,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   // full row denominators (the 4 threads of a group share a row)
   float inv[2];
+  const int row_a = m0 + warp * 16 + g;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
+    l = fmaxf(l, 1e-30f);
+    inv[r] = 1.f / l;
+    // lse = m + log(l) in natural units; m_run is in log2 units
+    if (lse != nullptr && tg == 0 && row_a + 8 * r < Sq) {
+      lse[static_cast<long long>(blockIdx.y) * Sq + row_a + 8 * r] =
+          (m_run[r] + log2f(l)) * 0.6931471805599453f;
+    }
   }
-  const int row_a = m0 + warp * 16 + g;
   __nv_bfloat16* oh = o + b * osb + h * osh;
 #pragma unroll
   for (int dt = 0; dt < kDTiles; ++dt) {
@@ -262,10 +223,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Sk, H, D], o [B, Sq, H, D]: bf16, strides in
-// elements, last dim contiguous. D must be 64 or 72. Returns the CUDA
-// error code of the launch (0 on success).
+// elements, last dim contiguous. D must be 64 or 72. lse is null or an
+// f32 [B, H, Sq] contiguous buffer. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int topiaxl_flash_attn_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int B, int H,
     int Sq, int Sk, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
@@ -277,13 +240,14 @@ extern "C" int topiaxl_flash_attn_fwd(
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
   if (D == 72) {
     flash_fwd_kernel<72><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, H, Sq, Sk, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+        qp, kp, vp, op, lp, H, Sq, Sk, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
         vsh, osb, oss, osh, scale_log2);
   } else if (D == 64) {
     flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, H, Sq, Sk, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+        qp, kp, vp, op, lp, H, Sq, Sk, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
         vsh, osb, oss, osh, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

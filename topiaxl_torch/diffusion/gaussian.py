@@ -1,6 +1,8 @@
-"""Gaussian-diffusion sampling (counterpart of
-``topiaxl/diffusion/gaussian.py``): p_mean_variance, the DDIM step and
-the DDIM chain as a Python loop over the spaced timesteps.
+"""Gaussian diffusion (counterpart of ``topiaxl/diffusion/gaussian.py``):
+p_mean_variance, the DDIM step and the DDIM chain as a Python loop over
+the spaced timesteps; q_sample and the training losses (MSE on the
+eps / x0 / v target plus the variational-bound term for a learned
+variance).
 
 ``model_fn`` receives ``(x, t_original)``, where ``t_original`` is the
 spaced index already mapped through ``tables.timestep_map``.
@@ -8,6 +10,7 @@ spaced index already mapped through ``tables.timestep_map``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -21,6 +24,27 @@ def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-batch scalars table[t], broadcastable over ``ndim`` dims."""
     out = table[t].float()
     return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+def q_sample(tables: DiffusionTables, x_start, t, noise):
+    """Sample q(x_t | x_0) (reference gaussian_diffusion.py:216-231)."""
+    nd = x_start.ndim
+    return (_extract(tables.sqrt_alphas_cumprod, t, nd) * x_start
+            + _extract(tables.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def q_mean_variance(tables: DiffusionTables, x_start, t):
+    nd = x_start.ndim
+    return (_extract(tables.sqrt_alphas_cumprod, t, nd) * x_start,
+            _extract(1.0 - tables.alphas_cumprod, t, nd),
+            _extract(tables.log_one_minus_alphas_cumprod, t, nd))
+
+
+def get_v(tables: DiffusionTables, x, noise, t):
+    """Velocity target (gaussian_diffusion.py:358-362)."""
+    nd = x.ndim
+    return (_extract(tables.sqrt_alphas_cumprod, t, nd) * noise
+            - _extract(tables.sqrt_one_minus_alphas_cumprod, t, nd) * x)
 
 
 def q_posterior_mean_variance(tables: DiffusionTables, x_start, x_t, t):
@@ -122,3 +146,95 @@ def ddim_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
                        device=noise.device)
         x, pred = ddim_sample(diffusion, model_fn, x, t)
     return SampleLoopOutput(x, pred)
+
+
+# ---------------------------------------------------------------------------
+# Likelihoods / training losses
+# ---------------------------------------------------------------------------
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two Gaussians (reference diffusion_utils.py:10-36)."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                   * (x + 0.044715 * torch.pow(x, 3))))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of a Gaussian discretised to 1/255 bins
+    (reference diffusion_utils.py:62-88)."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(
+        x < -0.999, log_cdf_plus,
+        torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def mean_flat(x):
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
+def vb_terms_bpd(diffusion: Diffusion, model_fn: ModelFn, x_start, x_t, t):
+    """Variational-bound term in bits/dim (reference
+    gaussian_diffusion.py:700-731); returns (bpd [B], pred_xstart)."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(
+        diffusion.tables, x_start, x_t, t)
+    out = p_mean_variance(diffusion, model_fn, x_t, t)
+    kl = mean_flat(normal_kl(true_mean, true_log_var, out.mean,
+                             out.log_variance)) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out.mean, log_scales=0.5 * out.log_variance)
+    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    return torch.where(t == 0, decoder_nll, kl), out.pred_xstart
+
+
+def training_losses(diffusion: Diffusion, model_fn: ModelFn, x_start, t,
+                    noise=None, generator: torch.Generator | None = None):
+    """Per-example training losses {loss_total, loss_mse[, loss_vb]}
+    (reference gaussian_diffusion.py:733-806). ``t`` indexes the chain
+    (unspaced for training, so it is the original timestep); the noise
+    is drawn from ``generator`` when not given."""
+    tables = diffusion.tables
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator,
+                            device=x_start.device, dtype=x_start.dtype)
+    x_t = q_sample(tables, x_start, t, noise)
+    terms = {}
+    if diffusion.loss_type in ("kl", "rescaled_kl"):
+        terms["loss_total"], _ = vb_terms_bpd(diffusion, model_fn, x_start,
+                                              x_t, t)
+        if diffusion.loss_type == "rescaled_kl":
+            terms["loss_total"] = terms["loss_total"] * diffusion.num_timesteps
+        return terms
+
+    model_output = model_fn(x_t, tables.timestep_map[t]).float()
+    if diffusion.var_type == "learned_range":
+        model_output, var_values = model_output.chunk(2, dim=-1)
+        # the VB term learns the variance without moving the mean
+        # prediction (frozen_out, gaussian_diffusion.py:776-787)
+        frozen_out = torch.cat([model_output.detach(), var_values], dim=-1)
+        vb, _ = vb_terms_bpd(diffusion, lambda *_: frozen_out, x_start, x_t,
+                             t)
+        if diffusion.loss_type == "rescaled_mse":
+            vb = vb * (diffusion.num_timesteps / 1000.0)
+        terms["loss_vb"] = vb
+
+    if diffusion.mean_type == "xstart":
+        target = x_start
+    elif diffusion.mean_type == "eps":
+        target = noise
+    elif diffusion.mean_type == "v":
+        target = get_v(tables, x_start, noise, t)
+    else:
+        raise NotImplementedError(diffusion.mean_type)
+    terms["loss_mse"] = mean_flat((target - model_output) ** 2)
+    terms["loss_total"] = terms["loss_mse"] + terms.get("loss_vb", 0.0)
+    return terms

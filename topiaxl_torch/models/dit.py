@@ -13,6 +13,13 @@ branch's cross-attention to one vector per block;
 and cross-attention on the cond half only. Every block's three
 LN+modulate boundaries go through the fused kernels in
 ``ops/fused_ln.py``.
+
+Training path: ``forward(x, t, y, drop)`` (``topiaxl/models/dit.py:
+424-453``) replaces the dropped samples' conditioning by the null
+embedding, then runs ``precompute_kv`` and ``forward_kv`` with
+gradients; ``cond_drop_mask`` draws the mask from an explicit generator.
+Train with ``param_dtype=torch.float32`` (f32 master weights, bf16
+compute).
 """
 
 from __future__ import annotations
@@ -35,16 +42,17 @@ from .layers import (
 class DiTBlock(nn.Module):
     def __init__(self, hidden_size: int, cond_dim: int, num_heads: int,
                  mlp_ratio: float = 4.0, proj_bias: bool = True,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, param_dtype=None):
         super().__init__()
         self.dtype = dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.crossattn = CrossAttention(hidden_size, cond_dim, num_heads,
                                         qkv_bias=True, proj_bias=proj_bias,
-                                        dtype=dtype)
+                                        **kw)
         self.attn = SelfAttention(hidden_size, num_heads, qkv_bias=True,
-                                  proj_bias=proj_bias, dtype=dtype)
+                                  proj_bias=proj_bias, **kw)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
-                       dtype=dtype)
+                       **kw)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), linear(hidden_size, 9 * hidden_size))
 
@@ -82,10 +90,11 @@ class FinalLayer(nn.Module):
     """adaLN (2-way) + projection; the result is returned in f32."""
 
     def __init__(self, hidden_size: int, out_channels: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, param_dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.linear = linear(hidden_size, out_channels, dtype=dtype)
+        self.linear = linear(hidden_size, out_channels, dtype=dtype,
+                             param_dtype=param_dtype)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), linear(hidden_size, 2 * hidden_size))
 
@@ -101,8 +110,9 @@ class DiT(nn.Module):
     def __init__(self, seq_length: int = 2048, in_channels: int = 68,
                  condition_channels: int = 768, hidden_size: int = 1152,
                  depth: int = 28, num_heads: int = 16, mlp_ratio: float = 4.0,
-                 attn_proj_bias: bool = True, learn_sigma: bool = True,
-                 dtype=torch.bfloat16, device=None,
+                 cond_drop_prob: float = 0.0, attn_proj_bias: bool = True,
+                 learn_sigma: bool = True, dtype=torch.bfloat16,
+                 param_dtype=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.seq_length = seq_length
@@ -110,14 +120,18 @@ class DiT(nn.Module):
         self.condition_channels = condition_channels
         self.hidden_size = hidden_size
         self.depth = depth
+        self.cond_drop_prob = cond_drop_prob
         self.dtype = dtype
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
-        self.x_embedder = linear(in_channels, hidden_size, dtype=dtype)
+        self.x_embedder = linear(in_channels, hidden_size, dtype=dtype,
+                                 param_dtype=param_dtype)
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.blocks = nn.ModuleList(
             DiTBlock(hidden_size, condition_channels, num_heads, mlp_ratio,
-                     attn_proj_bias, dtype) for _ in range(depth))
-        self.final_layer = FinalLayer(hidden_size, self.out_channels, dtype)
+                     attn_proj_bias, dtype, param_dtype)
+            for _ in range(depth))
+        self.final_layer = FinalLayer(hidden_size, self.out_channels, dtype,
+                                      param_dtype)
         self.null_cond_embedding = nn.Parameter(
             torch.empty(condition_channels, device="meta"))
         materialize_(self, device, generator, DiT.init_weights)
@@ -157,6 +171,24 @@ class DiT(nn.Module):
         for blk, kv in zip(self.blocks, kvs):
             h = blk(h, kv, t_emb)
         return self.final_layer(h, t_emb)
+
+    def cond_drop_mask(self, batch: int, generator: torch.Generator,
+                       device=None) -> torch.Tensor | None:
+        """[batch] bool, True where a sample's conditioning is dropped
+        (probability ``cond_drop_prob``); None when nothing is dropped."""
+        if self.cond_drop_prob <= 0:
+            return None
+        u = torch.rand(batch, generator=generator, device=device)
+        return u < self.cond_drop_prob
+
+    def forward(self, x, t, y, drop: torch.Tensor | None = None):
+        """Training forward: x [B, N, C_in], t [B], y [B, M, C_cond] ->
+        [B, N, C_out] f32. Samples where ``drop`` is True see the null
+        embedding as their conditioning (reference dit_crossattn.py:193-196)."""
+        if drop is not None:
+            null = self.null_cond_embedding.to(y.dtype)[None, None, :]
+            y = torch.where(drop.to(y.device)[:, None, None], null, y)
+        return self.forward_kv(x, t, self.precompute_kv(y))
 
     def forward_with_cfg_fast(self, x, t, kvs_cond, null_outs,
                               cfg_scale: float):

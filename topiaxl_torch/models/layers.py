@@ -4,9 +4,13 @@ Reference torch key layout (``topiaxl/core/convert.py``): every module
 here names its parameters the way the released checkpoints do, so a
 reference state_dict loads with ``load_state_dict(strict=True)``.
 
-Mixed precision as in the JAX package: the matmul layers hold their
-weights in the compute dtype (bf16 when serving) and cast their input to
-it; LayerNorm statistics, softmax and the timestep/adaLN MLPs stay f32.
+Mixed precision as in the JAX package (flax's ``dtype`` and
+``param_dtype``): a matmul layer holds its weights in ``param_dtype`` and
+computes in ``dtype``, casting weight, bias and input to it at each call
+(explicit casts, not ``torch.autocast``, so the numerics follow the JAX
+modules). Serving holds the weights in the compute dtype (bf16), so the
+casts are no-ops; training holds f32 master weights. LayerNorm
+statistics, softmax and the timestep/adaLN MLPs stay f32.
 
 Models are built on the ``meta`` device and materialised by
 ``materialize_``: parameters are filled from an explicit
@@ -27,9 +31,26 @@ from ..ops.attention import multi_head_attention
 META = torch.device("meta")
 
 
-def linear(in_f: int, out_f: int, bias: bool = True,
-           dtype=torch.float32) -> nn.Linear:
-    return nn.Linear(in_f, out_f, bias=bias, dtype=dtype, device=META)
+class Dense(nn.Linear):
+    """``nn.Linear`` with weights in ``param_dtype`` computing in
+    ``dtype``: weight, bias and input are cast to ``dtype`` at each call
+    (no-ops when the two agree), as flax's ``nn.Dense`` does."""
+
+    def __init__(self, in_f: int, out_f: int, bias: bool = True,
+                 dtype=torch.float32, param_dtype=None):
+        super().__init__(in_f, out_f, bias=bias, device=META,
+                         dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def linear(in_f: int, out_f: int, bias: bool = True, dtype=torch.float32,
+           param_dtype=None) -> Dense:
+    return Dense(in_f, out_f, bias=bias, dtype=dtype, param_dtype=param_dtype)
 
 
 def xavier_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -109,31 +130,35 @@ class Mlp(nn.Module):
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, dtype=torch.bfloat16,
-                 approximate: str = "tanh"):
+                 approximate: str = "tanh", param_dtype=None):
         super().__init__()
-        self.fc1 = linear(in_features, hidden_features, dtype=dtype)
-        self.fc2 = linear(hidden_features, out_features, dtype=dtype)
+        self.fc1 = linear(in_features, hidden_features, dtype=dtype,
+                          param_dtype=param_dtype)
+        self.fc2 = linear(hidden_features, out_features, dtype=dtype,
+                          param_dtype=param_dtype)
         self.approximate = approximate
 
     def forward(self, x):
-        x = self.fc1(x.to(self.fc1.weight.dtype))
-        return self.fc2(F.gelu(x, approximate=self.approximate))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class SelfAttention(nn.Module):
     """Fused-QKV self-attention (keys ``qkv``, ``proj``)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 proj_bias: bool = True, dtype=torch.bfloat16):
+                 proj_bias: bool = True, dtype=torch.bfloat16,
+                 param_dtype=None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
-        self.proj = linear(dim, dim, bias=proj_bias, dtype=dtype)
+        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+                          param_dtype=param_dtype)
+        self.proj = linear(dim, dim, bias=proj_bias, dtype=dtype,
+                           param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
         hd = self.dim // self.num_heads
-        qkv = self.qkv(x.to(self.qkv.weight.dtype))
+        qkv = self.qkv(x)
         q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).unbind(2)
         out = multi_head_attention(q, k, v, scale=hd ** -0.5)
         return self.proj(out.reshape(B, N, self.dim))
@@ -149,20 +174,21 @@ class CrossAttention(nn.Module):
 
     def __init__(self, dim: int, cond_dim: int, num_heads: int,
                  qkv_bias: bool = True, proj_bias: bool = True,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, param_dtype=None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.to_q = linear(dim, dim, bias=qkv_bias, dtype=dtype)
-        self.to_k = linear(cond_dim, dim, bias=qkv_bias, dtype=dtype)
-        self.to_v = linear(cond_dim, dim, bias=qkv_bias, dtype=dtype)
-        self.proj = linear(dim, dim, bias=proj_bias, dtype=dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.to_q = linear(dim, dim, bias=qkv_bias, **kw)
+        self.to_k = linear(cond_dim, dim, bias=qkv_bias, **kw)
+        self.to_v = linear(cond_dim, dim, bias=qkv_bias, **kw)
+        self.proj = linear(dim, dim, bias=proj_bias, **kw)
 
     def kv(self, ctx: torch.Tensor):
         """Per-head K/V [B, M, H, hd] of the conditioning sequence; constant
         over the denoise chain, so callers compute it once per asset."""
         B, M, _ = ctx.shape
         hd = self.dim // self.num_heads
-        ctx = ctx.to(self.to_k.weight.dtype)
+        ctx = ctx.to(self.to_k.compute_dtype)
         k = self.to_k(ctx).reshape(B, M, self.num_heads, hd)
         v = self.to_v(ctx).reshape(B, M, self.num_heads, hd)
         return k, v
@@ -176,8 +202,7 @@ class CrossAttention(nn.Module):
     def attend(self, x, k, v):
         B, N, _ = x.shape
         hd = self.dim // self.num_heads
-        q = self.to_q(x.to(self.to_q.weight.dtype)).reshape(
-            B, N, self.num_heads, hd)
+        q = self.to_q(x).reshape(B, N, self.num_heads, hd)
         out = multi_head_attention(q, k, v, scale=float(hd) ** -1.0)
         return self.proj(out.reshape(B, N, self.dim))
 

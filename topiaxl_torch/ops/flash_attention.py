@@ -1,17 +1,35 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain twin.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain twins.
 
-The kernel (``csrc/flash_attn_fwd.cu``) replaces the TPU kernel
-``topiaxl/ops/flash_attention.py:_flash_kernel``. Attention is bound by
-tensor-core FLOPs at the DiT's shapes; the kernel keeps logits out of
-device memory and runs both products on ``mma.sync`` (see the source's
-header for the design).
+The kernels replace the TPU kernels of ``topiaxl/ops/flash_attention.py``:
+``csrc/flash_attn_fwd.cu`` replaces ``_flash_kernel`` (with its lse
+output), ``csrc/flash_attn_bwd.cu`` replaces ``_flash_bwd_fused_kernel``
+(``flash_attn_bwd``), ``_flash_bwd_dq_kernel`` (``flash_attn_bwd_dq``) and
+``_flash_bwd_dkv_kernel`` (``flash_attn_bwd_dkv``). Attention is bound by
+tensor-core FLOPs at the DiT's shapes; the kernels keep logits out of
+device memory and run every product on ``mma.sync`` (see the sources'
+headers for the designs).
 
-Numerics contract, shared by kernel and plain version: logits, softmax
+Forward numerics, shared by kernel and plain version: logits, softmax
 max and denominator in f32; probabilities rounded to the input dtype
 before the P.V product with f32 accumulation; output in the input
-dtype. The kernel applies ``scale`` to the f32 logits, where the TPU
-wrapper folds it into q in bf16 (``flash_attention.py:238``); the two
-differ by at most one bf16 rounding of q.
+dtype; lse = logsumexp of the scaled logits, f32 [B, H, Sq]. The kernel
+applies ``scale`` to the f32 logits, where the TPU wrapper folds it into
+q in bf16 (``flash_attention.py:238``); the two differ by at most one
+bf16 rounding of q.
+
+Backward numerics (``flash_attention_bwd_plain``): p = exp(logits *
+scale - lse) in f32; delta = rowsum(dO * o) in f32; P rounded to the
+input dtype for dv; dS = p * (dP - delta) rounded to the input dtype for
+dq and dk; f32 accumulation; the scale applied to dq and dk. Two planted
+faults let the kernel checks show that their bars see a wrong gradient:
+the backward without delta (moves dq, dk) and the pair with padded keys
+left unmasked (``flash_attention_bwd_unmasked``, moves dv too).
+
+Which backward runs is a shape rule, as in the JAX package
+(``_select_fused_chunk``): the single-pass kernel when the whole KV is
+one block of at most ``FUSED_BWD_MAX_KEYS`` keys (the DiT's self- and
+cross-attention), the two-pass dq + dk/dv pair otherwise.
 """
 
 from __future__ import annotations
@@ -22,28 +40,83 @@ from . import _cuda
 
 HEAD_DIMS = (64, 72)
 KEY_TILE = 64   # keys per K/V tile in the kernel (kBlockN): Sk pads to this
+FUSED_BWD_MAX_KEYS = 2048
+
+
+def bwd_form(sk: int) -> str:
+    """``"fused"`` (one pass, dq by atomics) or ``"two_pass"`` (dq pass +
+    dk/dv pass) for a key length ``sk``."""
+    return "fused" if sk <= FUSED_BWD_MAX_KEYS else "two_pass"
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, return_lse: bool = False):
+    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D] (and the lse
+    [B, H, Sq] f32 with ``return_lse``), materialising the f32 logits (the
+    counterpart of ``topiaxl.ops.attention``'s einsum path, which computes
+    the same function)."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
+    out = out.to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
 def flash_attention_unmasked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             scale: float) -> torch.Tensor:
+                             scale: float, return_lse: bool = False):
     """A planted fault for the kernel checks: the plain version over K/V
     zero-padded to the kernel's tile with the padding left unmasked, which
     is what a kernel that dropped its ``col < Sk`` test would compute."""
     pad = -k.shape[1] % KEY_TILE
     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    return flash_attention_plain(q, k, v, scale)
+    return flash_attention_plain(q, k, v, scale, return_lse)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float) -> torch.Tensor:
-    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D], materialising
-    the f32 logits (the counterpart of ``topiaxl.ops.attention``'s einsum
-    path, which computes the same function)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    probs = torch.softmax(logits * scale, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
-    return out.to(q.dtype)
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float,
+                              with_delta: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` from the saved o and lse,
+    materialising P. ``with_delta=False`` is a planted fault for the
+    kernel checks: dS without the ``- delta`` term, what a kernel that
+    dropped its rowsum(dO * o) would compute."""
+    dt = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(logits - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    if with_delta:
+        delta = (dof * o.float()).sum(-1).transpose(1, 2)   # [B, H, Sq]
+        dp = dp - delta[..., None]
+    ds = (p * dp).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_unmasked(q, k, v, do, scale: float):
+    """A planted fault for the backward checks that moves dv: (dq, dk, dv)
+    of a forward and backward that leave the kernel's zero-padded keys
+    unmasked. The padded keys take softmax mass from the real ones, so P
+    shrinks and dv with it (by about the padded keys' share of the mass);
+    with no padded keys it is the plain backward."""
+    n = k.shape[1]
+    pad = -n % KEY_TILE
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    o, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    return dq, dk[:, :n], dv[:, :n]
+
+
+def _check_stream(name, t):
+    if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
+        raise ValueError(f"{name}: last dim must be contiguous and the "
+                         f"other strides multiples of 8, got {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
 def _check(q, k, v):
@@ -62,33 +135,113 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
-            raise ValueError(f"{name}: last dim must be contiguous and the "
-                             f"other strides multiples of 8, got {t.stride()}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: data must be 16-byte aligned")
+        _check_stream(name, t)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D].
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bf16, head_dim 64 or 72, any strides with a contiguous last dim) or
-    raise."""
+def _forward(q, k, v, scale, return_lse):
+    """(o, lse or None): the plain version on CPU tensors, the kernel on
+    CUDA tensors."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
+        if return_lse:
+            return flash_attention_plain(q, k, v, scale, return_lse=True)
+        return flash_attention_plain(q, k, v, scale), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    lib = _cuda.library()
-    rc = lib.topiaxl_flash_attn_fwd(
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    rc = _cuda.library().topiaxl_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
         B, H, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *o.stride()[:3], float(scale), _cuda.stream_of(q))
     _cuda.check(rc, "flash_attn_fwd")
     _cuda.count_launch("flash_attn_fwd")
-    return o
+    return o, lse
+
+
+def _bwd_launch(name, q, k, v, o, lse, do, dq, dk, dv, scale):
+    B, Sq, H, D = q.shape
+    rc = getattr(_cuda.library(), f"topiaxl_{name}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), *(0 if t is None else t.data_ptr()
+                                         for t in (dq, dk, dv)),
+        B, H, Sq, k.shape[1], D, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], float(scale),
+        _cuda.stream_of(q))
+    _cuda.check(rc, name)
+    _cuda.count_launch(name)
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) from the forward's o and lse. CPU tensors take the
+    plain version; CUDA tensors launch the kernels (``bwd_form`` picks
+    which) or raise. Gradients come back contiguous [B, S, H, D]."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name}: expected {q.dtype} {tuple(q.shape)} "
+                             f"on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        _check_stream(name, t)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse: expected contiguous f32 [{B}, {H}, {Sq}] on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} "
+                         f"{lse.stride()} on {lse.device}")
+    dk = torch.empty((B, Sk, H, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if bwd_form(Sk) == "fused":
+        dq_acc = torch.zeros((B, Sq, H, D), dtype=torch.float32,
+                             device=q.device)
+        _bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, dq_acc, dk, dv,
+                    scale)
+        return dq_acc.to(q.dtype), dk, dv
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_attn_bwd_dq", q, k, v, o, lse, do, dq, None, None,
+                scale)
+    _bwd_launch("flash_attn_bwd_dkv", q, k, v, o, lse, do, None, dk, dv,
+                scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves (q, k, v, o, lse), as ``topiaxl``'s ``_fwd`` does;
+    backward runs ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _forward(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, do.to(q.dtype).contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D], differentiable.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    (bf16, head_dim 64 or 72, any strides with a contiguous last dim) or
+    raise. Under autograd with an input that needs a gradient the forward
+    also writes the lse and the backward runs the backward kernels."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale, return_lse=False)[0]

@@ -11,6 +11,12 @@ over the last dim with f32 mean and (two-pass) variance, eps before the
 rsqrt; ``y * (1 + scale) + shift`` in f32 with per-batch [B, D]
 shift/scale; one cast per output. In the residual form, h is taken from
 the unrounded f32 ``x + gate * delta``.
+
+Gradients: under autograd with an input that needs one, both functions
+run through ``torch.autograd.Function``s whose forward is the kernel (or
+the plain version on the CPU) and whose backward is the analytic VJP of
+``topiaxl/ops/fused_ln.py:_bwd`` / ``:_res_bwd`` in plain PyTorch (f32,
+one cast per gradient). On the TPU that backward is plain XLA too.
 """
 
 from __future__ import annotations
@@ -73,11 +79,7 @@ def _check_out_dtype(x, out_dtype):
         raise ValueError(f"kernel writes {x.dtype}, asked for {out_dtype}")
 
 
-def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-6, out_dtype=None) -> torch.Tensor:
-    """x [B, N, D], shift/scale [B, D] -> [B, N, D] in ``out_dtype``
-    (default x.dtype). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16, D a multiple of 8 up to MAX_D) or raise."""
+def _ln_modulate(x, shift, scale, eps, out_dtype):
     if x.device.type == "cpu":
         return ln_modulate_plain(x, shift, scale, eps, out_dtype)
     if x.device.type != "cuda":
@@ -99,10 +101,7 @@ def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def ln_modulate_residual(x, delta, gate, shift, scale, eps: float = 1e-6,
-                         out_dtype=None):
-    """``x_new = x + gate[:, None] * delta``, ``h = modulate(LN(x_new))``;
-    returns ``(x_new, h)``. Same device rule as ``ln_modulate``."""
+def _ln_modulate_residual(x, delta, gate, shift, scale, eps, out_dtype):
     if x.device.type == "cpu":
         return ln_modulate_residual_plain(x, delta, gate, shift, scale, eps,
                                           out_dtype)
@@ -129,3 +128,81 @@ def ln_modulate_residual(x, delta, gate, shift, scale, eps: float = 1e-6,
     _cuda.check(rc, "ln_modulate_residual")
     _cuda.count_launch("ln_modulate_residual")
     return x_out, h
+
+
+def _ln_bwd(xn32, g_h, scale, eps):
+    """(dxn, d_shift, d_scale) in f32 of h = modulate(LN(xn)) for the f32
+    pre-LN stream ``xn32`` (``topiaxl/ops/fused_ln.py:89-102``)."""
+    xc = xn32 - xn32.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    y = xc * inv
+    gh = g_h.float()
+    d_shift = gh.sum(dim=1)
+    d_scale = (gh * y).sum(dim=1)
+    dy = gh * (1.0 + scale.float())[:, None, :]
+    dxn = inv * (dy - dy.mean(dim=-1, keepdim=True)
+                 - y * (dy * y).mean(dim=-1, keepdim=True))
+    return dxn, d_shift, d_scale
+
+
+class _LnModulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, scale, eps, out_dtype):
+        ctx.save_for_backward(x, shift, scale)
+        ctx.eps = eps
+        return _ln_modulate(x, shift, scale, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, shift, scale = ctx.saved_tensors
+        dx, d_shift, d_scale = _ln_bwd(x.float(), g, scale, ctx.eps)
+        return (dx.to(x.dtype), d_shift.to(shift.dtype),
+                d_scale.to(scale.dtype), None, None)
+
+
+class _LnModulateResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, delta, gate, shift, scale, eps, out_dtype):
+        ctx.save_for_backward(x, delta, gate, shift, scale)
+        ctx.eps = eps
+        return _ln_modulate_residual(x, delta, gate, shift, scale, eps,
+                                     out_dtype)
+
+    @staticmethod
+    def backward(ctx, g_xn, g_h):
+        """``topiaxl/ops/fused_ln.py:165-183``."""
+        x, delta, gate, shift, scale = ctx.saved_tensors
+        gate32, delta32 = gate.float()[:, None, :], delta.float()
+        xn = x.float() + gate32 * delta32
+        dxn, d_shift, d_scale = _ln_bwd(xn, g_h, scale, ctx.eps)
+        if g_xn is not None:
+            dxn = dxn + g_xn.float()
+        return (dxn.to(x.dtype), (dxn * gate32).to(delta.dtype),
+                (dxn * delta32).sum(dim=1).to(gate.dtype),
+                d_shift.to(shift.dtype), d_scale.to(scale.dtype), None, None)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6, out_dtype=None) -> torch.Tensor:
+    """x [B, N, D], shift/scale [B, D] -> [B, N, D] in ``out_dtype``
+    (default x.dtype). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (bf16, D a multiple of 8 up to MAX_D) or raise.
+    Differentiable in x, shift and scale."""
+    if _needs_grad(x, shift, scale):
+        return _LnModulate.apply(x, shift, scale, eps, out_dtype)
+    return _ln_modulate(x, shift, scale, eps, out_dtype)
+
+
+def ln_modulate_residual(x, delta, gate, shift, scale, eps: float = 1e-6,
+                         out_dtype=None):
+    """``x_new = x + gate[:, None] * delta``, ``h = modulate(LN(x_new))``;
+    returns ``(x_new, h)``. Same device rule as ``ln_modulate``;
+    differentiable in all five tensors."""
+    if _needs_grad(x, delta, gate, shift, scale):
+        return _LnModulateResidual.apply(x, delta, gate, shift, scale, eps,
+                                         out_dtype)
+    return _ln_modulate_residual(x, delta, gate, shift, scale, eps, out_dtype)
