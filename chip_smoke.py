@@ -7,10 +7,16 @@ Phases (each prints one line with its seconds; any failure raises and
 the script exits non-zero without a result line):
 
 1. device: a CUDA card must be present; prints its name and power limit.
-2. build: compiles ``topiaxl_torch/csrc/*.cu`` from this checkout (and
-   readies the shared host stages' C++ library).
+2. build: compiles ``topiaxl_torch/csrc/*.cu`` from this checkout (no
+   kernel may spill) and the host stages' C++ library
+   (``topiaxl_torch/native``, g++).
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes, in bf16 on the card, with max error and times.
+   path's shapes, in bf16 on the card, with max error and times, beside
+   its bound (the larger of its FLOPs over 989 TFLOP/s and its bytes over
+   3.35 TB/s, counted from the shapes) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``:
+   ``scaled_dot_product_attention`` and its flash backward, used here as
+   a yardstick and nowhere in the port).
 4. serving: ``topiaxl_torch.cli.infer.main`` on two synthetic images at
    the flagship config (``configs/inference_dit.yml``, random weights,
    no GLB export), with the exact kernel launch counts per image.
@@ -35,7 +41,8 @@ shapes (batch 8 for the flagship, 4096 prims at batch 2), with planted
 faults that must land above each bar.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
+the JAX package (``topiaxl``).
 """
 
 from __future__ import annotations
@@ -102,7 +109,7 @@ DIT_BAR = 5e-2      # max |card bf16 - cpu f32| / max |cpu f32|, one CFG step
 # keys unmasked adds log(1 + n_pad / sum) ~ 1e-2 at the cross shape)
 LSE_ABS_BAR = 1e-4
 # backward: max |kernel - plain| / max |plain| per gradient, both from the
-# same o and lse; bf16 P and dS on both sides, dq summed by f32 atomics in
+# same o and lse; bf16 P and dS on both sides, dq summed by f32 reductions in
 # the single pass. Sound kernels read 1.1e-3 to 6.8e-3 at the training
 # shapes. Two planted faults must land above the bar: the plain backward
 # without delta for dq and dk (2.1e-2 at cross dk to 2.1e-1; delta does
@@ -111,10 +118,16 @@ LSE_ABS_BAR = 1e-4
 # of the softmax mass, ~2.2e-2 to 2.9e-2 at these shapes).
 ATTN_BWD_REL_BAR = 1.2e-2
 
+# the card's peaks for the bounds (H100 SXM data sheet: dense bf16 on the
+# tensor cores, f32 outside them, HBM3)
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
 KERNELS = {
     "flash_attn_fwd": ("topiaxl_torch/csrc/flash_attn_fwd.cu",
                        "topiaxl/ops/flash_attention.py:70"),
-    "flash_attn_bwd": ("topiaxl_torch/csrc/flash_attn_bwd.cu",
+    "flash_attn_bwd": ("topiaxl_torch/csrc/flash_attn_bwd_sm90.cu",
                        "topiaxl/ops/flash_attention.py:369"),
     "flash_attn_bwd_dq": ("topiaxl_torch/csrc/flash_attn_bwd.cu",
                           "topiaxl/ops/flash_attention.py:282"),
@@ -145,19 +158,78 @@ class Phase:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device ms per call over ``iters`` calls after one warm-up."""
+    """Mean device ms per call: ``iters`` calls captured in one CUDA graph
+    after a warm-up call, its replay timed by CUDA events. The graph keeps
+    the host's cost of each call through the kernel wrappers out of the
+    reading: launched one by one, a kernel shorter than that (the DINOv2
+    forward) reads the host's time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(stop) / iters
+
+
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """(least ms the card could take for ``flops`` at ``peak`` and
+    ``nbytes`` at the memory rate, "operations" or "bytes")."""
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_forward_ms(q, k, v, scale: float, iters: int):
+    """(ms, backend) of ``scaled_dot_product_attention`` on the same
+    [B, S, H, D] tensors viewed as [B, H, S, D], its flash backend forced;
+    (None, the error) where that backend refuses them."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return (cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale), iters),
+                    SDPBackend.FLASH_ATTENTION.name)
+    except RuntimeError as e:
+        return None, f"no flash backend: {e}"
+
+
+def sdpa_backward_ms(q, k, v, do, scale: float, iters: int):
+    """(ms, op) of PyTorch's flash-attention backward on the same tensors:
+    ``aten._scaled_dot_product_flash_attention_backward`` on its own
+    forward's output and logsumexp; (None, the error) where it refuses."""
+    import torch
+
+    aten = torch.ops.aten
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    op = "_scaled_dot_product_flash_attention_backward"
+    try:
+        o, lse, cq, ck, mq, mk, seed, offset = (
+            aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, False, False, scale=scale)[:8])
+
+        def backward():
+            getattr(aten, op)(dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0,
+                              False, seed, offset, scale=scale)
+
+        return cuda_ms(backward, iters), f"aten.{op}"
+    except RuntimeError as e:
+        return None, f"no flash backward: {e}"
 
 
 def bf16_ulp_excess(got, ref) -> float:
@@ -175,8 +247,9 @@ def ptxas_summary(build_log: str) -> list[str]:
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            for short in ("flash_fwd_kernel", "flash_bwd_kv_kernel",
-                          "flash_bwd_dq_kernel", "ln_modulate_kernel"):
+            for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
+                          "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
+                          "ln_modulate_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
         elif "spill stores" in line:
@@ -211,15 +284,24 @@ def phase_build():
     _cuda.library()
     log(f"built {lib.relative_to(ROOT)} from "
         f"{[str(p.relative_to(ROOT)) for p in _cuda.sources()]}")
-    for line in ptxas_summary((lib.parent / "build.log").read_text()):
+    summary = ptxas_summary((lib.parent / "build.log").read_text())
+    for line in summary:
         log(line)
-    # the shared host stages build their C++ library (g++) at first use;
-    # do it here so that phase 5 times stage 2 and not the build
-    from topiaxl.native import marching_cubes
+    spills = [line for line in summary if " 0 bytes spill stores" not in line]
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
+    # the host stages' C++ library (g++): built here, from this checkout,
+    # so that phase 5 is known to run the C++ stages and not their numpy
+    # fall-backs, and times stage 2 and not the build; a failed g++ raises
+    from topiaxl_torch import native
 
     t0 = time.perf_counter()
-    marching_cubes(np.zeros((2, 2, 2), np.float32))
-    log(f"host C++ stages (topiaxl/native) ready in "
+    shutil.rmtree(native.build_dir(), ignore_errors=True)
+    so = native.build()
+    native.marching_cubes(np.zeros((2, 2, 2), np.float32))
+    if native.loaded_path() != so:
+        raise AssertionError(f"loaded {native.loaded_path()}, built {so}")
+    log(f"built {so.relative_to(ROOT)} (g++, topiaxl_torch/native) in "
         f"{time.perf_counter() - t0:.3f} s")
 
 
@@ -311,6 +393,18 @@ def check_flash_backward(results: dict, randn) -> None:
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, o, lse, do, scale), 3)
         flops = 10 * B * H * Sq * Sk * D   # five Sq x Sk x D products
+        # each kernel's own bound: q, o, dO, k, v (bf16) and lse (f32) read
+        # once; the single pass does five products and writes dq as f32
+        # scratch and dk, dv; the dq pass three products (S, dP, dQ) and
+        # bf16 dq; the dk/dv pass four and dk, dv
+        n_q, n_k = B * Sq * H * D, B * Sk * H * D
+        reads = 2 * (3 * n_q + 2 * n_k) + 4 * B * H * Sq
+        bounds = {"flash_attn_bwd": bound(flops, reads + 4 * n_q + 4 * n_k),
+                  "flash_attn_bwd_dq": bound(6 * B * H * Sq * Sk * D,
+                                             reads + 2 * n_q),
+                  "flash_attn_bwd_dkv": bound(8 * B * H * Sq * Sk * D,
+                                              reads + 4 * n_k)}
+        lib_ms, how = sdpa_backward_ms(q, k, v, do, scale, 10)
         fault_msg = (f"unmasked-padding fault dq/dk/dv {unmasked[0]:.3e}/"
                      f"{unmasked[1]:.3e}/{unmasked[2]:.3e}"
                      if unmasked else "no padded keys")
@@ -318,9 +412,13 @@ def check_flash_backward(results: dict, randn) -> None:
             f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} (bar "
             f"{ATTN_BWD_REL_BAR}; no-delta fault dq/dk {no_delta[0]:.3e}/"
             f"{no_delta[1]:.3e}; {fault_msg}), max abs err {max(errs):.3e}, "
-            + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items())
+            + ", ".join(f"{n} {t:.4f} ms (bound {bounds[n][0]:.4f} ms, "
+                        f"{bounds[n][1]})" for n, t in times.items())
             + f" ({flops / sum(times.values()) / 1e9:.1f} TFLOP/s), plain "
-            f"backward {plain_ms:.4f} ms")
+            f"backward {plain_ms:.4f} ms, " + (
+                f"PyTorch flash backward {lib_ms:.4f} ms ({how}; "
+                f"kernels/library {sum(times.values()) / lib_ms:.2f})"
+                if lib_ms else how))
         for name, rel in zip(("dq", "dk", "dv"), rels):
             if not rel <= ATTN_BWD_REL_BAR:
                 raise AssertionError(f"backward {tag} {name}: rel error {rel} "
@@ -338,7 +436,11 @@ def check_flash_backward(results: dict, randn) -> None:
             entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
             entry["max_rel_err"] = max(entry["max_rel_err"], max(rels))
             if "ms" not in entry:
-                entry.update(ms=times[n], plain_ms=plain_ms, at=shape)
+                # library_ms: the whole backward in one call (the pair's
+                # two kernels together compute what it computes)
+                entry.update(ms=times[n], plain_ms=plain_ms, at=shape,
+                             bound_ms=bounds[n][0], bound_by=bounds[n][1],
+                             library_ms=lib_ms, library=how)
         del dq_acc, dq, dk, dv, o, lse
         torch.cuda.empty_cache()
     flash["lse_max_abs_err"] = lse_max
@@ -385,9 +487,18 @@ def phase_kernels() -> dict:
             fault, fault_msg = None, "no padded keys"
         ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 50)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, scale), 10)
+        # q, k, v read and o written once, bf16; no lse on this call
+        bound_ms, bound_by = bound(4 * B * H * Sq * Sk * D,
+                                   2 * (2 * B * Sq + 2 * B * Sk) * H * D)
+        lib_ms, backend = sdpa_forward_ms(q, k, v, scale, 50)
+        lib_msg = (f"sdpa ({backend}) {lib_ms:.4f} ms, kernel/sdpa "
+                   f"{ms / lib_ms:.2f}" if lib_ms else f"sdpa: {backend}")
         log(f"  flash_attn_fwd {tag} {B}x{Sq}x{Sk}x{H}x{D}: max rel err "
             f"{rel:.3e} (bar {ATTN_REL_BAR}; {fault_msg}), max_abs_err "
-            f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{err:.3e}, kernel {ms:.4f} ms "
+            f"({4 * B * H * Sq * Sk * D / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"kernel/bound {ms / bound_ms:.2f}), {lib_msg}")
         if not rel <= ATTN_REL_BAR:
             raise AssertionError(f"flash_attn_fwd {tag}: rel error {rel} > "
                                  f"{ATTN_REL_BAR}")
@@ -397,7 +508,9 @@ def phase_kernels() -> dict:
         flash["max_abs_err"] = max(flash["max_abs_err"], err)
         flash["max_rel_err"] = max(flash["max_rel_err"], rel)
         if tag == "dit_self":
-            flash.update(ms=ms, plain_ms=plain_ms, at=f"{B}x{Sq}x{Sk}x{H}x{D}")
+            flash.update(ms=ms, plain_ms=plain_ms, at=f"{B}x{Sq}x{Sk}x{H}x{D}",
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms, library=f"sdpa {backend}")
     check_flash_backward(results, randn)
 
     # serving runs the LN kernels at batch 2 (CFG), training at batch 8
@@ -422,16 +535,25 @@ def phase_kernels() -> dict:
                       for a, b in zip(got, ref))
             ms = cuda_ms(kern, 200)
             plain_ms = cuda_ms(plain, 50)
+            # bf16 rows in and out once, the [B, D] modulation vectors;
+            # ~10 f32 operations an element outside the tensor cores
+            n_x, n_mod = B * 2048 * D, B * D
+            nbytes = (2 * (2 * n_x + 2 * n_mod) if name == "ln_modulate"
+                      else 2 * (4 * n_x + 3 * n_mod))
+            bound_ms, bound_by = bound(10 * n_x, nbytes, PEAK_F32_FLOPS)
             log(f"  {name} {B}x2048x1152: max_abs_err {err:.3e}, max rel err "
                 f"{rel:.3e} (|ref| >= 1e-3), max excess over 1 bf16 ulp "
                 f"{excess:.3e} (bar {LN_ABS_SLACK}), kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; kernel/bound {ms / bound_ms:.2f}), library: "
+                f"none (no single PyTorch call computes it)")
             if not excess <= LN_ABS_SLACK:
                 raise AssertionError(f"{name} at batch {B}: {excess} over 1 "
                                      f"ulp > {LN_ABS_SLACK}")
-            entry = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
-                                              "plain_ms": plain_ms,
-                                              "at": f"{B}x2048x1152"})
+            entry = results.setdefault(name, {
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "at": f"{B}x2048x1152", "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return results
 
@@ -483,7 +605,7 @@ def phase_serving(tmp: str) -> dict:
 def phase_stage2(tmp: str):
     import torch
 
-    from topiaxl.extract.glb import read_glb
+    from topiaxl_torch.extract.glb import read_glb
     from topiaxl_torch.pipelines.infer import extract_glb
     from topiaxl_torch.pipelines.synthetic import SPHERE_R, sphere_asset
 

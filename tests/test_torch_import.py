@@ -1,13 +1,17 @@
-"""topiaxl_torch imports with JAX, flax, optax and orbax blocked, and its
-sources never name them."""
+"""topiaxl_torch imports with JAX, flax, optax, orbax and the JAX package
+(``topiaxl``) blocked, and neither its sources nor ``chip_smoke.py`` name
+them."""
 
 import pathlib
+import re
 import subprocess
 import sys
 import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "topiaxl")
+# an import of the JAX package; ``topiaxl_torch`` does not match
+JAX_PACKAGE_IMPORT = re.compile(r"\b(from|import)\s+topiaxl(?!_torch)\b")
 
 
 def test_port_imports_without_jax():
@@ -36,7 +40,11 @@ def test_port_imports_without_jax():
         import topiaxl_torch.core.checkpoint
         import topiaxl_torch.core.profiling
         import topiaxl_torch.cli.train
-        import topiaxl.extract, topiaxl.core.config
+        import topiaxl_torch.core.config
+        import topiaxl_torch.extract
+        import topiaxl_torch.extract.glb
+        import topiaxl_torch.extract.objio
+        import topiaxl_torch.native
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
         assert not bad, bad
         print("ok")
@@ -54,3 +62,17 @@ def test_port_sources_do_not_use_jax_or_library_kernels():
         text = path.read_text()
         for word in banned:
             assert word not in text, f"{path}: {word}"
+
+
+def test_port_sources_do_not_import_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports ``topiaxl``;
+    the pattern sees such an import and passes the port's own."""
+    assert JAX_PACKAGE_IMPORT.search("from topiaxl.extract import glb")
+    assert JAX_PACKAGE_IMPORT.search("    import topiaxl.core.config")
+    assert JAX_PACKAGE_IMPORT.search("import topiaxl")
+    assert not JAX_PACKAGE_IMPORT.search("from topiaxl_torch.extract import x")
+    assert not JAX_PACKAGE_IMPORT.search("import topiaxl_torch.native")
+    paths = [*(ROOT / "topiaxl_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    for path in paths:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert not JAX_PACKAGE_IMPORT.search(line), f"{path}:{n}: {line}"

@@ -11,7 +11,7 @@ fault, the plain version with the kernel's zero-padded keys unmasked,
 must land above that bar on inputs built to expose it. The backward
 kernels (single pass and the two-pass pair) within 1.2e-2 of the plain
 backward per output on the same o and lse, relative to max|grad| (bf16
-P and dS on both sides; dq summed by atomics in the single pass), and
+P and dS on both sides; dq summed by f32 reductions in the single pass), and
 the plain backward without delta (dq, dk) and the pair with padded keys
 unmasked (dq, dk, dv) must land above that bar. The forward's
 lse within 1e-4 of the plain logsumexp. LN
@@ -112,6 +112,9 @@ def test_flash_masks_ragged_keys(dev, Sk, D):
     (1, 200, 1370, 2, 72, 1.0 / 72),     # cross-attention-like, fused
     (1, 130, 2100, 2, 72, 72 ** -0.5),   # two-pass, ragged
     (2, 64, 2048, 1, 64, 64 ** -0.5),    # the last fused length
+    (1, 130, 700, 2, 64, 64 ** -0.5),    # fused, D 64, ragged both
+    (1, 2048, 2048, 2, 72, 72 ** -0.5),  # fused, many q tiles per block
+    (2, 300, 1374, 3, 64, 64 ** -0.5),   # fused, D 64, ragged keys
 ])
 def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
     qkv = _randn(dev, B, Sq, 3, H, D, seed=11)
@@ -162,13 +165,14 @@ def test_flash_backward_masks_ragged_keys(dev, Sq, Sk):
         assert _rel_err(f, r) > ATTN_BWD_REL_BAR, name
 
 
-@pytest.mark.parametrize("Sq,Sk", [(65, 63), (100, 1370), (64, 2100)])
-def test_flash_forward_lse_matches_plain(dev, Sq, Sk):
-    q = _randn(dev, 2, Sq, 3, 72, seed=14)
-    k, v = _randn(dev, 2, Sk, 2, 3, 72, seed=15).unbind(2)
-    o = flash_attention(q.requires_grad_(), k, v, 72 ** -0.5)
+@pytest.mark.parametrize("Sq,Sk,D", [(65, 63, 72), (100, 1370, 72),
+                                    (64, 2100, 72), (130, 1374, 64)])
+def test_flash_forward_lse_matches_plain(dev, Sq, Sk, D):
+    q = _randn(dev, 2, Sq, 3, D, seed=14)
+    k, v = _randn(dev, 2, Sk, 2, 3, D, seed=15).unbind(2)
+    o = flash_attention(q.requires_grad_(), k, v, D ** -0.5)
     lse = o.grad_fn.saved_tensors[4]
-    _, ref = flash_attention_plain(q.detach(), k, v, 72 ** -0.5,
+    _, ref = flash_attention_plain(q.detach(), k, v, D ** -0.5,
                                    return_lse=True)
     torch.cuda.synchronize()
     assert lse.shape == (2, 3, Sq) and lse.dtype == torch.float32
@@ -213,6 +217,28 @@ def test_flash_refuses_what_it_cannot_run(dev):
     odd = _randn(dev, 1, 8, 2, 76)[..., :72]     # strides not multiples of 8
     with pytest.raises(ValueError, match="strides"):
         flash_attention(odd, odd, odd, 0.1)
+
+
+def test_flash_refuses_what_tma_cannot_load(dev):
+    """The TMA loads of the forward and of the single-pass backward need
+    16-byte-aligned bases and strides that are multiples of 16 bytes:
+    both kernels refuse other views before launching."""
+    base = _randn(dev, 2 * 8 * 2 * 72 + 8).flatten()
+    shifted = torch.as_strided(base, (1, 8, 2, 72), (8 * 2 * 72, 2 * 72, 72, 1),
+                               storage_offset=1)     # 2-byte-aligned base
+    good = _randn(dev, 1, 8, 2, 72)
+    odd = _randn(dev, 1, 8, 2, 76)[..., :72]
+    lse = torch.zeros(1, 2, 8, device=dev)
+    before = dict(_cuda.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(shifted, good, good, 0.1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(good, good, shifted, 0.1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_backward(good, good, good, good, lse, shifted, 0.1)
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention_backward(good, good, good, odd, lse, good, 0.1)
+    assert _cuda.launches == before
 
 
 @pytest.mark.parametrize("B,N,D", [(2, 2048, 1152), (3, 37, 8), (1, 5, 200),

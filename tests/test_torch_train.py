@@ -234,15 +234,21 @@ def _tiny_pair(seq=520, cond_seq=530, depth=2, seed=0):
     return dit, jd, tree(convert.convert_dit(sd, depth=depth))
 
 
-def test_whole_train_step_loss_and_grads_match_jax():
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_whole_train_step_loss_and_grads_match_jax(grad_accum):
     """The v-pred MSE + VB loss of one step and the gradient of every
-    parameter, port (plain attention and LN backward through the
-    autograd functions) against jax.value_and_grad of the JAX loss with
-    the same drop mask and noise, its gradient tree mapped by
-    dit_from_jax."""
+    parameter, port (``accumulate_gradients``: plain attention and LN
+    backward through the autograd functions) against jax.value_and_grad
+    of the JAX loss with the same drop mask and noise, its gradient tree
+    mapped by dit_from_jax. With ``grad_accum=1`` the dropped row takes
+    the null embedding inside the gradient, as the JAX single pass does;
+    with ``grad_accum=2`` it takes it outside, as the JAX accumulation
+    path does (``topiaxl/pipelines/train.py:210-214``): there the null
+    embedding's gradient is zero on both sides, and the microbatch
+    gradients are summed and divided by 2."""
     from topiaxl.diffusion import gaussian as jg
-    from topiaxl_torch.diffusion import gaussian as tg
     from topiaxl_torch.ops import flash_attention as fa
+    from topiaxl_torch.pipelines.train import accumulate_gradients
 
     dit, jd, params = _tiny_pair()
     kw = dict(noise_schedule="squaredcos_cap_v2", diffusion_steps=1000,
@@ -260,15 +266,27 @@ def test_whole_train_step_loss_and_grads_match_jax():
     drop = np.array([True, False])
     weights_ = np.array([1.0, 0.5], np.float32)
 
-    def jloss(p):
+    def dropped(p):
         null = p["params"]["null_cond_embedding"][None, None, :]
-        yd = jnp.where(jnp.asarray(drop)[:, None, None], null, jnp.asarray(y))
+        return jnp.where(jnp.asarray(drop)[:, None, None], null, jnp.asarray(y))
+
+    def jloss(p, sl, yd=None):
+        yd = dropped(p)[sl] if yd is None else yd[sl]
         terms = jg.training_losses(
             jdiff, lambda x_t, t_o: jd.apply(p, x_t, t_o, yd),
-            jnp.asarray(x), jnp.asarray(t), None, noise=jnp.asarray(noise))
-        return jnp.mean(terms["loss_total"] * jnp.asarray(weights_))
+            jnp.asarray(x[sl]), jnp.asarray(t[sl]), None,
+            noise=jnp.asarray(noise[sl]))
+        return jnp.mean(terms["loss_total"] * jnp.asarray(weights_[sl]))
 
-    jl, jgrads = jax.value_and_grad(jloss)(params)
+    if grad_accum == 1:
+        jl, jgrads = jax.value_and_grad(jloss)(params, slice(None))
+    else:   # the accumulation path: drop outside the gradient, then sum
+        yd = dropped(params)
+        parts = [jax.value_and_grad(jloss)(params, slice(i, i + 1), yd)
+                 for i in range(2)]
+        jl = (parts[0][0] + parts[1][0]) / 2
+        jgrads = jax.tree.map(lambda a, b: (a + b) / 2, parts[0][1],
+                              parts[1][1])
     calls = []
     real = fa._FlashAttention.apply
 
@@ -278,23 +296,24 @@ def test_whole_train_step_loss_and_grads_match_jax():
 
     fa._FlashAttention.apply = counting
     try:
-        terms = tg.training_losses(
-            tdiff, lambda x_t, t_o: dit(x_t, t_o, torch.from_numpy(y),
-                                        torch.from_numpy(drop)),
-            torch.from_numpy(x), torch.from_numpy(t),
-            noise=torch.from_numpy(noise))
-        loss = (terms["loss_total"] * torch.from_numpy(weights_)).mean()
-        loss.backward()
+        loss, _ = accumulate_gradients(
+            dit, tdiff, *map(torch.from_numpy, (x, y, t, weights_, noise,
+                                                drop)), grad_accum)
     finally:
         fa._FlashAttention.apply = real
-    assert len(calls) == 4    # self + cross in each of the two blocks
+    # self + cross in each of the two blocks, per microbatch
+    assert len(calls) == 4 * grad_accum
     np.testing.assert_allclose(loss.item(), float(jl), rtol=TOL)
     ref = weights.dit_from_jax(jax.tree.map(np.asarray, jgrads))
-    got = {n: p.grad for n, p in dit.named_parameters()}
+    got = {n: (torch.zeros_like(p) if p.grad is None else p.grad / grad_accum)
+           for n, p in dit.named_parameters()}
     assert sorted(got) == sorted(ref)
     gmax = max(float(np.abs(r.numpy()).max()) for r in ref.values())
     for name, g in got.items():
         r = ref[name].numpy()
+        if name == "null_cond_embedding" and grad_accum > 1:
+            assert not np.abs(r).any() and not g.abs().any(), name
+            continue
         if name.endswith("crossattn.to_k.bias"):
             # zero in exact arithmetic: the softmax ignores a shift that
             # the bias adds to every logit of a row
@@ -333,11 +352,12 @@ def test_dit_from_jax_takes_scan_layout_and_moment_trees():
     assert all(v.shape == flat[k].shape for k, v in mapped.items())
 
 
-def _tiny_fit_setup():
+def _tiny_fit_setup(cond_drop_prob=0.1):
     from topiaxl_torch.models.dit import DiT
 
     model = DiT(seq_length=8, in_channels=4, condition_channels=6,
-                hidden_size=16, depth=1, num_heads=2, cond_drop_prob=0.1,
+                hidden_size=16, depth=1, num_heads=2,
+                cond_drop_prob=cond_drop_prob,
                 learn_sigma=False, dtype=torch.float32,
                 param_dtype=torch.float32, device="cpu",
                 generator=torch.Generator().manual_seed(0))
@@ -371,7 +391,10 @@ def test_train_step_decreases_loss():
 
 def test_ema_tracks_params_and_accumulation_matches():
     """EMA with decay 0.5 is the mean of old and new weights; two
-    microbatches give the step that one batch gives (same draws)."""
+    microbatches give the step that one batch gives (same draws). The
+    model drops no conditioning: a dropped row's null embedding takes a
+    gradient in the single pass and none under accumulation, as in the
+    JAX package (the test above holds that against JAX)."""
     from topiaxl_torch.pipelines.train import (
         create_train_state, make_optimizer, make_train_step)
 
@@ -380,7 +403,7 @@ def test_ema_tracks_params_and_accumulation_matches():
              "y": torch.from_numpy(rng.standard_normal((4, 3, 6)).astype("f"))}
     after = []
     for accum in (1, 2):
-        model, diffusion = _tiny_fit_setup()
+        model, diffusion = _tiny_fit_setup(cond_drop_prob=0.0)
         with torch.no_grad():          # leave the zero-init identity
             for p in model.parameters():
                 p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator(

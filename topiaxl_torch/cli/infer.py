@@ -1,8 +1,8 @@
 """Inference CLI: ``python -m topiaxl_torch.cli.infer config.yml [k=v ...]``.
 
-Reads the same YAML as ``topiaxl.cli.infer`` (through
-``topiaxl.core.config.load_config``), builds the DiT, VAE and DINOv2
-encoder from the config's fields, loads the reference checkpoints (DiT
+Reads the same YAML as ``topiaxl.cli.infer`` (through the port's copy
+of its loader, ``topiaxl_torch.core.config.load_config``), builds the
+DiT, VAE and DINOv2 encoder from the config's fields, loads the reference checkpoints (DiT
 under ``ema``, VAE under ``model_state_dict``, DINOv2's own state_dict)
 or warns and keeps the seeded random init, and runs image -> PrimX ->
 GLB for every image in ``inference.input_dir``. Per image it writes
@@ -140,7 +140,7 @@ def _sync(device: torch.device) -> None:
 def main(argv=None, timings_out: list | None = None) -> int:
     """Run the CLI; ``timings_out`` (a list) receives one dict of
     per-image stage seconds (encode, stage1, stage2)."""
-    from topiaxl.core.config import load_config
+    from topiaxl_torch.core.config import load_config
 
     from ..diffusion.schedule import create_diffusion
     from ..models.latent_stats import resolve_latent_stats

@@ -127,7 +127,7 @@ def profile_train_step(cfg, device) -> dict:
 
 
 def main(argv=None) -> int:
-    from topiaxl.core.config import load_config
+    from topiaxl_torch.core.config import load_config
 
     from ..diffusion.schedule import create_diffusion
     from ..ops import _cuda

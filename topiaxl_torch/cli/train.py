@@ -4,8 +4,8 @@ Runs the reference's DiT training recipe on one device (counterpart of
 ``topiaxl/cli/train.py``): AdamW + cosine warmup, v-pred MSE + VB,
 cond-drop, EMA, checkpoints with resume. Same config keys (train.* /
 optimizer.* / scheduler.* / model.generator.* / diffusion.*), read
-through ``topiaxl.core.config.load_config``; no mesh (``train.mesh`` is
-ignored).
+through ``topiaxl_torch.core.config.load_config``; no mesh
+(``train.mesh`` is ignored).
 
 Data: ``train.data_glob`` pointing at token shards (pipelines/data), or
 ``train.synthetic=true`` for smoke runs and measurement. ``train.device``
@@ -62,7 +62,7 @@ def main(argv=None, metrics_out: list | None = None) -> int:
     as floats, with the step and its wall seconds."""
     import time
 
-    from topiaxl.core.config import load_config
+    from topiaxl_torch.core.config import load_config
 
     from ..core.checkpoint import CheckpointManager
     from ..core.profiling import MetricLogger, StepMeter

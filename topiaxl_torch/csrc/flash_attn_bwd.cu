@@ -1,8 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 q, k, v, o, dO in,
-// f32 logsumexp (lse) from the forward, bf16 dq, dk, dv out.
+// Two-pass flash-attention backward for Hopper (sm_90a): bf16 q, k, v, o,
+// dO in, f32 logsumexp (lse) from the forward, bf16 dq, dk, dv out. It
+// runs when the keys do not fit one block (Sk > 2048); the single pass
+// (flash_attn_bwd) is flash_attn_bwd_sm90.cu.
 //
 // Replaces the TPU kernels of topiaxl/ops/flash_attention.py:
-//   flash_attn_bwd      <- _flash_bwd_fused_kernel (single pass, :369)
 //   flash_attn_bwd_dq   <- _flash_bwd_dq_kernel   (FA2 dq pass, :282)
 //   flash_attn_bwd_dkv  <- _flash_bwd_dkv_kernel  (FA2 dk/dv pass, :469)
 // The softmax is rebuilt from the lse: p = exp(s * scale - lse) in f32;
@@ -15,17 +16,10 @@
 // head the backward runs five Sq x Sk x D products (S and dP recomputed,
 // then dV, dK, dQ), far above the card's FLOP-per-byte ridge at the
 // DiT's shapes, so the design keeps S, P, dP and dS out of device memory:
-//   * flash_attn_bwd: one block of 4 warps per (batch*head, 64-key KV
-//     tile); each warp owns 16 keys and keeps their dK and dV in f32
+//   * flash_attn_bwd_dkv: one block of 4 warps per (batch*head, 64-key
+//     KV tile); each warp owns 16 keys and keeps their dK and dV in f32
 //     registers while the block loops over 64-row q tiles. S^T and dP^T
-//     are computed once per (KV tile, q tile) pair and feed all three
-//     gradients. dQ, a sum over KV tiles that run on other blocks, goes
-//     through shared memory (dS, bf16) and f32 atomicAdd into a scratch
-//     [B, Sq, H, D] buffer that the wrapper zeroes and casts to bf16:
-//     this is what stands in for the TPU kernel keeping the whole KV of
-//     a head in VMEM. The atomics make dq's f32 summation order vary
-//     from run to run.
-//   * flash_attn_bwd_dkv: the same kernel without the dQ part.
+//     are computed once per (KV tile, q tile) pair.
 //   * flash_attn_bwd_dq: one block per (batch*head, 64-row q tile), each
 //     warp owning 16 q rows, looping over KV tiles and keeping dQ in
 //     registers: deterministic, written once.
@@ -49,7 +43,6 @@
 
 namespace {
 
-constexpr int kLdS = kBlockM + 8;   // row stride of the dS tile (bf16)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // lse (in log2 units) and delta = rowsum(dO * o) of q rows
@@ -93,7 +86,7 @@ struct BwdArgs {
   const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
   const float* lse;      // [B, H, Sq] contiguous
-  void* dq;              // f32 [B, Sq, H, D] scratch (atomic) or bf16 dq
+  void* dq;              // bf16 dq (flash_attn_bwd_dq)
   __nv_bfloat16* dk;     // [B, Sk, H, D] contiguous (null: not computed)
   __nv_bfloat16* dv;
   int H, Sq, Sk;
@@ -102,9 +95,8 @@ struct BwdArgs {
   float scale, scale_log2;
 };
 
-// KV-major pass: dK and dV of one 64-key tile, and with kDq the tile's
-// dQ contributions added atomically into the f32 scratch.
-template <int D, bool kDq>
+// KV-major pass: dK and dV of one 64-key tile.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const BwdArgs a) {
   using T = Dims<D>;
@@ -114,8 +106,7 @@ flash_bwd_kv_kernel(const BwdArgs a) {
   __nv_bfloat16* Vs = Ks + kBlockN * LD;
   __nv_bfloat16* Qs = Vs + kBlockN * LD;
   __nv_bfloat16* dOs = Qs + kBlockM * LD;
-  __nv_bfloat16* dSs = dOs + kBlockM * LD;   // [64 keys][kLdS q], kDq only
-  float* lse2_s = reinterpret_cast<float*>(dSs + (kDq ? kBlockN * kLdS : 0));
+  float* lse2_s = reinterpret_cast<float*>(dOs + kBlockM * LD);
   float* delta_s = lse2_s + kBlockM;
 
   const int tid = threadIdx.x;
@@ -226,60 +217,6 @@ flash_bwd_kv_kernel(const BwdArgs a) {
         bq[1] = ld_col2(&Qs[(qrow + 8) * LD + col], LD);
         mma_16816(dv_acc[dt], pa, bd);
         mma_16816(dk_acc[dt], sa, bq);
-      }
-    }
-
-    if constexpr (kDq) {
-      // this warp's dS^T rows into shared memory, then dQ = dS K for
-      // q rows [16 * warp, 16 * warp + 16) over the tile's 64 keys
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = nt * 8 + tg * 2;
-        *reinterpret_cast<uint32_t*>(&dSs[(kr + g) * kLdS + col]) =
-            pack_bf16(dp[nt][0], dp[nt][1]);
-        *reinterpret_cast<uint32_t*>(&dSs[(kr + g + 8) * kLdS + col]) =
-            pack_bf16(dp[nt][2], dp[nt][3]);
-      }
-      __syncthreads();
-      const int qr = warp * 16;
-      float dq[T::kDTiles][4];
-#pragma unroll
-      for (int dt = 0; dt < T::kDTiles; ++dt) {
-        dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const int key = kk * 16 + tg * 2;
-        // A[q][key] = dS^T[key][q]: column pairs of the dS tile
-        uint32_t da[4];
-        da[0] = ld_col2(&dSs[key * kLdS + qr + g], kLdS);
-        da[1] = ld_col2(&dSs[key * kLdS + qr + g + 8], kLdS);
-        da[2] = ld_col2(&dSs[(key + 8) * kLdS + qr + g], kLdS);
-        da[3] = ld_col2(&dSs[(key + 8) * kLdS + qr + g + 8], kLdS);
-#pragma unroll
-        for (int dt = 0; dt < T::kDTiles; ++dt) {
-          const int col = dt * 8 + g;
-          uint32_t bk[2];
-          bk[0] = ld_col2(&Ks[key * LD + col], LD);
-          bk[1] = ld_col2(&Ks[(key + 8) * LD + col], LD);
-          mma_16816(dq[dt], da, bk);
-        }
-      }
-      float* dqh = static_cast<float*>(a.dq) +
-                   (static_cast<long long>(b) * a.Sq * a.H + h) * D;
-      const long long dqs = static_cast<long long>(a.H) * D;
-      const int row0 = m0 + qr + g;
-#pragma unroll
-      for (int dt = 0; dt < T::kDTiles; ++dt) {
-        const int col = dt * 8 + tg * 2;
-        if (row0 < a.Sq) {
-          atomicAdd(dqh + row0 * dqs + col, dq[dt][0] * a.scale);
-          atomicAdd(dqh + row0 * dqs + col + 1, dq[dt][1] * a.scale);
-        }
-        if (row0 + 8 < a.Sq) {
-          atomicAdd(dqh + (row0 + 8) * dqs + col, dq[dt][2] * a.scale);
-          atomicAdd(dqh + (row0 + 8) * dqs + col + 1, dq[dt][3] * a.scale);
-        }
       }
     }
   }
@@ -437,9 +374,8 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 }
 
 template <int D>
-constexpr int kv_smem_bytes(bool with_dq) {
-  return (2 * kBlockN + 2 * kBlockM) * Dims<D>::LD * 2 +
-         (with_dq ? kBlockN * kLdS * 2 : 0) + 2 * kBlockM * 4;
+constexpr int kv_smem_bytes() {
+  return (2 * kBlockN + 2 * kBlockM) * Dims<D>::LD * 2 + 2 * kBlockM * 4;
 }
 
 template <int D>
@@ -457,19 +393,16 @@ int launch(Kernel kernel, dim3 grid, int smem, const BwdArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-enum class Pass { kFused, kDkv, kDq };
+enum class Pass { kDkv, kDq };
 
 template <int D>
 int run(Pass pass, const BwdArgs& a, int B, cudaStream_t st) {
   const dim3 kv_grid((a.Sk + kBlockN - 1) / kBlockN, B * a.H);
   const dim3 q_grid((a.Sq + kBlockM - 1) / kBlockM, B * a.H);
   switch (pass) {
-    case Pass::kFused:
-      return launch(flash_bwd_kv_kernel<D, true>, kv_grid,
-                    kv_smem_bytes<D>(true), a, st);
     case Pass::kDkv:
-      return launch(flash_bwd_kv_kernel<D, false>, kv_grid,
-                    kv_smem_bytes<D>(false), a, st);
+      return launch(flash_bwd_kv_kernel<D>, kv_grid, kv_smem_bytes<D>(), a,
+                    st);
     case Pass::kDq:
       return launch(flash_bwd_dq_kernel<D>, q_grid, dq_smem_bytes<D>(), a,
                     st);
@@ -515,11 +448,9 @@ int dispatch(Pass pass, const void* q, const void* k, const void* v,
 
 // q, o, dout [B, Sq, H, D], k/v [B, Sk, H, D]: bf16, strides in elements,
 // last dim contiguous; lse f32 [B, H, Sq] contiguous; D 64 or 72. Outputs
-// are contiguous: flash_attn_bwd adds dq into a zeroed f32 [B, Sq, H, D]
-// buffer and writes bf16 dk, dv [B, Sk, H, D]; flash_attn_bwd_dkv writes
-// dk, dv (dq unused); flash_attn_bwd_dq writes bf16 dq [B, Sq, H, D] (dk,
-// dv unused). Each returns the CUDA error code of its launch (0 on
-// success).
+// are contiguous: flash_attn_bwd_dkv writes bf16 dk, dv [B, Sk, H, D] (dq
+// unused); flash_attn_bwd_dq writes bf16 dq [B, Sq, H, D] (dk, dv
+// unused). Each returns the CUDA error code of its launch (0 on success).
 #define TOPIAXL_BWD_ENTRY(NAME, PASS)                                        \
   extern "C" int NAME(                                                       \
       const void* q, const void* k, const void* v, const void* o,            \
@@ -534,6 +465,5 @@ int dispatch(Pass pass, const void* q, const void* k, const void* v,
                     osh, dosb, doss, dosh, scale, stream);                   \
   }
 
-TOPIAXL_BWD_ENTRY(topiaxl_flash_attn_bwd, Pass::kFused)
 TOPIAXL_BWD_ENTRY(topiaxl_flash_attn_bwd_dkv, Pass::kDkv)
 TOPIAXL_BWD_ENTRY(topiaxl_flash_attn_bwd_dq, Pass::kDq)

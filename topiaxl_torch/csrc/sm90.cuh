@@ -1,0 +1,455 @@
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// written for this card (flash_attn_fwd.cu, flash_attn_bwd_sm90.cu), in
+// inline PTX so that the build needs no header beyond the toolkit's:
+//   * mbarrier init, arrive, arrive with an expected transaction count,
+//     and a parity wait;
+//   * TMA tile loads (cp.async.bulk.tensor, 4-d) signalled on an
+//     mbarrier, bulk f32 reduce-adds of a tile into global memory, and
+//     the host-side tensor map of a [B, S, H, D] strided view, encoded
+//     through the driver entry point (no -lcuda);
+//   * wgmma: shared-memory matrix descriptors, fence, commit and wait,
+//     and the m64nNk16 bf16 products (f32 accumulate) the kernels issue,
+//     with A from shared memory (ss) or from registers (rs);
+//   * named barriers, the async-proxy fence and setmaxnreg.
+//
+// Shared-memory tile layout ("chunked"): a [rows, D] bf16 tile is kept as
+// D / 8 chunks of [rows][8], each chunk rows * 16 bytes, so that eight
+// consecutive rows of one chunk form one contiguous 128-byte core matrix
+// of wgmma's no-swizzle layout. TMA writes it one chunk at a time (a box
+// of 8 columns by `rows` rows). The same tile serves as a K-major operand
+// (contraction over D) and as an MN-major one (contraction over rows);
+// in both the descriptor's leading byte offset (LBO) is the stride
+// between core matrices along the contraction dimension and the stride
+// byte offset (SBO) the stride along M or N (PTX ISA, wgmma matrix
+// descriptor, canonical no-swizzle layouts).
+//
+// wgmma accumulator layout (m64nN, f32): warp w of the warpgroup holds
+// rows 16 w + g and 16 w + g + 8 (g = lane / 4); for each 8-column tile i
+// the registers d[4 i .. 4 i + 3] hold (row g, columns 8 i + 2 tg, +1) and
+// (row g + 8, the same columns), tg = lane % 4: the mma.sync m16n8
+// accumulator layout, repeated. A from registers uses the mma.sync
+// m16n8k16 A fragment layout for the warp's 16 rows.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier ----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+// makes the initialised barriers visible to the other threads and to the
+// async proxy (TMA); call once after the inits, before a block barrier
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// one arrival that also adds `bytes` to the transaction count the phase
+// waits for (the TMA loads issued against this barrier complete them)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// waits until the phase of parity `parity` has completed; a fresh barrier
+// counts the phase before its first (parity 1) as completed. A wait that
+// lasts ~2^34 cycles (about 10 s) traps: a phase that never completes is
+// a fault of the kernel, reported as a launch error rather than a hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  long long t0 = 0;
+  for (int tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1LL << 34)) {
+      __trap();
+    }
+  }
+}
+
+// ---- TMA ---------------------------------------------------------------
+
+// one box of a 4-d tensor map into shared memory; completion adds the
+// box's bytes to `bar`'s transaction count. Coordinates innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// rows [row0, row0 + kRows) of head (b, h) of a [B, S, H, D] map into a
+// chunked tile (D / 8 chunks of [kRows][8]); rows past S are zero-filled
+template <int D, int kRows>
+__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row0, int h,
+                                              int b) {
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    tma_load_4d(dst + c * kRows * 8, map, bar, c * 8, row0, h, b);
+  }
+}
+
+// adds a shared-memory box into a 4-d tensor map's f32 tensor, in one
+// bulk reduction (elements past the tensor's extent are not written);
+// completion is tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most kPending of this thread's bulk groups have not yet
+// read their shared memory (kRead) or not yet completed (!kRead)
+template <int kPending, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead) {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending)
+                 : "memory");
+  }
+}
+
+// ---- wgmma -------------------------------------------------------------
+
+// no-swizzle shared-memory matrix descriptor: start address, LBO and SBO
+// in bytes (see the layout note above); layout type 0, base offset 0
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (smem_addr(p) & 0x3FFFFu) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator (or A
+// fragment) registers across the asynchronous products (issue before,
+// wait after)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+  }
+}
+
+// ---- the m64nNk16 products, one wrapper per width the kernels use ----
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n40(float (&d)[20], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, %23, %24;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTransB));
+}
+
+// m64nNk16 bf16 products with f32 accumulators `d` (N / 2 registers a
+// thread). ss: A and B from shared-memory descriptors; rs: A from
+// registers (one mma.sync-layout A fragment of the warp's 16 rows).
+// kTransA / kTransB = 1 reads that operand MN-major. scale_d = 0 starts
+// the sum (d is overwritten), 1 adds to it.
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32<kTransA, kTransB>(d, da, db, scale_d);
+  } else if constexpr (N == 40) {
+    wgmma_ss_n40<kTransA, kTransB>(d, da, db, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64<kTransA, kTransB>(d, da, db, scale_d);
+  } else {
+    static_assert(N == 128, "no wgmma_ss for this N");
+    wgmma_ss_n128<kTransA, kTransB>(d, da, db, scale_d);
+  }
+}
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64<kTransB>(d, a, db, scale_d);
+  } else {
+    static_assert(N == 72, "no wgmma_rs for this N");
+    wgmma_rs_n72<kTransB>(d, a, db, scale_d);
+  }
+}
+
+// ---- barriers, fences, registers ---------------------------------------
+
+// named barrier over `n` threads (ids 1..15; 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma, TMA) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- host: tensor maps -------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library needs no -lcuda; null if the driver does not offer it
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// tensor map of a [B, S, H, D] view (strides in elements, last dim
+// contiguous), bf16 or f32, whose box is `box_cols` columns by `box_rows`
+// rows of one head: for bf16 the 8-column chunk that tma_load_tile loads,
+// for f32 the tile that tma_reduce_add_4d adds. Rows past S read as zeros
+// and are not written. A map depends only on these arguments, so the maps
+// of recent views are kept in a small direct-mapped cache per host
+// thread: PyTorch's allocator hands the same addresses out step after
+// step, and the DiT's cross-attention K/V stay put for a whole image.
+// Returns 0 or a CUDA error code.
+inline int encode_bshd(CUtensorMap* map, const void* base, bool f32, int B,
+                       int S, int H, int D, long long sb, long long ss,
+                       long long sh, int box_cols, int box_rows) {
+  // a dimension of extent 1 is never stepped over; give it a legal stride
+  const long long unit = f32 ? 4 : 8;   // elements in 16 bytes
+  if (B == 1) sb = unit;
+  if (H == 1) sh = unit;
+  struct Entry {
+    long long key[11];
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 256;
+  thread_local Entry cache[kEntries] = {};
+  const long long key[11] = {reinterpret_cast<long long>(base), f32, B, S,
+                             H, D, sb, ss, sh, box_cols, box_rows};
+  unsigned long long hash = 1469598103934665603ull;
+  for (long long k : key) hash = (hash ^ static_cast<unsigned long long>(k)) *
+                                 1099511628211ull;
+  Entry& e = cache[(hash >> 17) % kEntries];
+  bool hit = key[0] != 0;
+  for (int i = 0; i < 11; ++i) hit = hit && e.key[i] == key[i];
+  if (hit) {
+    *map = e.map;
+    return 0;
+  }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t elem_bytes = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * elem_bytes,
+                                 static_cast<cuuint64_t>(sh) * elem_bytes,
+                                 static_cast<cuuint64_t>(sb) * elem_bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 11; ++i) e.key[i] = key[i];
+  e.map = *map;
+  return 0;
+}
+
+// sets a kernel's dynamic shared memory limit, once per kernel; returns
+// 0 or a CUDA error code
+template <auto kKernel>
+inline int allow_smem(int bytes) {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  return err;
+}
+
+}  // namespace sm90

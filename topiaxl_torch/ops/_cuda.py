@@ -77,15 +77,17 @@ def headers() -> list[Path]:
     return sorted(CSRC.glob("*.cuh"))
 
 
-def build_root() -> Path:
-    """``build/topiaxl_torch_kernels`` in a checkout (``pyproject.toml``
-    beside the package), else a per-user cache directory."""
+def build_root(kind: str = "kernels") -> Path:
+    """``build/topiaxl_torch_<kind>`` in a checkout (``pyproject.toml``
+    beside the package), else ``topiaxl_torch/<kind>`` in a per-user
+    cache directory. ``kind`` is ``kernels`` here, ``native`` for the
+    host stages' C++ library (``topiaxl_torch.native``)."""
     checkout = Path(__file__).resolve().parents[2]
     if (checkout / "pyproject.toml").is_file():
-        return checkout / "build" / "topiaxl_torch_kernels"
+        return checkout / "build" / f"topiaxl_torch_{kind}"
     cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
         os.path.expanduser("~"), ".cache")
-    return Path(cache) / "topiaxl_torch" / "kernels"
+    return Path(cache) / "topiaxl_torch" / kind
 
 
 def build_dir() -> Path:

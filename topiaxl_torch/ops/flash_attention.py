@@ -3,12 +3,16 @@ their plain twins.
 
 The kernels replace the TPU kernels of ``topiaxl/ops/flash_attention.py``:
 ``csrc/flash_attn_fwd.cu`` replaces ``_flash_kernel`` (with its lse
-output), ``csrc/flash_attn_bwd.cu`` replaces ``_flash_bwd_fused_kernel``
-(``flash_attn_bwd``), ``_flash_bwd_dq_kernel`` (``flash_attn_bwd_dq``) and
-``_flash_bwd_dkv_kernel`` (``flash_attn_bwd_dkv``). Attention is bound by
-tensor-core FLOPs at the DiT's shapes; the kernels keep logits out of
-device memory and run every product on ``mma.sync`` (see the sources'
-headers for the designs).
+output), ``csrc/flash_attn_bwd_sm90.cu`` replaces
+``_flash_bwd_fused_kernel`` (``flash_attn_bwd``), and
+``csrc/flash_attn_bwd.cu`` replaces ``_flash_bwd_dq_kernel``
+(``flash_attn_bwd_dq``) and ``_flash_bwd_dkv_kernel``
+(``flash_attn_bwd_dkv``). Attention is bound by tensor-core FLOPs at the
+DiT's shapes; the kernels keep logits out of device memory. The forward
+and the single-pass backward run on Hopper's wgmma with TMA loads
+(``csrc/sm90.cuh``), the two-pass pair on ``mma.sync`` (see the sources'
+headers for the designs). The TMA loads need every stride a multiple of
+16 bytes and 16-byte-aligned bases, which ``_check_stream`` enforces.
 
 Forward numerics, shared by kernel and plain version: logits, softmax
 max and denominator in f32; probabilities rounded to the input dtype
@@ -39,12 +43,15 @@ import torch
 from . import _cuda
 
 HEAD_DIMS = (64, 72)
-KEY_TILE = 64   # keys per K/V tile in the kernel (kBlockN): Sk pads to this
+# keys per K/V tile of the two-pass kernels (kBlockN), which the planted
+# unmasked-padding faults pad Sk to; the forward's and the single pass's
+# 128-key tiles pad the main path's lengths (1370, 1374) by as many keys
+KEY_TILE = 64
 FUSED_BWD_MAX_KEYS = 2048
 
 
 def bwd_form(sk: int) -> str:
-    """``"fused"`` (one pass, dq by atomics) or ``"two_pass"`` (dq pass +
+    """``"fused"`` (one pass, dq reduced into f32) or ``"two_pass"`` (dq pass +
     dk/dv pass) for a key length ``sk``."""
     return "fused" if sk <= FUSED_BWD_MAX_KEYS else "two_pass"
 

@@ -6,9 +6,10 @@ Python step per spaced timestep, cross-attention K/V projected once) ->
 one batched VAE decode of all primitives -> PrimX parameters.
 
 Stage 2: noise filter, coarse-to-fine SDF grid on the device, then the
-JAX package's host stages (``topiaxl.extract``: isosurface, cleanup,
-decimation, UV unwrap, rasterisation), the texel bake on the device, EDT
-inpaint and the GLB writer.
+host stages (``topiaxl_torch.extract``, the port's copy of the JAX
+package's: isosurface, cleanup, decimation, UV unwrap, rasterisation,
+with their C++ parts in ``topiaxl_torch.native``), the texel bake on the
+device, EDT inpaint and the GLB writer.
 """
 
 from __future__ import annotations
@@ -232,7 +233,7 @@ def extract_glb(params: PrimXParams, output_dir: str, mc_resolution: int = 256,
     Raises EmptyIsosurfaceError when the field has no surface."""
     import cv2
 
-    from topiaxl.extract import (
+    from topiaxl_torch.extract import (
         box_projection_uv_unwrap,
         clean_mesh,
         compute_vertex_normal,

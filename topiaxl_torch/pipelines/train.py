@@ -14,10 +14,12 @@ runs in place on the parameters, moments, EMA and gradients, where the
 JAX package returns new trees.
 
 Random draws come from generators seeded with ``(seed, step)``, so a
-resumed run draws what an uninterrupted one would. The cond-drop applies
-inside the model's forward in every microbatch, so the null embedding
-gets its gradient with ``grad_accum > 1`` too (the JAX package's
-accumulation path drops outside its gradient, ``train.py:210-214``).
+resumed run draws what an uninterrupted one would. The cond-drop follows
+the JAX package: the single pass (``grad_accum == 1``) drops inside the
+model's forward, so the null embedding gets the dropped rows' gradient;
+with ``grad_accum > 1`` the dropped rows take the null embedding before
+the microbatch loop and outside the gradient (``train.py:210-214``), so
+the null embedding gets none from them.
 """
 
 from __future__ import annotations
@@ -187,6 +189,43 @@ def _step_generators(seed: int, step: int, device):
     return dev, torch.Generator().manual_seed(s)
 
 
+def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
+                         noise, drop, grad_accum: int = 1):
+    """Forward and backward of ``grad_accum`` equal microbatches, the
+    gradients summed into the parameters' ``.grad`` (undivided, as the JAX
+    package's ``accum_grads`` returns them). ``drop`` ([B] bool or None)
+    marks the rows whose conditioning is the null embedding: inside the
+    model's forward for the single pass, before the loop and outside the
+    gradient for ``grad_accum > 1``. Returns (the mean of the microbatch
+    losses, the per-row loss terms, detached)."""
+    B = x.shape[0]
+    if B % grad_accum:
+        raise ValueError(f"batch {B} not divisible by grad_accum={grad_accum}")
+    if grad_accum > 1 and drop is not None:
+        null = model.null_cond_embedding.detach().to(y.dtype)
+        y = torch.where(drop[:, None, None], null[None, None, :], y)
+        drop = None
+    mb = B // grad_accum
+    terms_all: dict = {}
+    loss_sum = torch.zeros((), device=x.device)
+    for i in range(grad_accum):
+        sl = slice(i * mb, (i + 1) * mb)
+        drop_i = None if drop is None else drop[sl]
+
+        def model_fn(x_t, t_orig, y=y[sl], drop=drop_i):
+            return model(x_t, t_orig, y, drop)
+
+        terms = gaussian.training_losses(diffusion, model_fn, x[sl], t[sl],
+                                         noise=noise[sl])
+        loss = (terms["loss_total"] * weights[sl]).mean()
+        loss.backward()
+        loss_sum += loss.detach()
+        for k, val in terms.items():
+            terms_all.setdefault(k, []).append(val.detach())
+    return loss_sum / grad_accum, {k: torch.cat(vs)
+                                   for k, vs in terms_all.items()}
+
+
 def make_train_step(model, diffusion: Diffusion, optimizer: dict,
                     ema_decay: float = 0.9999,
                     timestep_sampler: str = "uniform", grad_accum: int = 1):
@@ -198,9 +237,6 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
         x, y = batch["x"], batch["y"]
         B, device = x.shape[0], x.device
-        if B % grad_accum:
-            raise ValueError(f"batch {B} not divisible by "
-                             f"grad_accum={grad_accum}")
         gen, cpu_gen = _step_generators(seed, state.step, device)
         if timestep_sampler == "lsm" and state.sampler_state is not None:
             t, weights = lsm_sample(state.sampler_state, B, cpu_gen)
@@ -211,25 +247,8 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
         drop = model.cond_drop_mask(B, gen, device)
         noise = torch.randn(x.shape, generator=gen, device=device,
                             dtype=x.dtype)
-
-        mb = B // grad_accum
-        terms_all: dict = {}
-        loss_sum = torch.zeros((), device=device)
-        for i in range(grad_accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            drop_i = None if drop is None else drop[sl]
-
-            def model_fn(x_t, t_orig, y=y[sl], drop=drop_i):
-                return model(x_t, t_orig, y, drop)
-
-            terms = gaussian.training_losses(diffusion, model_fn, x[sl], t[sl],
-                                             noise=noise[sl])
-            loss = (terms["loss_total"] * weights[sl]).mean()
-            loss.backward()
-            loss_sum += loss.detach()
-            for k, val in terms.items():
-                terms_all.setdefault(k, []).append(val.detach())
-        terms = {k: torch.cat(vs) for k, vs in terms_all.items()}
+        loss, terms = accumulate_gradients(model, diffusion, x, y, t, weights,
+                                           noise, drop, grad_accum)
 
         params = state.params()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -242,7 +261,7 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
             state.sampler_state = lsm_update(state.sampler_state, t.cpu(),
                                              terms["loss_total"])
         state.step += 1
-        metrics = {"loss": loss_sum / grad_accum,
+        metrics = {"loss": loss,
                    "loss_mse": terms["loss_mse"].mean(), "grad_norm": gnorm}
         if "loss_vb" in terms:
             metrics["loss_vb"] = terms["loss_vb"].mean()
