@@ -17,23 +17,38 @@ the script exits non-zero without a result line):
    computes the same function, that call's time (``library_ms``:
    ``scaled_dot_product_attention`` and its flash backward, used here as
    a yardstick and nowhere in the port).
-4. serving: ``topiaxl_torch.cli.infer.main`` on two synthetic images at
+4. probes: the three tensor-core probe kernels (``csrc/mma_probe.cu``:
+   the int8/bf16 rate loop and the attention dot forms) against their
+   plain versions at the probe path's shapes, with planted faults, each
+   form's time, bound and the PyTorch call that computes one product.
+5. probe_path: ``python -m topiaxl_torch.benchmarks.microbench_int8`` and
+   ``...exp_dot_forms`` as a user runs them (their ``main``), with the
+   launch counters zeroed before and read after.
+6. serving: ``topiaxl_torch.cli.infer.main`` on two synthetic images at
    the flagship config (``configs/inference_dit.yml``, random weights,
    no GLB export), with the exact kernel launch counts per image.
-5. stage 2: ``extract_glb`` on a 2048-prim sphere shell at mc 256,
+7. serving_int8: the same with ``model.generator.quant=true`` (W8A8), in
+   turns with bf16 (int8, bf16, int8 after phase 6's bf16): stage 1 of
+   each run's warm image, and the same launch counts.
+8. serving_samplers: ``inference.sampler=dpm`` on a 12-step chain and
+   ``ancestral`` on 25, one image each, with the launches of that many
+   steps.
+9. stage 2: ``extract_glb`` on a 2048-prim sphere shell at mc 256,
    decimate 100k, texture 1024; the GLB must parse and lie on the sphere.
-6. dit: one full-width, depth-2 DiT CFG step on the card (bf16, kernels)
-   against the same weights on the CPU (f32, plain versions).
-7. train: ``topiaxl_torch.cli.train.main`` at the flagship config
-   (synthetic data, batch 8, random init) for 6 steps, then a resume from
-   its checkpoint for one more, with the exact kernel launch counts per
-   step, finite losses and gradient norms, step time and peak memory.
-8. train_long: the same trainer at 4096 prims (depth 2, batch 2): the
-   self-attention's 4096 keys take the two-pass backward pair.
-9. train_parity: one full-width, depth-2 training step's loss and
-   gradients on the card (bf16, kernels) against the CPU (f32, plain),
-   and a control step whose attention backward leaves out delta, which
-   must fail the bars.
+10. dit: one full-width, depth-2 DiT CFG step on the card (bf16, kernels)
+    against the same weights on the CPU (f32, plain versions).
+11. dit_int8: the same step with both DiTs W8A8 from the same int8
+    weights (the card's activations bf16, the CPU's f32).
+12. train: ``topiaxl_torch.cli.train.main`` at the flagship config
+    (synthetic data, batch 8, random init) for 6 steps, then a resume
+    from its checkpoint for one more, with the exact kernel launch counts
+    per step, finite losses and gradient norms, step time and peak memory.
+13. train_long: the same trainer at 4096 prims (depth 2, batch 2): the
+    self-attention's 4096 keys take the two-pass backward pair.
+14. train_parity: one full-width, depth-2 training step's loss and
+    gradients on the card (bf16, kernels) against the CPU (f32, plain),
+    and a control step whose attention backward leaves out delta, which
+    must fail the bars.
 
 Phase 3 also holds the forward's output and lse, the three backward
 kernels and the LN kernels against their plain versions at the training
@@ -61,24 +76,27 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "inference_dit.yml")
 
+# the probes run on no path of the system but their own
+NO_PROBES = {"mma_rate_loop": 0, "dot_form_chain": 0, "dot_form_accum": 0}
 # per image at the flagship config: DINOv2's 12 blocks + 25 DDIM steps x
 # 28 DiT blocks x (self + cross); 25 x (28 blocks + final layer); 25 x 28 x 2;
 # serving runs no backward kernel
 EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                      "ln_modulate": 25 * 29,
-                     "ln_modulate_residual": 25 * 56}
+                     "ln_modulate_residual": 25 * 56, **NO_PROBES}
 # per training step at the flagship config (28 blocks): a forward flash
 # and a single-pass backward launch per self- and cross-attention; the LN
 # kernels as in serving, once per block and step (+ the final layer)
 TRAIN_LAUNCHES = {"flash_attn_fwd": 56, "flash_attn_bwd": 56,
                   "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                  "ln_modulate": 29, "ln_modulate_residual": 56}
+                  "ln_modulate": 29, "ln_modulate_residual": 56, **NO_PROBES}
 # at 4096 prims and depth 2 the self-attention (4096 keys) takes the
 # two-pass pair, the cross-attention (1370 keys) the single pass
 TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 2,
                        "flash_attn_bwd_dq": 2, "flash_attn_bwd_dkv": 2,
-                       "ln_modulate": 3, "ln_modulate_residual": 4}
+                       "ln_modulate": 3, "ln_modulate_residual": 4,
+                       **NO_PROBES}
 # one training step, card (bf16 compute, f32 master weights, kernels)
 # against the CPU (f32, plain versions) at full width, depth 2: the loss
 # and the global gradient norm relative to the CPU's, and the cosine of
@@ -104,6 +122,13 @@ ATTN_REL_BAR = 1e-2
 # the absolute term.
 LN_ABS_SLACK = 1e-5
 DIT_BAR = 5e-2      # max |card bf16 - cpu f32| / max |cpu f32|, one CFG step
+# probes: int8 exact (int32 sums); bf16 max |kernel - plain| / max |plain|
+# (f32 sums of exact bf16 products, in another order: the kernel stages
+# 256 bytes of the contraction at a time). Planted faults: the rate loop
+# with every coefficient +1; every dot form with one product fewer (1/64
+# and 1/512 of the sum); a contraction of 72 with its pad filled with
+# ones; an output width of 72 with its last 8 left zero.
+PROBE_REL_BAR = 1e-3
 # lse: max |kernel - plain logsumexp| (f32 on both sides, ~log(Sk) + a
 # few, so ~1e-6 of f32 summation order; a kernel that leaves its padded
 # keys unmasked adds log(1 + n_pad / sum) ~ 1e-2 at the cross shape)
@@ -137,6 +162,12 @@ KERNELS = {
                     "topiaxl/ops/fused_ln.py:30"),
     "ln_modulate_residual": ("topiaxl_torch/csrc/ln_modulate.cu",
                              "topiaxl/ops/fused_ln.py:108"),
+    "mma_rate_loop": ("topiaxl_torch/csrc/mma_probe.cu",
+                      "benchmarks/microbench_pallas_int8.py:22"),
+    "dot_form_chain": ("topiaxl_torch/csrc/mma_probe.cu",
+                       "benchmarks/exp_dot_forms.py:35"),
+    "dot_form_accum": ("topiaxl_torch/csrc/mma_probe.cu",
+                       "benchmarks/exp_dot_forms2.py:37"),
 }
 
 
@@ -249,7 +280,7 @@ def ptxas_summary(build_log: str) -> list[str]:
             name = line.split("'")[1]
             for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
                           "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
-                          "ln_modulate_kernel"):
+                          "ln_modulate_kernel", "mma_probe_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
         elif "spill stores" in line:
@@ -558,15 +589,231 @@ def phase_kernels() -> dict:
     return results
 
 
-def phase_serving(tmp: str) -> dict:
-    from topiaxl_torch.cli.infer import main
+def library_ms(fn, calls: int) -> float:
+    """ms of ``calls`` back-to-back PyTorch calls in one CUDA graph."""
+    return cuda_ms(fn, calls) * calls
+
+
+def check_probe(name: str, tag: str, got, ref, faults: dict, exact: bool):
+    """Kernel against plain: exact (int8) or max |kernel - plain| / max
+    |plain| within PROBE_REL_BAR (bf16); each planted fault, computed by the
+    plain version on the same inputs, must land above the bar. Returns
+    (max abs err, rel err, fault readings)."""
+    err = (got.double() - ref.double()).abs().max().item()
+    rel = rel_err(got.double(), ref.double())
+    readings = {k: rel_err(f.double(), ref.double()) for k, f in faults.items()}
+    if (err != 0.0) if exact else not rel <= PROBE_REL_BAR:
+        raise AssertionError(f"{name} {tag}: max abs err {err}, rel {rel}")
+    for k, r in readings.items():
+        if not r > PROBE_REL_BAR:
+            raise AssertionError(f"{name} {tag}: the bar cannot see the "
+                                 f"planted fault {k} ({r})")
+    return err, rel, readings
+
+
+def phase_probes() -> dict:
+    """The three probe kernels against their plain versions at the probe
+    path's shapes, with planted faults; each form's time by CUDA-graph
+    replay beside its bound (operations over the peak of its type), its
+    plain version's and the PyTorch call that computes one product
+    (``torch.matmul`` bf16, ``torch._int_mm`` int8), made as many times in
+    one graph as the kernel makes products."""
+    import torch
+
+    from topiaxl_torch.benchmarks import PEAK_BF16_FLOPS, PEAK_INT8_OPS
+    from topiaxl_torch.benchmarks import exp_dot_forms as edf
+    from topiaxl_torch.benchmarks import microbench_int8 as mbi
+
+    dev = torch.device("cuda")
+    results = {}
+
+    # 7: the rate loop, at the TPU's shape and with two tiles per SM
+    forms = {}
+    for m in (mbi.M, mbi.M_FULL):
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            int8 = dtype == torch.int8
+            a, b = mbi.operands(m, dtype, dev, seed=7)
+            got = mbi.mma_rate_loop(a, b, mbi.L)
+            ref = mbi.mma_rate_loop_plain(a, b, mbi.L)
+            fault = mbi.mma_rate_loop_plain(a, b, mbi.L, coef=lambda i: 1)
+            torch.cuda.synchronize()
+            err, rel, faults = check_probe(
+                "mma_rate_loop", f"{tag} M={m}", got, ref,
+                {"coefficients +1": fault}, int8)
+            del got, ref, fault
+            ms = cuda_ms(lambda: mbi.mma_rate_loop(a, b, mbi.L), 5)
+            plain_ms = cuda_ms(lambda: mbi.mma_rate_loop_plain(a, b, mbi.L), 1)
+            ops = 2.0 * m * mbi.N * mbi.K * mbi.L
+            peak = PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS
+            nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() \
+                + 4 * m * mbi.N
+            bound_ms, bound_by = bound(ops, nbytes, peak)
+            if int8:
+                bt = b.t().contiguous()    # cuBLASLt's int8 layout for B
+                lib = lambda: torch._int_mm(a, bt.t())   # noqa: E731
+            else:
+                lib = lambda: torch.matmul(a, b)         # noqa: E731
+            lib_ms = library_ms(lib, mbi.L)
+            unit = "TOP/s" if int8 else "TFLOP/s"
+            log(f"  mma_rate_loop {tag} {m}x{mbi.K}x{mbi.N} x{mbi.L}: max abs "
+                f"err {err:.3e}, rel {rel:.3e} ({'exact' if int8 else PROBE_REL_BAR}; "
+                f"fault {faults['coefficients +1']:.3e}), kernel {ms:.4f} ms "
+                f"({ops / ms / 1e9:.1f} {unit}, {ops / ms / 1e9 / (peak / 1e12):.3f}"
+                f" of peak), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), library {lib_ms:.4f} ms "
+                f"({ops / lib_ms / 1e9:.1f} {unit}, {'_int_mm' if int8 else 'matmul'}"
+                f" x{mbi.L})")
+            forms[f"{tag}_m{m}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, max_abs_err=err, max_rel_err=rel,
+                rate_t=ops / ms / 1e9, library_rate_t=ops / lib_ms / 1e9,
+                fault=faults["coefficients +1"])
+    head = forms[f"int8_m{mbi.M_FULL}"]
+    results["mma_rate_loop"] = dict(
+        {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        max_abs_err=max(f["max_abs_err"] for f in forms.values()),
+        at=f"int8 {mbi.M_FULL}x{mbi.K}x{mbi.N} x{mbi.L}",
+        library="torch._int_mm / torch.matmul, one call a product",
+        forms=forms)
+
+    def form_faults(a, b, dn, plain, iters, ref):
+        """One product fewer; where 72 is contracted, the pad (72-79) of
+        both operands filled with ones; where 72 is an output width, its
+        last 8 rows or columns left zero (an n64 kernel)."""
+        ca, cb = dn
+        faults = {"one product fewer": plain(a, b, dn, iters - 1)}
+        if a.shape[ca] == 72:
+            pa = [0, 0, 0, 0]
+            pa[2 * (1 - ca) + 1] = 8       # F.pad's order: last dim first
+            pb = [0, 0, 0, 0]
+            pb[2 * (1 - cb) + 1] = 8
+            faults["pad of ones"] = plain(
+                torch.nn.functional.pad(a, pa, value=1.0),
+                torch.nn.functional.pad(b, pb, value=1.0), dn, iters)
+        if 72 in ref.shape:
+            n64 = ref.clone()
+            if ref.shape[0] == 72:
+                n64[64:] = 0
+            else:
+                n64[:, 64:] = 0
+            faults["n64 output"] = n64
+        return faults
+
+    def lib_product(a, b, dn):
+        ca, cb = dn
+        lhs = a if ca == 1 else a.t()
+        rhs = b if cb == 0 else b.t()
+        return lambda: torch.matmul(lhs, rhs)
+
+    # 8 and 9: the dot forms
+    for name, table, iters, kernel, plain in (
+            ("dot_form_chain", edf.CHAIN_FORMS, edf.N_ITER, edf.dot_form_chain,
+             edf.dot_form_chain_plain),
+            ("dot_form_accum", edf.ACCUM_FORMS, edf.G_LO, edf.dot_form_accum,
+             edf.dot_form_accum_plain)):
+        forms = {}
+        for label, a_shape, b_shape, dn in table:
+            a, b = edf.operands(a_shape, b_shape, dev, seed=8)
+            got = kernel(a, b, dn, iters)
+            ref = plain(a, b, dn, iters)
+            faults = form_faults(a, b, dn, plain, iters, ref)
+            torch.cuda.synchronize()
+            err, rel, readings = check_probe(name, label, got, ref, faults,
+                                             False)
+            del got, ref, faults
+            ms = cuda_ms(lambda: kernel(a, b, dn, iters), 5)
+            plain_ms = cuda_ms(lambda: plain(a, b, dn, iters), 1)
+            flops = edf.form_flops(a_shape, b_shape, dn)
+            X, Y = a_shape[1 - dn[0]], b_shape[1 - dn[1]]
+            bound_ms, bound_by = bound(
+                iters * flops, 2 * (a.numel() + b.numel()) + 4 * X * Y)
+            lib_ms = library_ms(lib_product(a, b, dn), iters)
+            per_dot = {"us_per_dot": ms * 1e3 / iters}
+            if name == "dot_form_accum":   # the slope, as the TPU script
+                hi = cuda_ms(lambda: kernel(a, b, dn, edf.G_HI), 2)
+                per_dot = {"us_per_dot": (hi - ms) * 1e3 / (edf.G_HI - edf.G_LO),
+                           "ms_g_hi": hi}
+            us = per_dot["us_per_dot"]
+            log(f"  {name} {label} {list(a_shape)}x{list(b_shape)} c={list(dn)} "
+                f"x{iters}: max rel err {rel:.3e} (bar {PROBE_REL_BAR}; faults "
+                + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+                + f"), kernel {ms:.4f} ms, {us:.3f} us/dot "
+                f"({flops / us / 1e6:.1f} TFLOP/s, "
+                f"{flops / us / 1e6 / (PEAK_BF16_FLOPS / 1e12):.3f} of peak), "
+                f"plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms "
+                f"({lib_ms * 1e3 / iters:.3f} us/dot, matmul bf16 out)")
+            forms[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=lib_ms,
+                                max_abs_err=err, max_rel_err=rel,
+                                tflops=flops / us / 1e6, faults=readings,
+                                **per_dot)
+        head = forms[table[-1][0] if name == "dot_form_chain" else table[0][0]]
+        results[name] = dict(
+            {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+            max_abs_err=max(f["max_abs_err"] for f in forms.values()),
+            at=(f"{table[-1][0]} x{iters}" if name == "dot_form_chain"
+                else f"{table[0][0]} x{iters}"),
+            library="torch.matmul bf16, one call a product", forms=forms)
+    return results
+
+
+def phase_probe_path() -> dict:
+    """The probe path as a user runs it: the two modules' ``main`` (their
+    printed rates go to this log), the counters zeroed just before and
+    read just after; each probe kernel must have launched."""
+    import contextlib
+    import io
+
+    from topiaxl_torch.benchmarks import exp_dot_forms, microbench_int8
     from topiaxl_torch.ops import _cuda
+
+    buf = io.StringIO()
+    _cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        microbench_int8.main([])
+        exp_dot_forms.main([])
+    counts = {k: _cuda.launches[k] for k in NO_PROBES}
+    for line in buf.getvalue().splitlines():
+        if not line.startswith("{"):
+            log(f"  {line}")
+    log(f"  probe path launches {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"a probe kernel did not launch: {counts}")
+    return counts
+
+
+def serving_launches(steps: int) -> dict:
+    """Launches per image at the flagship config for a chain of ``steps``:
+    DINOv2's 12 blocks + steps x 28 DiT blocks x (self + cross) flash;
+    steps x (28 blocks + final layer) and steps x 28 x 2 LN; no backward."""
+    return dict(EXPECTED_LAUNCHES, flash_attn_fwd=12 + steps * 56,
+                ln_modulate=steps * 29, ln_modulate_residual=steps * 56)
+
+
+def write_images(tmp: str, n: int) -> str:
     from topiaxl_torch.pipelines.synthetic import write_bench_image
 
-    img_dir = os.path.join(tmp, "imgs")
-    os.makedirs(img_dir)
-    for i in range(2):
-        write_bench_image(os.path.join(img_dir, f"asset{i}.png"), shift=12 * i)
+    img_dir = os.path.join(tmp, f"imgs{n}")
+    if not os.path.isdir(img_dir):
+        os.makedirs(img_dir)
+        for i in range(n):
+            write_bench_image(os.path.join(img_dir, f"asset{i}.png"),
+                              shift=12 * i)
+    return img_dir
+
+
+def run_cli(tmp: str, tag: str, images: int, overrides: list,
+            expected: dict) -> tuple[dict, list]:
+    """``cli.infer.main`` at the flagship config on ``images`` synthetic
+    images (no GLB export), the counters zeroed just before; checks each
+    image's launches against ``expected`` and its denoised PrimX (finite,
+    shaped). Returns the run's total launches and one record per image
+    (stage seconds, launches)."""
+    from topiaxl_torch.cli.infer import main
+    from topiaxl_torch.ops import _cuda
 
     class PerImage(list):
         """Snapshots the launch counters as each image finishes."""
@@ -575,23 +822,25 @@ def phase_serving(tmp: str) -> dict:
             super().append(dict(rec, launches=dict(_cuda.launches)))
 
     recs = PerImage()
+    root = os.path.join(tmp, f"runs_{tag}")
     _cuda.reset_launch_counts()
     rc = main([FLAGSHIP, "inference.export_glb=false",
-               f"inference.input_dir={img_dir}", f"root_data_dir={tmp}/runs"],
-              timings_out=recs)
+               f"inference.input_dir={write_images(tmp, images)}",
+               f"root_data_dir={root}", *overrides], timings_out=recs)
     total = dict(_cuda.launches)
-    if rc != 0 or len(recs) != 2:
-        raise AssertionError(f"cli main returned {rc} with {len(recs)} images")
+    if rc != 0 or len(recs) != images:
+        raise AssertionError(f"cli main ({tag}) returned {rc} with "
+                             f"{len(recs)} images")
     prev = dict.fromkeys(total, 0)
     for rec in recs:
         per = {k: rec["launches"][k] - prev[k] for k in total}
         prev = rec["launches"]
-        log(f"  {rec['image']}: encode {rec['encode_s']:.3f} s, stage1 "
-            f"{rec['stage1_s']:.3f} s, stage2 {rec['stage2_s']:.3f} s; "
+        log(f"  [{tag}] {rec['image']}: encode {rec['encode_s']:.3f} s, "
+            f"stage1 {rec['stage1_s']:.3f} s, stage2 {rec['stage2_s']:.3f} s; "
             f"launches {per}")
-        if per != EXPECTED_LAUNCHES:
-            raise AssertionError(f"launches {per} != {EXPECTED_LAUNCHES}")
-        z = np.load(os.path.join(tmp, "runs", "inference", "topiaxl-sview",
+        if per != expected:
+            raise AssertionError(f"{tag}: launches {per} != {expected}")
+        z = np.load(os.path.join(root, "inference", "topiaxl-sview",
                                  "inference_folder", rec["image"],
                                  "denoised.npz"))
         if z["srt"].shape != (2048, 4) or z["feat"].shape != (2048, 3072):
@@ -599,7 +848,38 @@ def phase_serving(tmp: str) -> dict:
                                  f"{z['feat'].shape}")
         if not (np.isfinite(z["srt"]).all() and np.isfinite(z["feat"]).all()):
             raise AssertionError("denoised.npz is not finite")
-    return total
+    return total, recs
+
+
+def phase_serving(tmp: str) -> tuple[dict, list]:
+    return run_cli(tmp, "bf16", 2, [], EXPECTED_LAUNCHES)
+
+
+def phase_serving_int8(tmp: str, bf16: list) -> None:
+    """W8A8 (``model.generator.quant=true``) and bf16 in turns, in this
+    process, after the serving phase's bf16 run: stage 1 of each run's
+    warm (second) image, and the same launch counts. (The random init's
+    zero adaLN gates make every block the identity, so the two runs'
+    tokens agree whatever the W8A8 layers compute: phase dit_int8 holds
+    their numerics.)"""
+    stage1 = {"bf16": [bf16[-1]["stage1_s"]], "int8": []}
+    runs = [("int8", ["model.generator.quant=true"]), ("bf16", []),
+            ("int8", ["model.generator.quant=true"])]
+    for n, (tag, overrides) in enumerate(runs):
+        _, recs = run_cli(tmp, f"{tag}_{n}", 2, overrides, EXPECTED_LAUNCHES)
+        stage1[tag].append(recs[-1]["stage1_s"])
+    log(f"  stage 1 of the warm image, in run order bf16, int8, bf16, int8: "
+        f"bf16 {[round(v, 3) for v in stage1['bf16']]} s, int8 "
+        f"{[round(v, 3) for v in stage1['int8']]} s")
+
+
+def phase_serving_samplers(tmp: str) -> None:
+    """``inference.sampler=dpm`` on a 12-step chain and ``ancestral`` on the
+    config's 25: the launches of that many steps, finite tokens."""
+    for tag, steps, overrides in (
+            ("dpm", 12, ["inference.sampler=dpm", "inference.ddim=12"]),
+            ("ancestral", 25, ["inference.sampler=ancestral"])):
+        run_cli(tmp, tag, 1, overrides, serving_launches(steps))
 
 
 def phase_stage2(tmp: str):
@@ -633,10 +913,15 @@ def phase_stage2(tmp: str):
         raise AssertionError(f"vertices off the sphere by {dev.max() / voxel} voxels")
 
 
-def phase_dit():
+def phase_dit(quant: bool = False):
+    """One full-width, depth-2 CFG step on the card (bf16, kernels)
+    against the same weights on the CPU (f32, plain versions). With
+    ``quant`` both DiTs serve W8A8 from the same int8 codes and scales:
+    the card's activations are bf16 and its int8 products
+    ``torch._int_mm``'s, the CPU's f32 and exact."""
     import torch
 
-    from topiaxl_torch.models.dit import DiT
+    from topiaxl_torch.models.dit import DiT, quantize_dit_state_dict
     from topiaxl_torch.models.layers import xavier_
 
     kw = dict(seq_length=2048, in_channels=68, condition_channels=768,
@@ -649,8 +934,6 @@ def phase_dit():
             xavier_(m.weight, gen)
             m.bias.normal_(0.0, 0.02, generator=gen)
         cpu.null_cond_embedding.normal_(0.0, 1.0, generator=gen)
-    card = DiT(dtype=torch.bfloat16, device="cuda", **kw).eval()
-    card.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((1, 2048, 68)).astype(np.float32))
     y = torch.from_numpy(rng.standard_normal((1, 1370, 768)).astype(np.float32))
@@ -662,12 +945,25 @@ def phase_dit():
                 x.to(dev), t.to(dev), model.precompute_kv(y.to(dev)),
                 model.precompute_null_out(), 6.0).float().cpu()
 
+    what = "one CFG step"
+    if quant:
+        float_ref = step(cpu, "cpu")
+        qcpu = DiT(dtype=torch.float32, device="cpu", quant=True, **kw).eval()
+        qcpu.load_state_dict(quantize_dit_state_dict(qcpu, cpu.state_dict()))
+        cpu = qcpu
+        what = "one W8A8 CFG step"
+    card = DiT(dtype=torch.bfloat16, device="cuda", quant=quant, **kw).eval()
+    card.load_state_dict(cpu.state_dict())
     got, ref = step(card, "cuda"), step(cpu, "cpu")
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
     mean_rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
-    log(f"  one CFG step, depth 2 at full width: max|ref| "
+    extra = ""
+    if quant:
+        q_rel = ((ref - float_ref).abs().max() / float_ref.abs().max()).item()
+        extra = f"; CPU W8A8 vs CPU float step max rel {q_rel:.3e}"
+    log(f"  {what}, depth 2 at full width: max|ref| "
         f"{ref.abs().max().item():.3f}, max rel err {rel:.3e} (bar {DIT_BAR}), "
-        f"mean rel err {mean_rel:.3e}")
+        f"mean rel err {mean_rel:.3e}{extra}")
     if not (torch.isfinite(got).all() and rel <= DIT_BAR):
         raise AssertionError(f"card vs cpu DiT step: rel err {rel} > {DIT_BAR}")
 
@@ -793,7 +1089,7 @@ def phase_train_parity():
     ref_loss, ref = step(cpu, "cpu")
     expect = {"flash_attn_fwd": 4, "flash_attn_bwd": 4, "flash_attn_bwd_dq": 0,
               "flash_attn_bwd_dkv": 0, "ln_modulate": 3,
-              "ln_modulate_residual": 4}
+              "ln_modulate_residual": 4, **NO_PROBES}
     if launches != expect:
         raise AssertionError(f"parity step launches {launches} != {expect}")
     gnorm = lambda g: torch.sqrt(sum((v.double() ** 2).sum()  # noqa: E731
@@ -860,13 +1156,23 @@ def main() -> int:
         phase_build()
     with Phase("kernels"):
         results = phase_kernels()
+    with Phase("probes"):
+        results.update(phase_probes())
+    with Phase("probe_path"):
+        probe_launches = phase_probe_path()
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("serving"):
-            launches = phase_serving(tmp)
+            launches, bf16_recs = phase_serving(tmp)
+        with Phase("serving_int8"):
+            phase_serving_int8(tmp, bf16_recs)
+        with Phase("serving_samplers"):
+            phase_serving_samplers(tmp)
         with Phase("stage2"):
             phase_stage2(tmp)
     with Phase("dit"):
         phase_dit()
+    with Phase("dit_int8"):
+        phase_dit(quant=True)
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("train"):
             train = phase_train(tmp)
@@ -881,7 +1187,8 @@ def main() -> int:
     # two-pass pair
     launches.update(flash_attn_bwd=train["flash_attn_bwd"],
                     flash_attn_bwd_dq=train_long["flash_attn_bwd_dq"],
-                    flash_attn_bwd_dkv=train_long["flash_attn_bwd_dkv"])
+                    flash_attn_bwd_dkv=train_long["flash_attn_bwd_dkv"],
+                    **probe_launches)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in KERNELS.items()]

@@ -16,12 +16,16 @@ the plain backward without delta (dq, dk) and the pair with padded keys
 unmasked (dq, dk, dv) must land above that bar. The forward's
 lse within 1e-4 of the plain logsumexp. LN
 outputs within one bf16 ulp of the plain f32 chain plus 1e-5 for the
-f32 summation order.
+f32 summation order. The probe kernel (``csrc/mma_probe.cu``): int8
+exact, bf16 within 1e-3 of max|plain| (f32 sums in another order), with
+planted faults (coefficients +1, one product fewer, a pad of ones) above.
 """
 
 import pytest
 import torch
 
+from topiaxl_torch.benchmarks import exp_dot_forms as edf
+from topiaxl_torch.benchmarks import microbench_int8 as mbi
 from topiaxl_torch.ops import _cuda
 from topiaxl_torch.ops.flash_attention import (
     KEY_TILE,
@@ -45,6 +49,7 @@ pytestmark = pytest.mark.cuda
 ATTN_REL_BAR = 1e-2
 ATTN_BWD_REL_BAR = 1.2e-2
 LSE_ABS_BAR = 1e-4
+PROBE_REL_BAR = 1e-3
 
 
 @pytest.fixture
@@ -238,6 +243,90 @@ def test_flash_refuses_what_tma_cannot_load(dev):
         flash_attention_backward(good, good, good, good, lse, shifted, 0.1)
     with pytest.raises(ValueError, match="strides"):
         flash_attention_backward(good, good, good, odd, lse, good, 0.1)
+    assert _cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,k,n,iters", [(128, 64, 128, 7), (256, 1024, 256, 5),
+                                         (128, 400, 384, 2)])
+def test_mma_rate_loop_matches_plain(dev, dtype, m, k, n, iters):
+    """int8 exact; bf16 within 1e-3 of max|plain| (f32 sums in another
+    order: the kernel stages 256 bytes of K at a time). The plain version
+    with every coefficient +1 lands far above."""
+    if dtype == torch.int8:
+        g = torch.Generator(dev).manual_seed(40)
+        a = torch.randint(-127, 127, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 127, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+    else:
+        a, b = _randn(dev, m, k, seed=41), _randn(dev, k, n, seed=42)
+    before = _cuda.launches["mma_rate_loop"]
+    got = mbi.mma_rate_loop(a, b, iters)
+    assert _cuda.launches["mma_rate_loop"] == before + 1
+    ref = mbi.mma_rate_loop_plain(a, b, iters)
+    fault = mbi.mma_rate_loop_plain(a, b, iters, coef=lambda i: 1)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert _rel_err(got, ref) <= PROBE_REL_BAR
+    assert _rel_err(fault.double(), ref.double()) > PROBE_REL_BAR
+
+
+@pytest.mark.parametrize("form", [
+    ((128, 128), (256, 128), (1, 1)),   # q k^T, both K-major
+    ((80, 128), (80, 256), (0, 0)),     # contraction on rows, both MN-major
+    ((128, 384), (384, 256), (1, 0)),   # standard: B MN-major, three chunks
+    ((80, 256), (128, 256), (1, 1)),    # 80-row output: computed transposed
+    ((128, 72), (256, 72), (1, 1)),     # contraction 72 padded to 80
+    ((72, 128), (72, 256), (0, 0)),
+    ((128, 256), (256, 72), (1, 0)),    # n72 output
+    ((72, 256), (128, 256), (1, 1)),    # 72-row output: n72, transposed
+])
+def test_dot_forms_match_plain(dev, form):
+    a_shape, b_shape, dn = form
+    a, b = _randn(dev, *a_shape, seed=43), _randn(dev, *b_shape, seed=44)
+    before = dict(_cuda.launches)
+    chain = edf.dot_form_chain(a, b, dn, 5)
+    accum = edf.dot_form_accum(a, b, dn, 3)
+    assert _cuda.launches["dot_form_chain"] == before["dot_form_chain"] + 1
+    assert _cuda.launches["dot_form_accum"] == before["dot_form_accum"] + 1
+    ref_chain = edf.dot_form_chain_plain(a, b, dn, 5)
+    ref_accum = edf.dot_form_accum_plain(a, b, dn, 3)
+    fewer = edf.dot_form_accum_plain(a, b, dn, 2)
+    torch.cuda.synchronize()
+    assert chain.shape == ref_chain.shape and chain.dtype == torch.float32
+    assert _rel_err(chain, ref_chain) <= PROBE_REL_BAR
+    assert _rel_err(accum, ref_accum) <= PROBE_REL_BAR
+    assert _rel_err(fewer, ref_accum) > PROBE_REL_BAR
+
+
+def test_dot_form_pad_is_zero(dev):
+    """A contraction of 72 pads to 80 with zeros: the plain product with
+    ones in the pad lands far above the bar."""
+    a, b = _randn(dev, 128, 72, seed=45), _randn(dev, 256, 72, seed=46)
+    got = edf.dot_form_accum(a, b, (1, 1), 2)
+    ref = edf.dot_form_accum_plain(a, b, (1, 1), 2)
+    ones = torch.ones(128, 8, device=dev, dtype=torch.bfloat16)
+    padded = edf.dot_form_accum_plain(
+        torch.cat([a, ones], 1), torch.cat([b, ones[:1].expand(256, 8)], 1),
+        (1, 1), 2)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= PROBE_REL_BAR
+    assert _rel_err(padded, ref) > PROBE_REL_BAR
+
+
+def test_probe_refuses_what_it_cannot_run(dev):
+    a = _randn(dev, 100, 64)
+    before = dict(_cuda.launches)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mbi.mma_rate_loop(a, _randn(dev, 64, 128), 2)
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        mbi.mma_rate_loop(a.float()[:0], a.float()[:0], 2)
+    with pytest.raises(ValueError, match="N=96"):
+        edf.dot_form_chain(_randn(dev, 128, 64), _randn(dev, 96, 64), (1, 1), 2)
     assert _cuda.launches == before
 
 

@@ -10,7 +10,11 @@ GLB for every image in ``inference.input_dir``. Per image it writes
 ``texture.jpg`` and ``roughness_metallic.jpg``.
 
 ``inference.device`` (default ``cuda``) picks the device; there is no
-silent fallback to the CPU.
+silent fallback to the CPU. ``inference.sampler`` picks the chain:
+``ddim`` (default), ``dpm`` (DPM-Solver++(2M) over the same respaced
+timesteps, e.g. ``inference.ddim=12``) or ``ancestral``; any other name
+raises. ``model.generator.quant=true`` serves the DiT's block matmuls
+W8A8 (``ops/int8.py``).
 """
 
 from __future__ import annotations
@@ -83,22 +87,24 @@ def _load_state_dict(path: str, key: str | None = None) -> dict:
 
 def build_models(cfg, device, generator: torch.Generator):
     """(dit, vae, encoder) from the config's model fields, with checkpoints
-    loaded where the config names them."""
+    loaded where the config names them. With ``model.generator.quant``
+    the DiT serves W8A8: its float weights (checkpoint or random init)
+    are quantized once, as ``topiaxl/cli/infer.py:_maybe_quantize`` does."""
     from ..models.conditioner.image import DinoV2Wrapper
-    from ..models.dit import DiT
+    from ..models.dit import DiT, quantize_dit_state_dict
     from ..models.vae3d import VAE3D
 
     g = cfg.model.generator
-    dit = DiT(seq_length=g.get("seq_length", 2048),
-              in_channels=g.get("in_channels", 68),
-              condition_channels=g.get("condition_channels", 768),
-              hidden_size=g.get("hidden_size", 1152), depth=g.get("depth", 28),
-              num_heads=g.get("num_heads", 16),
-              mlp_ratio=g.get("mlp_ratio", 4.0),
-              attn_proj_bias=g.get("attn_proj_bias", False),
-              learn_sigma=g.get("learn_sigma", True),
-              dtype=_DTYPES[g.get("dtype", "bf16")], device=device,
-              generator=generator).eval()
+    dit_kw = dict(seq_length=g.get("seq_length", 2048),
+                  in_channels=g.get("in_channels", 68),
+                  condition_channels=g.get("condition_channels", 768),
+                  hidden_size=g.get("hidden_size", 1152),
+                  depth=g.get("depth", 28), num_heads=g.get("num_heads", 16),
+                  mlp_ratio=g.get("mlp_ratio", 4.0),
+                  attn_proj_bias=g.get("attn_proj_bias", False),
+                  learn_sigma=g.get("learn_sigma", True),
+                  dtype=_DTYPES[g.get("dtype", "bf16")], device=device)
+    dit = DiT(generator=generator, **dit_kw).eval()
     v = cfg.model.vae
     vae = VAE3D(in_channels=v.get("in_channels", 6),
                 latent_channels=v.get("latent_channels", 1),
@@ -119,6 +125,13 @@ def build_models(cfg, device, generator: torch.Generator):
         logger.info("loaded DiT EMA weights from %s", cfg.checkpoint_path)
     else:
         logger.warning("no checkpoint_path: DiT runs with random init")
+    if g.get("quant", False):
+        # built from its own seed: the caller's generator stream (the VAE,
+        # the encoder, the noise) is the float build's
+        qdit = DiT(quant=True, **dit_kw).eval()
+        qdit.load_state_dict(quantize_dit_state_dict(qdit, dit.state_dict()))
+        logger.info("quantized the DiT's block matmuls for int8 serving")
+        dit = qdit
     if cfg.model.get("vae_checkpoint_path"):
         vae.load_state_dict(_load_state_dict(cfg.model.vae_checkpoint_path,
                                              "model_state_dict"))
@@ -189,7 +202,7 @@ def main(argv=None, timings_out: list | None = None) -> int:
             latent_nf=float(cfg.model.get("latent_nf", 1.0)),
             cfg_scale=float(cfg.inference.get("cfg", 0.0)),
             prim_shape=cfg.model.prim_shape, dim_feat=cfg.model.dim_feat,
-            generator=gen)
+            generator=gen, sampler=cfg.inference.get("sampler", "ddim"))
         P.save_primx(os.path.join(out_dir, "denoised.npz"), params)
         rec["stage1_s"] = time.perf_counter() - t0
         logger.info("stage1 done: %s (recon.jpg skipped: the renderer is "

@@ -25,10 +25,17 @@ synchronised calls, no profiler attached), device ms per call (the sum
 of kernel self times under ``torch.profiler``), the idle share
 1 - device / wall, and the kernels that take the most device time. The
 last line is one JSON object with every number printed.
+
+With ``model.generator.quant=true`` the DiT regions run W8A8; while the
+profiler traces, the three parts of each W8A8 layer run inside ranges
+``int8.quantize_activations``, ``int8.int_mm`` and ``int8.rescale``,
+whose device ms per call each region reports (``ranges_ms``). The
+trainer refuses ``quant``, so ``train_step`` is then skipped.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -55,6 +62,32 @@ def _group(name: str) -> str:
     return "other"
 
 
+@contextlib.contextmanager
+def _int8_ranges():
+    """Runs the W8A8 layers' activation quant, int8 product and rescale
+    (``ops/int8.py``) inside profiler ranges named after them."""
+    from torch.profiler import record_function
+
+    from ..ops import int8
+
+    names = ("quantize_activations", "int_mm", "rescale")
+    saved = {n: getattr(int8, n) for n in names}
+
+    def ranged(name, fn):
+        def call(*args):
+            with record_function(f"int8.{name}"):
+                return fn(*args)
+        return call
+
+    for n, fn in saved.items():
+        setattr(int8, n, ranged(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(int8, n, fn)
+
+
 def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
     """Time ``fn`` on the card: wall without the profiler, device time
     with it. Prints a summary and returns it."""
@@ -69,12 +102,19 @@ def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _int8_ranges(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    events = prof.key_averages()
+    # the ranges also appear on the device timeline, spanning their kernels
+    # and the gaps between them: kernels only, and each range's own kernels
+    kernels = [e for e in events
+               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+               and not e.key.startswith("int8.")]
+    ranges = {e.key: e.device_time_total / 1e3 / repeats for e in events
+              if e.device_type == DeviceType.CPU and e.key.startswith("int8.")}
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / repeats
     groups: dict = {}
     for e in kernels:
@@ -82,13 +122,16 @@ def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / repeats
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
-           "groups_ms": groups, "repeats": repeats}
+           "groups_ms": groups, "ranges_ms": ranges, "repeats": repeats}
     idle = ("not measured (the profiler saw no device time)" if not device_ms
             else f"{out['idle_share']:.3f}")
     print(f"[{name}] wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, idle "
           f"share {idle}, over {repeats} calls", flush=True)
     print("  by layer (device ms per call): " + ", ".join(
         f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    if ranges:
+        print("  W8A8 ranges (device ms per call): " + ", ".join(
+            f"{k} {ms:.3f}" for k, ms in sorted(ranges.items())))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / repeats
         print(f"  {ms:8.3f} ms  x{e.count // repeats:<4d} {e.key[:100]}")
@@ -202,7 +245,10 @@ def main(argv=None) -> int:
             runs.append(tm)
         report["stage2"] = runs
     del dit, vae, encoder
-    report["train_step"] = profile_train_step(cfg, device)
+    if cfg.model.generator.get("quant", False):
+        print("[train_step] skipped: the trainer refuses model.generator.quant")
+    else:
+        report["train_step"] = profile_train_step(cfg, device)
     report["launches"] = dict(_cuda.launches)
     print(json.dumps(report))
     return 0

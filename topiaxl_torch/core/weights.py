@@ -17,7 +17,10 @@ The maps are linear in the leaves, so any tree shaped like the
 parameters maps the same way: a gradient tree or an Adam moment tree
 (optax's ``mu`` / ``nu``) comes back under the port's parameter names.
 ``dit_from_jax`` also takes the ``scan_blocks`` layout (``blocks.block.*``
-stacked on a leading depth axis, ``topiaxl/models/dit.py:502-530``).
+stacked on a leading depth axis, ``topiaxl/models/dit.py:502-530``) and
+the quantized tree of ``quantize_dit_params`` (``kernel_q`` int8 [in,
+out] and ``kernel_scale`` f32 [out] -> ``weight_q`` [out, in] and
+``weight_scale``, the buffers of ``ops/int8.py:QuantDense``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,13 @@ def _inner(tree: Mapping) -> Mapping:
 
 
 def _linear(sd, prefix, p):
-    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "kernel_q" in p:
+        # a QuantDense: int8 codes [in, out] and f32 scales [out]
+        sd[f"{prefix}.weight_q"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(p["kernel_q"], np.int8).T))
+        sd[f"{prefix}.weight_scale"] = _t(p["kernel_scale"])
+    else:
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 

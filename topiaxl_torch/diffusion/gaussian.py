@@ -1,8 +1,8 @@
 """Gaussian diffusion (counterpart of ``topiaxl/diffusion/gaussian.py``):
-p_mean_variance, the DDIM step and the DDIM chain as a Python loop over
-the spaced timesteps; q_sample and the training losses (MSE on the
-eps / x0 / v target plus the variational-bound term for a learned
-variance).
+p_mean_variance; the three sampling chains as Python loops over the
+spaced timesteps (eta = 0 DDIM, ancestral, DPM-Solver++(2M)); q_sample
+and the training losses (MSE on the eps / x0 / v target plus the
+variational-bound term for a learned variance).
 
 ``model_fn`` receives ``(x, t_original)``, where ``t_original`` is the
 spaced index already mapped through ``tables.timestep_map``.
@@ -131,9 +131,26 @@ def ddim_sample(diffusion: Diffusion, model_fn: ModelFn, x, t):
     return sample, out.pred_xstart
 
 
+def p_sample(diffusion: Diffusion, model_fn: ModelFn, x, t, noise):
+    """One ancestral step (reference gaussian_diffusion.py:394-435) with
+    the given standard-normal ``noise``; no noise is added at t = 0.
+    Returns (sample, pred_xstart)."""
+    out = p_mean_variance(diffusion, model_fn, x, t)
+    nonzero = (t != 0).float().reshape((-1,) + (1,) * (x.ndim - 1))
+    sample = out.mean + nonzero * torch.exp(0.5 * out.log_variance) * noise
+    return sample, out.pred_xstart
+
+
 class SampleLoopOutput(NamedTuple):
     sample: torch.Tensor
     pred_xstart: torch.Tensor
+
+
+def _steps(diffusion: Diffusion, noise: torch.Tensor):
+    """The chain's timesteps, last first, as [B] index tensors."""
+    for i in reversed(range(diffusion.num_timesteps)):
+        yield torch.full((noise.shape[0],), i, dtype=torch.long,
+                         device=noise.device)
 
 
 def ddim_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
@@ -141,11 +158,67 @@ def ddim_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
     """The eta = 0 DDIM chain from ``noise`` down to t = 0, one step per
     spaced timestep."""
     x, pred = noise, torch.zeros_like(noise)
-    for i in reversed(range(diffusion.num_timesteps)):
-        t = torch.full((noise.shape[0],), i, dtype=torch.long,
-                       device=noise.device)
+    for t in _steps(diffusion, noise):
         x, pred = ddim_sample(diffusion, model_fn, x, t)
     return SampleLoopOutput(x, pred)
+
+
+def p_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
+                  noise: torch.Tensor,
+                  generator: torch.Generator | None = None,
+                  step_noises=None) -> SampleLoopOutput:
+    """The ancestral chain (reference gaussian_diffusion.py:482-529). Step
+    n adds ``step_noises[n]`` where given, else a standard normal drawn
+    from ``generator`` (one draw a step, the last step's included, as the
+    JAX loop draws one per key of ``jax.random.split(key, num_steps)``)."""
+    x, pred = noise, torch.zeros_like(noise)
+    for n, t in enumerate(_steps(diffusion, noise)):
+        z = (step_noises[n] if step_noises is not None else torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        x, pred = p_sample(diffusion, model_fn, x, t, z)
+    return SampleLoopOutput(x, pred)
+
+
+def dpm_solver_pp_2m_loop(diffusion: Diffusion, model_fn: ModelFn,
+                          noise: torch.Tensor) -> SampleLoopOutput:
+    """DPM-Solver++(2M) over the (respaced) chain, deterministic
+    (``topiaxl/diffusion/gaussian.py:dpm_solver_pp_2m_loop``; Lu et al.
+    2022): ``x <- (sig_p / sig) x - alph_p (exp(-h) - 1) D`` with ``h =
+    lam_p - lam``, ``lam = log(alph / sig)`` and D blending the current and
+    previous x0 predictions, ``(1 + 1/2r) x0 - 1/2r x0_old``, ``r = h_old /
+    h``. The first step and the last (sig_p = 0) are first order (D = x0);
+    exp(-h) comes from the tables, so it stays finite where sig_p = 0,
+    while lam_p, h and the second-order blend are then inf or NaN and
+    ``torch.where`` selects them away."""
+    tables = diffusion.tables
+    nd = noise.ndim
+    x = noise
+    old_x0 = torch.zeros_like(noise)
+    old_h = torch.zeros((noise.shape[0],) + (1,) * (nd - 1),
+                        device=noise.device)
+    has_old = False
+    for t in _steps(diffusion, noise):
+        acp = _extract(tables.alphas_cumprod, t, nd)
+        acp_p = _extract(tables.alphas_cumprod_prev, t, nd)
+        alph, sig = torch.sqrt(acp), torch.sqrt(1.0 - acp)
+        alph_p, sig_p = torch.sqrt(acp_p), torch.sqrt(1.0 - acp_p)
+        x0 = p_mean_variance(diffusion, model_fn, x, t).pred_xstart
+        exp_neg_h = (alph * sig_p) / (sig * alph_p)
+        lam = 0.5 * (torch.log(acp) - torch.log1p(-acp))
+        lam_p = 0.5 * (torch.log(acp_p) - torch.log1p(-acp_p))
+        h = lam_p - lam
+        c = h / (2.0 * torch.clamp_min(old_h, 1e-20))
+        d_2m = (1.0 + c) * x0 - c * old_x0
+        first_order = (sig_p <= 0.0) | (not has_old)
+        d = torch.where(first_order, x0, d_2m)
+        x = (sig_p / torch.clamp_min(sig, 1e-20)) * x \
+            - alph_p * (exp_neg_h - 1.0) * d
+        old_x0, old_h, has_old = x0, h, True
+    return SampleLoopOutput(x, old_x0)
+
+
+SAMPLERS = {"ddim": ddim_sample_loop, "dpm": dpm_solver_pp_2m_loop,
+            "ancestral": p_sample_loop}
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,12 @@ and cross-attention on the cond half only. Every block's three
 LN+modulate boundaries go through the fused kernels in
 ``ops/fused_ln.py``.
 
+W8A8 serving: ``quant=True`` builds ``QuantDense`` (``ops/int8.py``) where
+the JAX package does (the MLP, self-attention's qkv and proj,
+cross-attention's to_q and proj); ``quantize_dit_state_dict`` maps a
+float state_dict onto it. ``forward_with_cfg_kv`` is the CFG step
+against K/V stacked as [cond; null].
+
 Training path: ``forward(x, t, y, drop)`` (``topiaxl/models/dit.py:
 424-453``) replaces the dropped samples' conditioning by the null
 embedding, then runs ``precompute_kv`` and ``forward_kv`` with
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_ln import ln_modulate, ln_modulate_residual
+from ..ops.int8 import quantize_state_dict_like
 from .layers import (
     CrossAttention,
     Mlp,
@@ -42,10 +49,10 @@ from .layers import (
 class DiTBlock(nn.Module):
     def __init__(self, hidden_size: int, cond_dim: int, num_heads: int,
                  mlp_ratio: float = 4.0, proj_bias: bool = True,
-                 dtype=torch.bfloat16, param_dtype=None):
+                 dtype=torch.bfloat16, param_dtype=None, quant: bool = False):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, quant=quant)
         self.crossattn = CrossAttention(hidden_size, cond_dim, num_heads,
                                         qkv_bias=True, proj_bias=proj_bias,
                                         **kw)
@@ -112,9 +119,12 @@ class DiT(nn.Module):
                  depth: int = 28, num_heads: int = 16, mlp_ratio: float = 4.0,
                  cond_drop_prob: float = 0.0, attn_proj_bias: bool = True,
                  learn_sigma: bool = True, dtype=torch.bfloat16,
-                 param_dtype=None, device=None,
+                 param_dtype=None, quant: bool = False, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if quant and param_dtype not in (None, dtype):
+            raise ValueError("quant serves W8A8: no master weights")
+        self.quant = quant
         self.seq_length = seq_length
         self.in_channels = in_channels
         self.condition_channels = condition_channels
@@ -128,7 +138,7 @@ class DiT(nn.Module):
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.blocks = nn.ModuleList(
             DiTBlock(hidden_size, condition_channels, num_heads, mlp_ratio,
-                     attn_proj_bias, dtype, param_dtype)
+                     attn_proj_bias, dtype, param_dtype, quant)
             for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, self.out_channels, dtype,
                                       param_dtype)
@@ -190,6 +200,15 @@ class DiT(nn.Module):
             y = torch.where(drop.to(y.device)[:, None, None], null, y)
         return self.forward_kv(x, t, self.precompute_kv(y))
 
+    def forward_with_cfg_kv(self, x, t, kvs_pair, cfg_scale: float):
+        """Classifier-free guidance against precomputed K/V whose batch is
+        [cond; null] (``precompute_kv`` of the conditioning stacked on the
+        null embedding broadcast to its shape)."""
+        out = self.forward_kv(torch.cat([x, x], dim=0),
+                              torch.cat([t, t], dim=0), kvs_pair)
+        cond, uncond = out.chunk(2, dim=0)
+        return uncond + cfg_scale * (cond - uncond)
+
     def forward_with_cfg_fast(self, x, t, kvs_cond, null_outs,
                               cfg_scale: float):
         """Classifier-free guidance: ``uncond + s * (cond - uncond)`` with
@@ -200,3 +219,12 @@ class DiT(nn.Module):
             h = blk(h, kv, t_emb, null_out=no)
         cond, uncond = self.final_layer(h, t_emb).chunk(2, dim=0)
         return uncond + cfg_scale * (cond - uncond)
+
+
+def quantize_dit_state_dict(qdit: DiT, float_sd) -> dict:
+    """A float DiT state_dict as the state_dict of ``qdit`` (a DiT built
+    with ``quant=True``): the block matmuls quantized, the rest passed
+    through (``topiaxl/models/dit.py:quantize_dit_params``)."""
+    if not qdit.quant:
+        raise ValueError("quantize_dit_state_dict needs a DiT(quant=True)")
+    return quantize_state_dict_like(float_sd, qdit)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..ops.int8 import QuantDense
 
 META = torch.device("meta")
 
@@ -51,6 +52,17 @@ class Dense(nn.Linear):
 def linear(in_f: int, out_f: int, bias: bool = True, dtype=torch.float32,
            param_dtype=None) -> Dense:
     return Dense(in_f, out_f, bias=bias, dtype=dtype, param_dtype=param_dtype)
+
+
+def _dense(quant: bool):
+    """The matmul layer: W8A8 ``QuantDense`` when serving int8 (it has no
+    ``param_dtype``: serving holds no master weights)."""
+    if not quant:
+        return linear
+
+    def make(in_f, out_f, bias=True, dtype=torch.float32, param_dtype=None):
+        return QuantDense(in_f, out_f, bias=bias, dtype=dtype)
+    return make
 
 
 def xavier_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -79,8 +91,15 @@ def materialize_(module: nn.Module, device, generator: torch.Generator | None,
 @torch.no_grad()
 def default_init_(module: nn.Module, gen: torch.Generator) -> None:
     """Xavier-uniform linear weights, LeCun-normal conv weights, zero
-    biases, unit norm gains (the JAX package's initialisers)."""
+    biases, unit norm gains (the JAX package's initialisers); a
+    ``QuantDense`` takes the quantized form of a xavier weight."""
     for m in module.modules():
+        if isinstance(m, QuantDense):
+            w = torch.empty(m.out_features, m.in_features,
+                            device=m.weight_q.device)
+            xavier_(w, gen)
+            m.set_float_weight_(w, None)
+            continue
         if isinstance(m, nn.Linear):
             xavier_(m.weight, gen)
         elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
@@ -126,16 +145,19 @@ class TimestepEmbedder(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU(tanh) -> fc2 in the compute dtype."""
+    """fc1 -> GELU(tanh) -> fc2 in the compute dtype (both W8A8 when
+    ``quant``)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, dtype=torch.bfloat16,
-                 approximate: str = "tanh", param_dtype=None):
+                 approximate: str = "tanh", param_dtype=None,
+                 quant: bool = False):
         super().__init__()
-        self.fc1 = linear(in_features, hidden_features, dtype=dtype,
-                          param_dtype=param_dtype)
-        self.fc2 = linear(hidden_features, out_features, dtype=dtype,
-                          param_dtype=param_dtype)
+        dense = _dense(quant)
+        self.fc1 = dense(in_features, hidden_features, dtype=dtype,
+                         param_dtype=param_dtype)
+        self.fc2 = dense(hidden_features, out_features, dtype=dtype,
+                         param_dtype=param_dtype)
         self.approximate = approximate
 
     def forward(self, x):
@@ -143,17 +165,19 @@ class Mlp(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV self-attention (keys ``qkv``, ``proj``)."""
+    """Fused-QKV self-attention (keys ``qkv``, ``proj``; both W8A8 when
+    ``quant``)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_bias: bool = True, dtype=torch.bfloat16,
-                 param_dtype=None):
+                 param_dtype=None, quant: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+        dense = _dense(quant)
+        self.qkv = dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+                         param_dtype=param_dtype)
+        self.proj = dense(dim, dim, bias=proj_bias, dtype=dtype,
                           param_dtype=param_dtype)
-        self.proj = linear(dim, dim, bias=proj_bias, dtype=dtype,
-                           param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
@@ -170,18 +194,22 @@ class CrossAttention(nn.Module):
     Reproduces the reference's double scaling: q is pre-scaled by
     ``head_dim**-0.5`` on top of the attention's own, so the effective
     scale is ``head_dim**-1`` (the released checkpoints were trained so).
+
+    With ``quant`` the per-step ``to_q`` and ``proj`` run W8A8; ``to_k`` and
+    ``to_v`` run once per asset and stay float, as in the JAX package.
     """
 
     def __init__(self, dim: int, cond_dim: int, num_heads: int,
                  qkv_bias: bool = True, proj_bias: bool = True,
-                 dtype=torch.bfloat16, param_dtype=None):
+                 dtype=torch.bfloat16, param_dtype=None, quant: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         kw = dict(dtype=dtype, param_dtype=param_dtype)
-        self.to_q = linear(dim, dim, bias=qkv_bias, **kw)
+        dense = _dense(quant)
+        self.to_q = dense(dim, dim, bias=qkv_bias, **kw)
         self.to_k = linear(cond_dim, dim, bias=qkv_bias, **kw)
         self.to_v = linear(cond_dim, dim, bias=qkv_bias, **kw)
-        self.proj = linear(dim, dim, bias=proj_bias, **kw)
+        self.proj = dense(dim, dim, bias=proj_bias, **kw)
 
     def kv(self, ctx: torch.Tensor):
         """Per-head K/V [B, M, H, hd] of the conditioning sequence; constant

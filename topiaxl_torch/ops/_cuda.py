@@ -35,7 +35,8 @@ LIB_NAME = "libtopiaxl_torch_kernels.so"
 
 launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
             "flash_attn_bwd_dkv": 0, "ln_modulate": 0,
-            "ln_modulate_residual": 0}
+            "ln_modulate_residual": 0, "mma_rate_loop": 0,
+            "dot_form_chain": 0, "dot_form_accum": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -57,6 +58,9 @@ _SIGNATURES = {
     "topiaxl_ln_modulate": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _P],
     "topiaxl_ln_modulate_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _L, _L, _L, _F, _P],
+    # a, b, out; int8, ta, tb, coef, M, N, K, L, out_t; stream
+    # (csrc/mma_probe.cu)
+    "topiaxl_mma_probe": [_P, _P, _P] + [_I] * 9 + [_P],
 }
 
 

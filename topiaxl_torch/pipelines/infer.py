@@ -1,8 +1,9 @@
 """Image -> PrimX -> textured GLB inference pipeline (counterpart of
 ``topiaxl/pipelines/infer.py``).
 
-Stage 1: conditioning tokens -> DDIM chain with CFG over the DiT (one
-Python step per spaced timestep, cross-attention K/V projected once) ->
+Stage 1: conditioning tokens -> DDIM (or DPM-Solver++, or ancestral)
+chain with CFG over the DiT (one Python step per spaced timestep,
+cross-attention K/V projected once) ->
 one batched VAE decode of all primitives -> PrimX parameters.
 
 Stage 2: noise filter, coarse-to-fine SDF grid on the device, then the
@@ -44,10 +45,16 @@ class EmptyIsosurfaceError(RuntimeError):
 @torch.inference_mode()
 def sample_tokens(dit: DiT, diffusion: Diffusion, y: torch.Tensor,
                   cfg_scale: float = 6.0, noise: torch.Tensor | None = None,
-                  generator: torch.Generator | None = None):
-    """The DDIM chain; returns normalised tokens [B, N, C_in] (and the
-    last x0 prediction). ``noise`` [B, N, C_in] is drawn from
-    ``generator`` when not given."""
+                  generator: torch.Generator | None = None,
+                  sampler: str = "ddim"):
+    """The sampling chain: ``sampler`` 'ddim' (eta 0), 'dpm'
+    (DPM-Solver++(2M)) or 'ancestral'; returns normalised tokens [B, N,
+    C_in] (and the last x0 prediction). ``noise`` [B, N, C_in] is drawn
+    from ``generator`` when not given; the ancestral chain draws its
+    per-step noise from it too."""
+    if sampler not in gaussian.SAMPLERS:
+        raise ValueError(
+            f"sampler={sampler!r}: expected one of {sorted(gaussian.SAMPLERS)}")
     if noise is None:
         noise = torch.randn((y.shape[0], dit.seq_length, dit.in_channels),
                             generator=generator, device=y.device,
@@ -62,7 +69,10 @@ def sample_tokens(dit: DiT, diffusion: Diffusion, y: torch.Tensor,
         def model_fn(x, t):
             return dit.forward_kv(x, t, kvs)
 
-    return gaussian.ddim_sample_loop(diffusion, model_fn, noise.float())
+    if sampler == "ancestral":
+        return gaussian.p_sample_loop(diffusion, model_fn, noise.float(),
+                                      generator=generator)
+    return gaussian.SAMPLERS[sampler](diffusion, model_fn, noise.float())
 
 
 def denormalize_tokens(tokens, latent_mean, latent_std, latent_nf: float = 1.0):
@@ -91,9 +101,11 @@ def generate_primx(dit: DiT, vae: VAE3D, diffusion: Diffusion,
                    latent_nf: float = 1.0, cfg_scale: float = 6.0,
                    prim_shape: int = 8, dim_feat: int = 6,
                    noise: torch.Tensor | None = None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None,
+                   sampler: str = "ddim"):
     """Conditioning tokens [B, M, C] -> PrimXParams (a list when B > 1)."""
-    out = sample_tokens(dit, diffusion, y, cfg_scale, noise, generator)
+    out = sample_tokens(dit, diffusion, y, cfg_scale, noise, generator,
+                        sampler)
     dev = out.sample.device
     recon = denormalize_tokens(
         out.sample, torch.as_tensor(latent_mean, device=dev),
