@@ -53,7 +53,9 @@ the script exits non-zero without a result line):
 Phase 3 also holds the forward's output and lse, the three backward
 kernels and the LN kernels against their plain versions at the training
 shapes (batch 8 for the flagship, 4096 prims at batch 2), with planted
-faults that must land above each bar.
+faults that must land above each bar; the two-pass pair must repeat its
+gradients bit for bit, and the single pass is timed at the pair's 4096
+keys beside it.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -156,7 +158,7 @@ KERNELS = {
                        "topiaxl/ops/flash_attention.py:369"),
     "flash_attn_bwd_dq": ("topiaxl_torch/csrc/flash_attn_bwd.cu",
                           "topiaxl/ops/flash_attention.py:282"),
-    "flash_attn_bwd_dkv": ("topiaxl_torch/csrc/flash_attn_bwd.cu",
+    "flash_attn_bwd_dkv": ("topiaxl_torch/csrc/flash_attn_bwd_sm90.cu",
                            "topiaxl/ops/flash_attention.py:469"),
     "ln_modulate": ("topiaxl_torch/csrc/ln_modulate.cu",
                     "topiaxl/ops/fused_ln.py:30"),
@@ -279,8 +281,8 @@ def ptxas_summary(build_log: str) -> list[str]:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
-                          "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
-                          "ln_modulate_kernel", "mma_probe_kernel"):
+                          "flash_bwd_dq_kernel", "ln_modulate_kernel",
+                          "mma_probe_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
         elif "spill stores" in line:
@@ -346,7 +348,10 @@ def check_flash_backward(results: dict, randn) -> None:
     the plain versions at the training shapes: the flagship's self- and
     cross-attention at batch 8 (single pass), the 4096-prim trainer's at
     batch 2 (two-pass pair and single pass), and a ragged two-pass shape
-    whose padded q rows and keys the pair must mask."""
+    whose padded q rows and keys the pair must mask. The pair must give
+    bitwise-equal gradients in two launches; at the trainer's 4096 keys
+    the single pass, which the shape rule does not take there, is checked
+    and timed on the same inputs as the pair's yardstick."""
     import torch
 
     from topiaxl_torch.ops import flash_attention as fa
@@ -396,12 +401,23 @@ def check_flash_backward(results: dict, randn) -> None:
                                  f"error {lse_err}")
         del o_ref, lse_ref
 
+        form = fa.bwd_form(Sk)
         got = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         rels = [rel_err(a, b) for a, b in zip(got, ref)]
         errs = [(a.float() - b.float()).abs().max().item()
                 for a, b in zip(got, ref)]
+        if form == "two_pass":
+            # the pair writes each gradient once, with no atomics
+            again = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
+            same = [torch.equal(a, b) for a, b in zip(got, again)]
+            log(f"  backward {tag}: the pair's dq/dk/dv bitwise equal across "
+                f"two launches: {same}")
+            if not all(same):
+                raise AssertionError(f"backward {tag}: the pair is not "
+                                     f"deterministic ({same})")
+            del again
         del got
         # planted faults: no delta (moves dq, dk); padded keys unmasked in
         # forward and backward (moves dv, at shapes with padded keys)
@@ -410,32 +426,62 @@ def check_flash_backward(results: dict, randn) -> None:
         unmasked = ([rel_err(a, b) for a, b in zip(
             fa.flash_attention_bwd_unmasked(q, k, v, do, scale), ref)]
             if Sk % fa.KEY_TILE else None)
-        del ref
-        form = fa.bwd_form(Sk)
         names = (["flash_attn_bwd"] if form == "fused"
                  else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
         dq_acc = torch.zeros_like(q, dtype=torch.float32)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        outs = {"flash_attn_bwd": (dq_acc, dk, dv),
-                "flash_attn_bwd_dq": (dq, None, None),
-                "flash_attn_bwd_dkv": (None, dk, dv)}
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        # (delta, dq, dk, dv) of each launch; the dq pass, timed first,
+        # writes the delta the dk/dv pass reads
+        outs = {"flash_attn_bwd": (None, dq_acc, dk, dv),
+                "flash_attn_bwd_dq": (delta, dq, None, None),
+                "flash_attn_bwd_dkv": (delta, None, dk, dv)}
         times = {n: cuda_ms(lambda n=n: fa._bwd_launch(
             n, q, k, v, o, lse, do, *outs[n], scale), 10) for n in names}
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, o, lse, do, scale), 3)
         flops = 10 * B * H * Sq * Sk * D   # five Sq x Sk x D products
-        # each kernel's own bound: q, o, dO, k, v (bf16) and lse (f32) read
-        # once; the single pass does five products and writes dq as f32
-        # scratch and dk, dv; the dq pass three products (S, dP, dQ) and
-        # bf16 dq; the dk/dv pass four and dk, dv
-        n_q, n_k = B * Sq * H * D, B * Sk * H * D
-        reads = 2 * (3 * n_q + 2 * n_k) + 4 * B * H * Sq
-        bounds = {"flash_attn_bwd": bound(flops, reads + 4 * n_q + 4 * n_k),
-                  "flash_attn_bwd_dq": bound(6 * B * H * Sq * Sk * D,
-                                             reads + 2 * n_q),
-                  "flash_attn_bwd_dkv": bound(8 * B * H * Sq * Sk * D,
-                                              reads + 4 * n_k)}
+        # each kernel's own bound, each input read once and each output
+        # written once: the single pass reads q, o, dO, k, v (bf16) and lse
+        # (f32), does five products and writes dq as f32 scratch and dk,
+        # dv; the dq pass reads the same, does three products (S, dP, dQ)
+        # and writes bf16 dq and delta (f32); the dk/dv pass reads q, dO,
+        # k, v, lse and delta, does four and writes dk, dv
+        n_q, n_k, n_r = B * Sq * H * D, B * Sk * H * D, B * H * Sq
+        bounds = {"flash_attn_bwd": bound(
+                      flops, 2 * (3 * n_q + 2 * n_k) + 4 * n_r + 4 * n_q
+                      + 4 * n_k),
+                  "flash_attn_bwd_dq": bound(
+                      6 * B * H * Sq * Sk * D,
+                      2 * (3 * n_q + 2 * n_k) + 4 * n_r + 2 * n_q + 4 * n_r),
+                  "flash_attn_bwd_dkv": bound(
+                      8 * B * H * Sq * Sk * D,
+                      2 * (2 * n_q + 2 * n_k) + 8 * n_r + 4 * n_k)}
         lib_ms, how = sdpa_backward_ms(q, k, v, do, scale, 10)
+        if tag == "long_self":
+            # the single pass on the pair's inputs: a yardstick for the
+            # pair (the shape rule does not send 4096 keys to it)
+            dq_acc.zero_()
+            fa._bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, None,
+                           dq_acc, dk, dv, scale)
+            torch.cuda.synchronize()
+            one_rels = [rel_err(a, b) for a, b in zip(
+                (dq_acc.to(q.dtype), dk, dv), ref)]
+            one_ms = cuda_ms(lambda: fa._bwd_launch(
+                "flash_attn_bwd", q, k, v, o, lse, do, None, dq_acc, dk, dv,
+                scale), 10)
+            one_bound = bounds["flash_attn_bwd"]
+            log(f"  single pass flash_attn_bwd at {tag} {shape} (yardstick, "
+                f"not the shape rule's route): max rel err dq/dk/dv "
+                f"{one_rels[0]:.3e}/{one_rels[1]:.3e}/{one_rels[2]:.3e} (bar "
+                f"{ATTN_BWD_REL_BAR}), {one_ms:.4f} ms (bound "
+                f"{one_bound[0]:.4f} ms, {one_bound[1]}; share "
+                f"{one_bound[0] / one_ms:.1%}), pair / single pass "
+                f"{sum(times.values()) / one_ms:.2f}")
+            if not max(one_rels) <= ATTN_BWD_REL_BAR:
+                raise AssertionError(f"single pass at {tag}: rel errors "
+                                     f"{one_rels}")
+        del ref
         fault_msg = (f"unmasked-padding fault dq/dk/dv {unmasked[0]:.3e}/"
                      f"{unmasked[1]:.3e}/{unmasked[2]:.3e}"
                      if unmasked else "no padded keys")
@@ -444,7 +490,8 @@ def check_flash_backward(results: dict, randn) -> None:
             f"{ATTN_BWD_REL_BAR}; no-delta fault dq/dk {no_delta[0]:.3e}/"
             f"{no_delta[1]:.3e}; {fault_msg}), max abs err {max(errs):.3e}, "
             + ", ".join(f"{n} {t:.4f} ms (bound {bounds[n][0]:.4f} ms, "
-                        f"{bounds[n][1]})" for n, t in times.items())
+                        f"{bounds[n][1]}; share {bounds[n][0] / t:.1%})"
+                        for n, t in times.items())
             + f" ({flops / sum(times.values()) / 1e9:.1f} TFLOP/s), plain "
             f"backward {plain_ms:.4f} ms, " + (
                 f"PyTorch flash backward {lib_ms:.4f} ms ({how}; "
@@ -472,7 +519,7 @@ def check_flash_backward(results: dict, randn) -> None:
                 entry.update(ms=times[n], plain_ms=plain_ms, at=shape,
                              bound_ms=bounds[n][0], bound_by=bounds[n][1],
                              library_ms=lib_ms, library=how)
-        del dq_acc, dq, dk, dv, o, lse
+        del dq_acc, dq, dk, dv, delta, o, lse
         torch.cuda.empty_cache()
     flash["lse_max_abs_err"] = lse_max
 

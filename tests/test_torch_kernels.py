@@ -13,7 +13,8 @@ kernels (single pass and the two-pass pair) within 1.2e-2 of the plain
 backward per output on the same o and lse, relative to max|grad| (bf16
 P and dS on both sides; dq summed by f32 reductions in the single pass), and
 the plain backward without delta (dq, dk) and the pair with padded keys
-unmasked (dq, dk, dv) must land above that bar. The forward's
+unmasked (dq, dk, dv) must land above that bar; the pair repeats its
+gradients bit for bit. The forward's
 lse within 1e-4 of the plain logsumexp. LN
 outputs within one bf16 ulp of the plain f32 chain plus 1e-5 for the
 f32 summation order. The probe kernel (``csrc/mma_probe.cu``): int8
@@ -120,6 +121,9 @@ def test_flash_masks_ragged_keys(dev, Sk, D):
     (1, 130, 700, 2, 64, 64 ** -0.5),    # fused, D 64, ragged both
     (1, 2048, 2048, 2, 72, 72 ** -0.5),  # fused, many q tiles per block
     (2, 300, 1374, 3, 64, 64 ** -0.5),   # fused, D 64, ragged keys
+    (1, 130, 2100, 2, 64, 64 ** -0.5),   # two-pass, D 64
+    (1, 200, 2177, 2, 72, 72 ** -0.5),   # two-pass, Sq % 128, Sk % 128
+    (3, 100, 2300, 2, 72, 72 ** -0.5),   # two-pass, B 3
 ])
 def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
     qkv = _randn(dev, B, Sq, 3, H, D, seed=11)
@@ -144,6 +148,32 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
         assert _rel_err(got, r) <= ATTN_BWD_REL_BAR, name
         if name != "v":   # delta does not enter dv
             assert _rel_err(f, r) > ATTN_BWD_REL_BAR, name
+
+
+def test_two_pass_backward_repeats_bit_for_bit(dev):
+    """The pair writes each gradient once, with no atomics: two launches
+    of each pass on the same inputs give bitwise-equal dq, dk and dv."""
+    B, Sq, Sk, H, D, scale = 2, 300, 2300, 3, 72, 72 ** -0.5
+    q = _randn(dev, B, Sq, 3, H, D, seed=34)[:, :, 0]
+    k, v = _randn(dev, B, Sk, 2, H, D, seed=35).unbind(2)
+    do = _randn(dev, B, Sq, H, D, seed=36)
+    o = flash_attention(q.requires_grad_(), k, v, scale)
+    lse = o.grad_fn.saved_tensors[4]
+    args = (q.detach(), k, v, o.detach(), lse, do, scale)
+    assert bwd_form(Sk) == "two_pass"
+    before = dict(_cuda.launches)
+    first = flash_attention_backward(*args)
+    second = flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 2
+    assert (_cuda.launches["flash_attn_bwd_dkv"]
+            == before["flash_attn_bwd_dkv"] + 2)
+    assert _cuda.launches["flash_attn_bwd"] == before["flash_attn_bwd"]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    ref = flash_attention_bwd_plain(*args)
+    for a, r in zip(first, ref):
+        assert _rel_err(a, r) <= ATTN_BWD_REL_BAR
 
 
 @pytest.mark.parametrize("Sq,Sk", [(65, 63), (100, 1370), (70, 2100)])

@@ -28,6 +28,9 @@ from topiaxl_torch.ops.flash_attention import (
     bwd_form,
     flash_attention,
     flash_attention_backward,
+    flash_attention_bwd_delta,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
     flash_attention_bwd_unmasked,
     flash_attention_plain,
@@ -174,7 +177,7 @@ def test_kernel_sources_build_key():
     names = [p.name for p in _cuda.sources()]
     assert names == ["flash_attn_bwd.cu", "flash_attn_bwd_sm90.cu",
                      "flash_attn_fwd.cu", "ln_modulate.cu", "mma_probe.cu"]
-    assert [p.name for p in _cuda.headers()] == ["mma_tile.cuh", "sm90.cuh"]
+    assert [p.name for p in _cuda.headers()] == ["sm90.cuh"]
     assert _cuda.build_dir() == _cuda.build_dir()
     assert _cuda.build_dir().parent.name == "topiaxl_torch_kernels"
 
@@ -186,7 +189,7 @@ def test_kernel_build_key_covers_shared_header(tmp_path, monkeypatch):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
     before = _cuda.build_dir()
-    with open(tmp_path / "mma_tile.cuh", "a") as f:
+    with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
     assert _cuda.build_dir() != before
 
@@ -326,6 +329,137 @@ def test_flash_backward_matches_jax_two_pass():
     for a, b, name in zip(got, ref, "qkv"):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BWD_TOL,
                                    rtol=0, err_msg=f"d{name}")
+
+
+def _jax_two_pass(B, Sq, Sk, H, D, scale, block_q, block_k, seed):
+    """Inputs from numpy, the JAX forward's folded lse and the JAX wrapper's
+    delta ([B*H, 1, sq_p]), and the two Pallas passes run on them in
+    interpret mode as ``_flash_backward`` launches them (dq pass over
+    ``block_k``-key blocks, dk/dv pass over ``block_q``-row chunks)."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from topiaxl.ops import flash_attention as fa
+
+    rng = np.random.default_rng(seed)
+    q, k, v = _qkv(rng, B, Sq, Sk, H, D)
+    g = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out, lse = fa._flash_forward(jq, jk, jv, scale, block_q=block_q,
+                                 block_k=block_k, return_lse=True)
+    bq, bk, _, sk_p, d_p = fa._fold_sizes(jq, jk, block_q, block_k)
+    sq_p = lse.shape[2]
+    BH = B * H
+    qs = jq * jnp.asarray(scale, jq.dtype)
+    qp, qtp = fa._fold(qs, sq_p, d_p), fa._fold_t(qs, sq_p, d_p)
+    kp, ktp = fa._fold(jk, sk_p, d_p), fa._fold_t(jk, sk_p, d_p)
+    vp = fa._fold(jv, sk_p, d_p)
+    dop, dotp = fa._fold(jg, sq_p, d_p), fa._fold_t(jg, sq_p, d_p)
+    op = fa._fold(out, sq_p, d_p)
+    delta = jnp.sum(dop * op, axis=-1)[:, None, :]           # [BH, 1, sq_p]
+
+    def spec(shape, index):
+        return pl.BlockSpec(shape, index, memory_space=pltpu.VMEM)
+
+    dqt = pl.pallas_call(
+        functools.partial(fa._flash_bwd_dq_kernel, scale=scale, kv_len=Sk,
+                          block_k=bk),
+        out_shape=jax.ShapeDtypeStruct((BH, d_p, sq_p), jq.dtype),
+        grid=(BH, sq_p // bq),
+        in_specs=[spec((1, bq, d_p), lambda b, i: (b, i, 0)),
+                  spec((1, sk_p, d_p), lambda b, i: (b, 0, 0)),
+                  spec((1, d_p, sk_p), lambda b, i: (b, 0, 0)),
+                  spec((1, sk_p, d_p), lambda b, i: (b, 0, 0)),
+                  spec((1, bq, d_p), lambda b, i: (b, i, 0)),
+                  spec((1, 1, bq), lambda b, i: (b, 0, i)),
+                  spec((1, 1, bq), lambda b, i: (b, 0, i))],
+        out_specs=spec((1, d_p, bq), lambda b, i: (b, 0, i)),
+        interpret=True,
+    )(qp, kp, ktp, vp, dop, lse, delta)
+    dkt, dvt = pl.pallas_call(
+        functools.partial(fa._flash_bwd_dkv_kernel, q_len=Sq, block_q=bq),
+        out_shape=[jax.ShapeDtypeStruct((BH, d_p, sk_p), jk.dtype)] * 2,
+        grid=(BH, sk_p // bk),
+        in_specs=[spec((1, sq_p, d_p), lambda b, j: (b, 0, 0)),
+                  spec((1, d_p, sq_p), lambda b, j: (b, 0, 0)),
+                  spec((1, bk, d_p), lambda b, j: (b, j, 0)),
+                  spec((1, bk, d_p), lambda b, j: (b, j, 0)),
+                  spec((1, sq_p, d_p), lambda b, j: (b, 0, 0)),
+                  spec((1, d_p, sq_p), lambda b, j: (b, 0, 0)),
+                  spec((1, 1, sq_p), lambda b, j: (b, 0, 0)),
+                  spec((1, 1, sq_p), lambda b, j: (b, 0, 0))],
+        out_specs=[spec((1, d_p, bk), lambda b, j: (b, 0, j))] * 2,
+        interpret=True,
+    )(qp, qtp, kp, vp, dop, dotp, lse, delta)
+
+    def unfold_rows(x):   # [B*H, 1, sq_p] -> [B, H, Sq]
+        return torch.from_numpy(np.array(x)[:, 0, :Sq].reshape(B, H, Sq))
+
+    port = dict(q=torch.from_numpy(q), k=torch.from_numpy(k),
+                v=torch.from_numpy(v), do=torch.from_numpy(g),
+                o=torch.from_numpy(np.array(out)), lse=unfold_rows(lse),
+                delta=unfold_rows(delta))
+    ref = {"dq": fa._unfold_t(dqt, B, H, Sq, D),
+           "dk": fa._unfold_t(dkt, B, H, Sk, D),
+           "dv": fa._unfold_t(dvt, B, H, Sk, D)}
+    return port, {n: np.asarray(a) for n, a in ref.items()}
+
+
+# (B, Sq, Sk, H, D, scale, block_q, block_k): several q and key blocks
+# with ragged Sq and Sk at D 72 and 64, and one key block (the dq
+# kernel's single-block path)
+_TWO_PASS_CASES = [
+    (1, 300, 300, 2, 72, 72 ** -0.5, 128, 128),
+    (2, 100, 200, 2, 64, 64 ** -0.5, 128, 128),
+    (1, 70, 37, 3, 72, 1.0 / 72, 128, 128),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,scale,block_q,block_k",
+                         _TWO_PASS_CASES)
+def test_flash_bwd_dq_plain_matches_jax_dq_kernel(B, Sq, Sk, H, D, scale,
+                                                  block_q, block_k):
+    """The dq pass's plain twin against ``_flash_bwd_dq_kernel`` (Pallas,
+    interpret mode) on the same lse and delta."""
+    t, ref = _jax_two_pass(B, Sq, Sk, H, D, scale, block_q, block_k, 27)
+    got = flash_attention_bwd_dq_plain(t["q"], t["k"], t["v"], t["do"],
+                                       t["lse"], t["delta"], scale)
+    assert got.shape == (B, Sq, H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref["dq"], atol=BWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,scale,block_q,block_k",
+                         _TWO_PASS_CASES)
+def test_flash_bwd_dkv_plain_matches_jax_dkv_kernel(B, Sq, Sk, H, D, scale,
+                                                    block_q, block_k):
+    """The dk/dv pass's plain twin against ``_flash_bwd_dkv_kernel``
+    (Pallas, interpret mode) on the same lse and delta."""
+    t, ref = _jax_two_pass(B, Sq, Sk, H, D, scale, block_q, block_k, 28)
+    dk, dv = flash_attention_bwd_dkv_plain(t["q"], t["k"], t["v"], t["do"],
+                                           t["lse"], t["delta"], scale)
+    assert dk.shape == dv.shape == (B, Sk, H, D)
+    np.testing.assert_allclose(dk.numpy(), ref["dk"], atol=BWD_TOL, rtol=0)
+    np.testing.assert_allclose(dv.numpy(), ref["dv"], atol=BWD_TOL, rtol=0)
+
+
+def test_flash_bwd_delta_matches_jax_and_composes():
+    """delta = rowsum(dO * o) as the JAX wrapper computes it, and the two
+    passes together give the plain backward."""
+    B, Sq, Sk, H, D, scale = 1, 300, 300, 2, 72, 72 ** -0.5
+    t, _ = _jax_two_pass(B, Sq, Sk, H, D, scale, 128, 128, 29)
+    delta = flash_attention_bwd_delta(t["o"], t["do"])
+    assert delta.shape == (B, H, Sq) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), t["delta"].numpy(), atol=TOL,
+                               rtol=0)
+    args = (t["q"], t["k"], t["v"], t["do"], t["lse"], delta, scale)
+    whole = flash_attention_bwd_plain(t["q"], t["k"], t["v"], t["o"],
+                                      t["lse"], t["do"], scale)
+    for a, b in zip((flash_attention_bwd_dq_plain(*args),
+                     *flash_attention_bwd_dkv_plain(*args)), whole):
+        assert torch.equal(a, b)
 
 
 def test_flash_lse_matches_jax_kernel():

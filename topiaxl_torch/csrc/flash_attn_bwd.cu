@@ -1,469 +1,370 @@
-// Two-pass flash-attention backward for Hopper (sm_90a): bf16 q, k, v, o,
-// dO in, f32 logsumexp (lse) from the forward, bf16 dq, dk, dv out. It
-// runs when the keys do not fit one block (Sk > 2048); the single pass
-// (flash_attn_bwd) is flash_attn_bwd_sm90.cu.
+// Two-pass flash-attention backward for Hopper (sm_90a), the dq pass
+// (flash_attn_bwd_dq): bf16 q, k, v, o, dO in, f32 logsumexp (lse) from
+// the forward; bf16 dq out, and delta = rowsum(dO * o), f32 [B, H, Sq],
+// for the dk/dv pass (flash_attn_bwd_dkv in flash_attn_bwd_sm90.cu),
+// which reads it in place of o. The pair runs when the keys do not fit
+// one block (Sk > 2048). The wrapper (ops/flash_attention.py) launches
+// this pass first and the dk/dv pass after it on the same stream, so the
+// dk/dv pass finds delta written.
 //
-// Replaces the TPU kernels of topiaxl/ops/flash_attention.py:
-//   flash_attn_bwd_dq   <- _flash_bwd_dq_kernel   (FA2 dq pass, :282)
-//   flash_attn_bwd_dkv  <- _flash_bwd_dkv_kernel  (FA2 dk/dv pass, :469)
-// The softmax is rebuilt from the lse: p = exp(s * scale - lse) in f32;
-// delta = rowsum(dO * o) in f32; P is rounded to bf16 for dv, dS =
-// p * (dP - delta) is rounded to bf16 for dq and dk; every product
-// accumulates in f32 on mma.sync m16n8k16; the scale is applied to dq
-// and dk. Keys at or past Sk and q rows at or past Sq get p = 0.
+// Replaces the TPU kernel topiaxl/ops/flash_attention.py:
+// _flash_bwd_dq_kernel (:282), the FA2 dq pass, with the delta that the
+// JAX wrapper computes before it (:697-699). Numerics, those of the
+// single pass and of the dk/dv pass: p = exp(s * scale - lse) in f32;
+// delta in f32; dS = p * (dP - delta) rounded to bf16 for dq; f32
+// accumulation; the scale applied to dq; keys at or past Sk get p = 0.
 //
-// What bounds it on an H100: tensor-core FLOPs, as in the forward. Per
-// head the backward runs five Sq x Sk x D products (S and dP recomputed,
-// then dV, dK, dQ), far above the card's FLOP-per-byte ridge at the
-// DiT's shapes, so the design keeps S, P, dP and dS out of device memory:
-//   * flash_attn_bwd_dkv: one block of 4 warps per (batch*head, 64-key
-//     KV tile); each warp owns 16 keys and keeps their dK and dV in f32
-//     registers while the block loops over 64-row q tiles. S^T and dP^T
-//     are computed once per (KV tile, q tile) pair.
-//   * flash_attn_bwd_dq: one block per (batch*head, 64-row q tile), each
-//     warp owning 16 q rows, looping over KV tiles and keeping dQ in
-//     registers: deterministic, written once.
-//   * delta is computed per q tile inside every kernel from o and dO
-//     (two threads per row), as the TPU's single-pass kernel does; no
-//     separate pass.
-//   * the [B, S, H, D] strides are read directly, so the DiT's
-//     qkv.unbind(2) views go in without a copy; head_dim 72 is padded to
-//     80 in shared memory only.
-// It is a simple first kernel: synchronous loads, no cp.async/TMA
-// pipeline, no wgmma, B fragments read element-wise where the operand is
-// transposed. Those are later work. The block shape and the mma/tile
-// helpers are those of the forward (mma_tile.cuh).
+// What bounds it on an H100: tensor-core FLOPs. Per head it runs three
+// Sq x Sk x D products (S and dP recomputed, then dQ) and one exponential
+// per logit, against one read of q, k, v, o and dO. The design is the
+// forward's (flash_attn_fwd.cu):
+//   * one block per (batch*head, 128-row q tile): two consumer
+//     warpgroups of 64 q rows each keep dQ in f32 registers over the
+//     128-key K/V tiles; dQ is written once, by one block, so it is
+//     deterministic (no atomics, no reduce-adds);
+//   * a producer warpgroup loads Q, dO and o once and streams K and V
+//     through a three-stage ring by TMA (mbarrier full/empty pairs; a
+//     stage is released when dQ of its tile is done); setmaxnreg moves
+//     its registers to the consumers;
+//   * each consumer thread computes lse (log2 units) and delta of its two
+//     rows once, from the o and dO tiles in shared memory (the quad's four
+//     threads split the chunks), and writes delta to the scratch;
+//   * per K/V tile, S = Q K^T and dP = dO V^T run on wgmma m64n128k16
+//     with both operands in shared memory, K-major over D; dS = p (dP -
+//     delta) is formed in the accumulator registers and packed to bf16 A
+//     fragments; dQ += dS K runs on wgmma m64n{72,64}k16 with dS from
+//     registers and K read MN-major from the same tile;
+//   * overlap: in its turn a warpgroup issues S and dP of tile j with dQ
+//     of tile j - 1, and two named barriers hand the turns back and forth
+//     (ping-pong), so one warpgroup's exponentials overlap the other's
+//     products;
+//   * tiles use the no-swizzle core-matrix layout of sm90.cuh: the
+//     contraction over D runs to 80 for head dim 72, with the 10th chunk
+//     of Q, dO, K and V zeroed once and never loaded; the [B, S, H, D]
+//     strides go into tensor maps, so the DiT's qkv.unbind(2) views are
+//     read without a copy, and rows past Sq or Sk arrive as zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tile.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using namespace sm90;
+
+constexpr int kBlockM = 128;   // q rows per block, 64 per consumer warpgroup
+constexpr int kBlockN = 128;   // keys per K/V tile
+constexpr int kStages = 3;     // K/V ring depth
+constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr float kLog2e = 1.4426950408889634f;
 
-// lse (in log2 units) and delta = rowsum(dO * o) of q rows
-// [m0, m0 + 64); rows at or past Sq get lse = +inf (so p = 0) and delta 0
 template <int D>
-__device__ __forceinline__ void load_row_stats(
-    float* lse2_s, float* delta_s, const float* lse_bh,
-    const __nv_bfloat16* oh, long long oss, const __nv_bfloat16* doh,
-    long long doss, int m0, int Sq) {
-  const int r = threadIdx.x >> 1;   // two threads per row, adjacent lanes
-  const int half = threadIdx.x & 1;
-  const int row = m0 + r;
-  float acc = 0.f;
-  if (row < Sq) {
-    const __nv_bfloat16* orow = oh + static_cast<long long>(row) * oss;
-    const __nv_bfloat16* drow = doh + static_cast<long long>(row) * doss;
-    for (int c = half; c < D / 8; c += 2) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
-      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c * 8);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 of = __bfloat1622float2(o2[j]);
-        const float2 df = __bfloat1622float2(d2[j]);
-        acc += of.x * df.x + of.y * df.y;
-      }
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (half == 0) {
-    delta_s[r] = acc;
-    lse2_s[r] = row < Sq ? lse_bh[row] * kLog2e : INFINITY;
-  }
-}
+struct Dq {
+  static constexpr int kChunks = D / 8;            // 8-column chunks of D
+  static constexpr int kSteps = (D + 15) / 16;     // k16 steps over D
+  static constexpr int kChunksP = 2 * kSteps;      // chunks with padding
+  static constexpr int kQElems = kChunksP * kBlockM * 8;   // Q or dO
+  static constexpr int kOElems = kChunks * kBlockM * 8;
+  static constexpr int kKElems = kChunksP * kBlockN * 8;   // K or V stage
+  static constexpr int kBarOffset =
+      2 * (2 * kQElems + kOElems + 2 * kStages * kKElems);
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages);
+  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+};
 
-struct BwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+struct DqArgs {
   const float* lse;      // [B, H, Sq] contiguous
-  void* dq;              // bf16 dq (flash_attn_bwd_dq)
-  __nv_bfloat16* dk;     // [B, Sk, H, D] contiguous (null: not computed)
-  __nv_bfloat16* dv;
+  float* delta;          // [B, H, Sq] contiguous, written here
+  __nv_bfloat16* dq;     // [B, Sq, H, D] contiguous
   int H, Sq, Sk;
-  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
-  long long osb, oss, osh, dosb, doss, dosh;
   float scale, scale_log2;
 };
 
-// KV-major pass: dK and dV of one 64-key tile.
+// dQ += dS K for the K tile Kt: dS from registers, K MN-major B (8 keys
+// per core matrix along the contraction, the chunks along N)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const BwdArgs a) {
-  using T = Dims<D>;
-  constexpr int LD = T::LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kBlockN * LD;
-  __nv_bfloat16* Qs = Vs + kBlockN * LD;
-  __nv_bfloat16* dOs = Qs + kBlockM * LD;
-  float* lse2_s = reinterpret_cast<float*>(dOs + kBlockM * LD);
-  float* delta_s = lse2_s + kBlockM;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // mma group id: fragment row
-  const int tg = lane & 3;   // thread in group: fragment column pair
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y - b * a.H;
-  const int n0 = blockIdx.x * kBlockN;
-  const int kr = warp * 16;  // this warp's first key row in the tile
-
-  const __nv_bfloat16* qh = a.q + b * a.qsb + h * a.qsh;
-  const __nv_bfloat16* kh = a.k + b * a.ksb + h * a.ksh;
-  const __nv_bfloat16* vh = a.v + b * a.vsb + h * a.vsh;
-  const __nv_bfloat16* oh = a.o + b * a.osb + h * a.osh;
-  const __nv_bfloat16* doh = a.dout + b * a.dosb + h * a.dosh;
-  const float* lse_bh = a.lse + static_cast<long long>(blockIdx.y) * a.Sq;
-
-  load_tile<D>(Ks, kh, a.kss, n0, a.Sk);
-  load_tile<D>(Vs, vh, a.vss, n0, a.Sk);
-  const bool key_ok[2] = {n0 + kr + g < a.Sk, n0 + kr + g + 8 < a.Sk};
-
-  float dk_acc[T::kDTiles][4];
-  float dv_acc[T::kDTiles][4];
+__device__ __forceinline__ void issue_dq(float (&dq)[D / 2],
+                                         const uint32_t (&ds)[kBlockN / 16][4],
+                                         const __nv_bfloat16* Kt) {
+  const uint64_t k_desc = make_desc(Kt, 128, kBlockN * 16);
 #pragma unroll
-  for (int dt = 0; dt < T::kDTiles; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    wgmma_rs<D, 1>(dq, ds[kk], k_desc + ((kk * 256) >> 4), 1);
   }
-
-  const int n_qt = (a.Sq + kBlockM - 1) / kBlockM;
-  for (int i = 0; i < n_qt; ++i) {
-    const int m0 = i * kBlockM;
-    __syncthreads();   // every warp is done with the previous q tile
-    load_tile<D>(Qs, qh, a.qss, m0, a.Sq);
-    load_tile<D>(dOs, doh, a.doss, m0, a.Sq);
-    load_row_stats<D>(lse2_s, delta_s, lse_bh, oh, a.oss, doh, a.doss, m0,
-                      a.Sq);
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 q rows
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < T::kSteps; ++kk) {
-      const int c = kk * 16 + tg * 2;
-      uint32_t ka[4], va[4];
-      ka[0] = ld_u32(&Ks[(kr + g) * LD + c]);
-      ka[1] = ld_u32(&Ks[(kr + g + 8) * LD + c]);
-      ka[2] = ld_u32(&Ks[(kr + g) * LD + c + 8]);
-      ka[3] = ld_u32(&Ks[(kr + g + 8) * LD + c + 8]);
-      va[0] = ld_u32(&Vs[(kr + g) * LD + c]);
-      va[1] = ld_u32(&Vs[(kr + g + 8) * LD + c]);
-      va[2] = ld_u32(&Vs[(kr + g) * LD + c + 8]);
-      va[3] = ld_u32(&Vs[(kr + g + 8) * LD + c + 8]);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t bq[2], bd[2];
-        bq[0] = ld_u32(&Qs[(nt * 8 + g) * LD + c]);
-        bq[1] = ld_u32(&Qs[(nt * 8 + g) * LD + c + 8]);
-        bd[0] = ld_u32(&dOs[(nt * 8 + g) * LD + c]);
-        bd[1] = ld_u32(&dOs[(nt * 8 + g) * LD + c + 8]);
-        mma_16816(s[nt], ka, bq);
-        mma_16816(dp[nt], va, bd);
-      }
-    }
-
-    // p = exp(s * scale - lse), masked; dS = p * (dP - delta). Rows of
-    // the accumulators are keys (g, g + 8), columns are q rows.
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + tg * 2 + (e & 1);
-        const float p = key_ok[e >> 1]
-            ? exp2f(fmaf(s[nt][e], a.scale_log2, -lse2_s[qc])) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - delta_s[qc]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q: A straight from the accumulator
-    // registers (bf16), B read column-wise from shared memory
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-      const int qrow = kk * 16 + tg * 2;
-#pragma unroll
-      for (int dt = 0; dt < T::kDTiles; ++dt) {
-        const int col = dt * 8 + g;
-        uint32_t bd[2], bq[2];
-        bd[0] = ld_col2(&dOs[qrow * LD + col], LD);
-        bd[1] = ld_col2(&dOs[(qrow + 8) * LD + col], LD);
-        bq[0] = ld_col2(&Qs[qrow * LD + col], LD);
-        bq[1] = ld_col2(&Qs[(qrow + 8) * LD + col], LD);
-        mma_16816(dv_acc[dt], pa, bd);
-        mma_16816(dk_acc[dt], sa, bq);
-      }
-    }
-  }
-
-  // dK (scaled) and dV of this warp's 16 keys; [B, Sk, H, D] contiguous
-  const long long rs = static_cast<long long>(a.H) * D;
-  const long long base = (static_cast<long long>(b) * a.Sk * a.H + h) * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!key_ok[r]) continue;
-    const long long off = base + (n0 + kr + g + 8 * r) * rs;
-#pragma unroll
-    for (int dt = 0; dt < T::kDTiles; ++dt) {
-      const int col = dt * 8 + tg * 2;
-      *reinterpret_cast<uint32_t*>(a.dk + off + col) = pack_bf16(
-          dk_acc[dt][2 * r] * a.scale, dk_acc[dt][2 * r + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(a.dv + off + col) =
-          pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
-    }
-  }
+  wgmma_commit();
 }
 
-// q-major pass: dQ of one 64-row q tile over every KV tile, in registers
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const BwdArgs a) {
-  using T = Dims<D>;
-  constexpr int LD = T::LD;
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const DqArgs a) {
+  using T = Dq<D>;
+  extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + kBlockM * LD;
-  __nv_bfloat16* Ks = dOs + kBlockM * LD;
-  __nv_bfloat16* Vs = Ks + kBlockN * LD;
-  float* lse2_s = reinterpret_cast<float*>(Vs + kBlockN * LD);
-  float* delta_s = lse2_s + kBlockM;
+  __nv_bfloat16* dOs = Qs + T::kQElems;
+  __nv_bfloat16* Os = dOs + T::kQElems;
+  __nv_bfloat16* Ks = Os + T::kOElems;                  // [kStages] tiles
+  __nv_bfloat16* Vs = Ks + kStages * T::kKElems;        // [kStages] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::kBarOffset);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + kStages;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
   const int b = blockIdx.y / a.H;
   const int h = blockIdx.y - b * a.H;
   const int m0 = blockIdx.x * kBlockM;
-  const int qr = warp * 16;  // this warp's first q row in the tile
+  const int n_tiles = (a.Sk + kBlockN - 1) / kBlockN;
 
-  const __nv_bfloat16* qh = a.q + b * a.qsb + h * a.qsh;
-  const __nv_bfloat16* kh = a.k + b * a.ksb + h * a.ksh;
-  const __nv_bfloat16* vh = a.v + b * a.vsb + h * a.vsh;
-  const __nv_bfloat16* oh = a.o + b * a.osb + h * a.osh;
-  const __nv_bfloat16* doh = a.dout + b * a.dosb + h * a.dosh;
-  const float* lse_bh = a.lse + static_cast<long long>(blockIdx.y) * a.Sq;
-
-  load_tile<D>(Qs, qh, a.qss, m0, a.Sq);
-  load_tile<D>(dOs, doh, a.doss, m0, a.Sq);
-  load_row_stats<D>(lse2_s, delta_s, lse_bh, oh, a.oss, doh, a.doss, m0,
-                    a.Sq);
+  // the padding chunks of Q, dO and every K / V stage: zero once
+  if constexpr (T::kChunksP > T::kChunks) {
+    constexpr int kPadM = (T::kChunksP - T::kChunks) * kBlockM;   // uint4s
+    constexpr int kPadN = (T::kChunksP - T::kChunks) * kBlockN;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < kPadM; i += kThreads) {
+      reinterpret_cast<uint4*>(Qs + T::kChunks * kBlockM * 8)[i] = z;
+      reinterpret_cast<uint4*>(dOs + T::kChunks * kBlockM * 8)[i] = z;
+    }
+    for (int i = tid; i < 2 * kStages * kPadN; i += kThreads) {
+      const int t = i / kPadN;   // K stages, then V stages (adjacent)
+      reinterpret_cast<uint4*>(Ks + t * T::kKElems +
+                               T::kChunks * kBlockN * 8)[i - t * kPadN] = z;
+    }
+    fence_proxy_async();
+  }
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&kv_full[st], 1);
+      mbar_init(&kv_empty[st], 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  // this warp's q and dO rows as A fragments, kept in registers
-  uint32_t qf[T::kSteps][4], df[T::kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < T::kSteps; ++kk) {
-    const int c = kk * 16 + tg * 2;
-    qf[kk][0] = ld_u32(&Qs[(qr + g) * LD + c]);
-    qf[kk][1] = ld_u32(&Qs[(qr + g + 8) * LD + c]);
-    qf[kk][2] = ld_u32(&Qs[(qr + g) * LD + c + 8]);
-    qf[kk][3] = ld_u32(&Qs[(qr + g + 8) * LD + c + 8]);
-    df[kk][0] = ld_u32(&dOs[(qr + g) * LD + c]);
-    df[kk][1] = ld_u32(&dOs[(qr + g + 8) * LD + c]);
-    df[kk][2] = ld_u32(&dOs[(qr + g) * LD + c + 8]);
-    df[kk][3] = ld_u32(&dOs[(qr + g + 8) * LD + c + 8]);
-  }
-  const float lse2[2] = {lse2_s[qr + g], lse2_s[qr + g + 8]};
-  const float delta[2] = {delta_s[qr + g], delta_s[qr + g + 8]};
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // producer: one thread issues every TMA load
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_arrive_expect_tx(q_full, 3 * T::kChunks * kBlockM * 16);
+      tma_load_tile<D, kBlockM>(Qs, &qmap, q_full, m0, h, b);
+      tma_load_tile<D, kBlockM>(dOs, &domap, q_full, m0, h, b);
+      tma_load_tile<D, kBlockM>(Os, &omap, q_full, m0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&kv_empty[st], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kv_full[st], 2 * T::kChunks * kBlockN * 16);
+        tma_load_tile<D, kBlockN>(Ks + st * T::kKElems, &kmap, &kv_full[st],
+                                  j * kBlockN, h, b);
+        tma_load_tile<D, kBlockN>(Vs + st * T::kKElems, &vmap, &kv_full[st],
+                                  j * kBlockN, h, b);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: q rows [64 wg, 64 wg + 64) of the tile
+    setmaxnreg_inc<240>();
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tg = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + g;   // the thread's first row
+    // Q, dO: K-major A, this warpgroup's 64 rows; chunk stride along D
+    const uint64_t q_desc = make_desc(Qs + wg * 64 * 8, kBlockM * 16, 128);
+    const uint64_t do_desc = make_desc(dOs + wg * 64 * 8, kBlockM * 16, 128);
+    const long long row_base = static_cast<long long>(blockIdx.y) * a.Sq;
 
-  float dq[T::kDTiles][4];
+    // lse (log2 units) and delta of rows r0 and r0 + 8; rows past Sq read
+    // zeros (delta 0) and get lse = +inf (p = 0)
+    mbar_wait(q_full, 0);
+    float lse2[2], delta[2];
 #pragma unroll
-  for (int dt = 0; dt < T::kDTiles; ++dt) {
-    dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
-  }
+    for (int r = 0; r < 2; ++r) {
+      const int rt = r0 + 8 * r;
+      const int row = m0 + rt;
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < (T::kChunks + 3) / 4; ++i) {
+        const int c = tg + 4 * i;
+        if (c < T::kChunks) {
+          const int off = c * kBlockM * 8 + rt * 8;
+          const uint4 ov = *reinterpret_cast<const uint4*>(Os + off);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dOs + off);
+          const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 df = __bfloat1622float2(d2[e]);
+            acc += of.x * df.x + of.y * df.y;
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      delta[r] = acc;
+      lse2[r] = row < a.Sq ? a.lse[row_base + row] * kLog2e : INFINITY;
+      if (tg == 0 && row < a.Sq) a.delta[row_base + row] = acc;
+    }
 
-  const int n_kt = (a.Sk + kBlockN - 1) / kBlockN;
-  for (int j = 0; j < n_kt; ++j) {
-    const int n0 = j * kBlockN;
-    __syncthreads();   // every warp is done with the previous KV tile
-    load_tile<D>(Ks, kh, a.kss, n0, a.Sk);
-    load_tile<D>(Vs, vh, a.vss, n0, a.Sk);
-    __syncthreads();
+    float s[kBlockN / 2];          // S tile: 16 column tiles x 4
+    float dp[kBlockN / 2];         // dP, then dS (f32)
+    float dq[D / 2];               // dQ: D / 8 column tiles x 4
+    uint32_t ds[kBlockN / 16][4];  // dS (bf16) as A fragments, per k16 step
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-    // S = Q K^T and dP = dO V^T: this warp's 16 q rows x 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-      const __nv_bfloat16* krow = &Ks[(nt * 8 + g) * LD + tg * 2];
-      const __nv_bfloat16* vrow = &Vs[(nt * 8 + g) * LD + tg * 2];
+    if (wg == 1) named_arrive(1, 256);   // warpgroup 0 takes the first turn
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(&kv_full[st], (j / kStages) & 1);
+      named_sync(1 + wg, 256);           // this warpgroup's turn
+      const uint64_t k_desc =
+          make_desc(Ks + st * T::kKElems, kBlockN * 16, 128);
+      const uint64_t v_desc =
+          make_desc(Vs + st * T::kKElems, kBlockN * 16, 128);
+      fence_regs(dq);
+      fence_regs(ds);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < T::kSteps; ++kk) {
-        uint32_t bk[2], bv[2];
-        bk[0] = ld_u32(krow + kk * 16);
-        bk[1] = ld_u32(krow + kk * 16 + 8);
-        bv[0] = ld_u32(vrow + kk * 16);
-        bv[1] = ld_u32(vrow + kk * 16 + 8);
-        mma_16816(s[nt], qf[kk], bk);
-        mma_16816(dp[nt], df[kk], bv);
+        wgmma_ss<kBlockN, 0, 0>(s, q_desc + ((kk * 2 * kBlockM * 16) >> 4),
+                                k_desc + ((kk * 2 * kBlockN * 16) >> 4),
+                                kk > 0);
       }
-    }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + nt * 8 + tg * 2 + (e & 1);
-        const float p = key < a.Sk
-            ? exp2f(fmaf(s[nt][e], a.scale_log2, -lse2[e >> 1])) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - delta[e >> 1]);
+      for (int kk = 0; kk < T::kSteps; ++kk) {
+        wgmma_ss<kBlockN, 0, 0>(dp, do_desc + ((kk * 2 * kBlockM * 16) >> 4),
+                                v_desc + ((kk * 2 * kBlockN * 16) >> 4),
+                                kk > 0);
       }
-    }
-    // dQ += dS K: A from the dS registers (bf16), B = K column-wise
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t sa[4];
-      sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-      const int key = kk * 16 + tg * 2;
-#pragma unroll
-      for (int dt = 0; dt < T::kDTiles; ++dt) {
-        const int col = dt * 8 + g;
-        uint32_t bk[2];
-        bk[0] = ld_col2(&Ks[key * LD + col], LD);
-        bk[1] = ld_col2(&Ks[(key + 8) * LD + col], LD);
-        mma_16816(dq[dt], sa, bk);
-      }
-    }
-  }
+      wgmma_commit();
+      if (j > 0) issue_dq<D>(dq, ds, Ks + ((j - 1) % kStages) * T::kKElems);
+      if (wg == 0 || j + 1 < n_tiles) named_arrive(2 - wg, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dq);
+      fence_regs(ds);
+      // dQ of tile j - 1 is done with its K tile
+      if (j > 0 && lane == 0) mbar_arrive(&kv_empty[(j - 1) % kStages]);
 
-  // dQ (scaled), bf16, [B, Sq, H, D] contiguous
-  __nv_bfloat16* dqh = static_cast<__nv_bfloat16*>(a.dq) +
-                       (static_cast<long long>(b) * a.Sq * a.H + h) * D;
-  const long long rs = static_cast<long long>(a.H) * D;
+      // dS = p (dP - delta), p = exp(s * scale - lse), masked past Sk;
+      // rows of the accumulators are q rows (g, g + 8), columns keys
+      const int n0 = j * kBlockN;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + qr + g + 8 * r;
-    if (row >= a.Sq) continue;
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-    for (int dt = 0; dt < T::kDTiles; ++dt) {
-      const int col = dt * 8 + tg * 2;
-      *reinterpret_cast<uint32_t*>(dqh + row * rs + col) = pack_bf16(
-          dq[dt][2 * r] * a.scale, dq[dt][2 * r + 1] * a.scale);
+        for (int e = 0; e < 4; ++e) {
+          const int key = n0 + nt * 8 + tg * 2 + (e & 1);
+          const int idx = nt * 4 + e;
+          const float p = key < a.Sk
+              ? exp2f(fmaf(s[idx], a.scale_log2, -lse2[e >> 1])) : 0.f;
+          dp[idx] = p * (dp[idx] - delta[e >> 1]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ds[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+      }
+    }
+    fence_regs(dq);
+    fence_regs(ds);
+    wgmma_fence();
+    issue_dq<D>(dq, ds, Ks + ((n_tiles - 1) % kStages) * T::kKElems);
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    // dQ (scaled), bf16, [B, Sq, H, D] contiguous
+    const long long rs = static_cast<long long>(a.H) * D;
+    __nv_bfloat16* dqh =
+        a.dq + (static_cast<long long>(b) * a.Sq * a.H + h) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + r0 + 8 * r;
+      if (row >= a.Sq) continue;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const int col = dt * 8 + tg * 2;
+        *reinterpret_cast<uint32_t*>(dqh + row * rs + col) = pack_bf16(
+            dq[dt * 4 + 2 * r] * a.scale, dq[dt * 4 + 2 * r + 1] * a.scale);
+      }
     }
   }
 }
 
 template <int D>
-constexpr int kv_smem_bytes() {
-  return (2 * kBlockN + 2 * kBlockM) * Dims<D>::LD * 2 + 2 * kBlockM * 4;
-}
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kBlockN + 2 * kBlockM) * Dims<D>::LD * 2 + 2 * kBlockM * 4;
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int smem, const BwdArgs& a,
+int launch(const CUtensorMap (&maps)[5], const DqArgs& a, int B,
            cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  constexpr int smem = Dq<D>::kSmem;
+  const int err = allow_smem<flash_bwd_dq_kernel<D>>(smem);
+  if (err != 0) return err;
+  const dim3 grid((a.Sq + kBlockM - 1) / kBlockM, B * a.H);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], a);
   return static_cast<int>(cudaGetLastError());
-}
-
-enum class Pass { kDkv, kDq };
-
-template <int D>
-int run(Pass pass, const BwdArgs& a, int B, cudaStream_t st) {
-  const dim3 kv_grid((a.Sk + kBlockN - 1) / kBlockN, B * a.H);
-  const dim3 q_grid((a.Sq + kBlockM - 1) / kBlockM, B * a.H);
-  switch (pass) {
-    case Pass::kDkv:
-      return launch(flash_bwd_kv_kernel<D>, kv_grid, kv_smem_bytes<D>(), a,
-                    st);
-    case Pass::kDq:
-      return launch(flash_bwd_dq_kernel<D>, q_grid, dq_smem_bytes<D>(), a,
-                    st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int dispatch(Pass pass, const void* q, const void* k, const void* v,
-             const void* o, const void* dout, const void* lse, void* dq,
-             void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-             long long qsb, long long qss, long long qsh, long long ksb,
-             long long kss, long long ksh, long long vsb, long long vss,
-             long long vsh, long long osb, long long oss, long long osh,
-             long long dosb, long long doss, long long dosh, float scale,
-             void* stream) {
-  BwdArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.o = static_cast<const __nv_bfloat16*>(o);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.dq = dq;
-  a.dk = static_cast<__nv_bfloat16*>(dk);
-  a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.H = H;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.qsb = qsb; a.qss = qss; a.qsh = qsh;
-  a.ksb = ksb; a.kss = kss; a.ksh = ksh;
-  a.vsb = vsb; a.vss = vss; a.vsh = vsh;
-  a.osb = osb; a.oss = oss; a.osh = osh;
-  a.dosb = dosb; a.doss = doss; a.dosh = dosh;
-  a.scale = scale;
-  a.scale_log2 = scale * kLog2e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 72) return run<72>(pass, a, B, st);
-  if (D == 64) return run<64>(pass, a, B, st);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, o, dout [B, Sq, H, D], k/v [B, Sk, H, D]: bf16, strides in elements,
-// last dim contiguous; lse f32 [B, H, Sq] contiguous; D 64 or 72. Outputs
-// are contiguous: flash_attn_bwd_dkv writes bf16 dk, dv [B, Sk, H, D] (dq
-// unused); flash_attn_bwd_dq writes bf16 dq [B, Sq, H, D] (dk, dv
-// unused). Each returns the CUDA error code of its launch (0 on success).
-#define TOPIAXL_BWD_ENTRY(NAME, PASS)                                        \
-  extern "C" int NAME(                                                       \
-      const void* q, const void* k, const void* v, const void* o,            \
-      const void* dout, const void* lse, void* dq, void* dk, void* dv,       \
-      int B, int H, int Sq, int Sk, int D, long long qsb, long long qss,     \
-      long long qsh, long long ksb, long long kss, long long ksh,            \
-      long long vsb, long long vss, long long vsh, long long osb,            \
-      long long oss, long long osh, long long dosb, long long doss,          \
-      long long dosh, float scale, void* stream) {                           \
-    return dispatch(PASS, q, k, v, o, dout, lse, dq, dk, dv, B, H, Sq, Sk,   \
-                    D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, \
-                    osh, dosb, doss, dosh, scale, stream);                   \
+// last dim contiguous, strides multiples of 8 and bases 16-byte aligned
+// (TMA); lse f32 [B, H, Sq] contiguous; D 64 or 72. Writes bf16 dq
+// [B, Sq, H, D] (contiguous) and delta, f32 [B, H, Sq] (contiguous); dk,
+// dv are unused (the signature is that of every backward entry). Returns
+// the CUDA error code of the tensor map encoding or of the launch (0 on
+// success).
+extern "C" int topiaxl_flash_attn_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int Sq, int Sk, int D, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh,
+    long long osb, long long oss, long long osh, long long dosb,
+    long long doss, long long dosh, float scale, void* stream) {
+  (void)dk;
+  (void)dv;
+  if (D != 64 && D != 72) return static_cast<int>(cudaErrorInvalidValue);
+  // q, k, v, dout, o (bf16 chunks)
+  CUtensorMap maps[5];
+  int err = encode_bshd(&maps[0], q, false, B, Sq, H, D, qsb, qss, qsh, 8,
+                        kBlockM);
+  if (err == 0) {
+    err = encode_bshd(&maps[1], k, false, B, Sk, H, D, ksb, kss, ksh, 8,
+                      kBlockN);
   }
-
-TOPIAXL_BWD_ENTRY(topiaxl_flash_attn_bwd_dkv, Pass::kDkv)
-TOPIAXL_BWD_ENTRY(topiaxl_flash_attn_bwd_dq, Pass::kDq)
+  if (err == 0) {
+    err = encode_bshd(&maps[2], v, false, B, Sk, H, D, vsb, vss, vsh, 8,
+                      kBlockN);
+  }
+  if (err == 0) {
+    err = encode_bshd(&maps[3], dout, false, B, Sq, H, D, dosb, doss, dosh,
+                      8, kBlockM);
+  }
+  if (err == 0) {
+    err = encode_bshd(&maps[4], o, false, B, Sq, H, D, osb, oss, osh, 8,
+                      kBlockM);
+  }
+  if (err != 0) return err;
+  DqArgs a;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 72) return launch<72>(maps, a, B, st);
+  return launch<64>(maps, a, B, st);
+}

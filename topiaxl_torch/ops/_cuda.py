@@ -45,9 +45,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# q, k, v, o, dout, lse, dq, dk, dv; B, H, Sq, Sk, D; 15 strides; scale;
-# stream (csrc/flash_attn_bwd.cu)
-_BWD = [_P] * 9 + [_I] * 5 + [_L] * 15 + [_F, _P]
+# q, k, v, o, dout, lse, delta, dq, dk, dv; B, H, Sq, Sk, D; 15 strides;
+# scale; stream (csrc/flash_attn_bwd.cu, csrc/flash_attn_bwd_sm90.cu)
+_BWD = [_P] * 10 + [_I] * 5 + [_L] * 15 + [_F, _P]
 _SIGNATURES = {
     "topiaxl_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,

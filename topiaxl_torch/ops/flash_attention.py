@@ -4,13 +4,12 @@ their plain twins.
 The kernels replace the TPU kernels of ``topiaxl/ops/flash_attention.py``:
 ``csrc/flash_attn_fwd.cu`` replaces ``_flash_kernel`` (with its lse
 output), ``csrc/flash_attn_bwd_sm90.cu`` replaces
-``_flash_bwd_fused_kernel`` (``flash_attn_bwd``), and
+``_flash_bwd_fused_kernel`` (``flash_attn_bwd``) and, in a variant
+without dQ, ``_flash_bwd_dkv_kernel`` (``flash_attn_bwd_dkv``), and
 ``csrc/flash_attn_bwd.cu`` replaces ``_flash_bwd_dq_kernel``
-(``flash_attn_bwd_dq``) and ``_flash_bwd_dkv_kernel``
-(``flash_attn_bwd_dkv``). Attention is bound by tensor-core FLOPs at the
-DiT's shapes; the kernels keep logits out of device memory. The forward
-and the single-pass backward run on Hopper's wgmma with TMA loads
-(``csrc/sm90.cuh``), the two-pass pair on ``mma.sync`` (see the sources'
+(``flash_attn_bwd_dq``). Attention is bound by tensor-core FLOPs at the
+DiT's shapes; the kernels keep logits out of device memory. All run on
+Hopper's wgmma with TMA loads (``csrc/sm90.cuh``; see the sources'
 headers for the designs). The TMA loads need every stride a multiple of
 16 bytes and 16-byte-aligned bases, which ``_check_stream`` enforces.
 
@@ -23,12 +22,18 @@ q in bf16 (``flash_attention.py:238``); the two differ by at most one
 bf16 rounding of q.
 
 Backward numerics (``flash_attention_bwd_plain``): p = exp(logits *
-scale - lse) in f32; delta = rowsum(dO * o) in f32; P rounded to the
-input dtype for dv; dS = p * (dP - delta) rounded to the input dtype for
-dq and dk; f32 accumulation; the scale applied to dq and dk. Two planted
-faults let the kernel checks show that their bars see a wrong gradient:
-the backward without delta (moves dq, dk) and the pair with padded keys
-left unmasked (``flash_attention_bwd_unmasked``, moves dv too).
+scale - lse) in f32; delta = rowsum(dO * o) in f32
+(``flash_attention_bwd_delta``); P rounded to the input dtype for dv;
+dS = p * (dP - delta) rounded to the input dtype for dq and dk; f32
+accumulation; the scale applied to dq and dk. The two passes of the
+pair have plain twins of their own (``flash_attention_bwd_dq_plain``,
+``flash_attention_bwd_dkv_plain``) that take delta as the TPU kernels
+do; the dq pass writes delta to an f32 [B, H, Sq] scratch and the dk/dv
+pass, launched after it on the same stream, reads it in place of o. Two
+planted faults let the kernel checks show that their bars see a wrong
+gradient: the backward without delta (moves dq, dk) and the pair with
+padded keys left unmasked (``flash_attention_bwd_unmasked``, moves dv
+too).
 
 Which backward runs is a shape rule, as in the JAX package
 (``_select_fused_chunk``): the single-pass kernel when the whole KV is
@@ -43,10 +48,10 @@ import torch
 from . import _cuda
 
 HEAD_DIMS = (64, 72)
-# keys per K/V tile of the two-pass kernels (kBlockN), which the planted
-# unmasked-padding faults pad Sk to; the forward's and the single pass's
-# 128-key tiles pad the main path's lengths (1370, 1374) by as many keys
-KEY_TILE = 64
+# keys per K/V tile of every flash kernel (kBlockN: the forward, the dq
+# pass, and the KV block of the single pass and the dk/dv pass), which
+# the planted unmasked-padding faults pad Sk to
+KEY_TILE = 128
 FUSED_BWD_MAX_KEYS = 2048
 
 
@@ -82,6 +87,23 @@ def flash_attention_unmasked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_plain(q, k, v, scale, return_lse)
 
 
+def flash_attention_bwd_delta(o, do):
+    """delta = rowsum(dO * o) in f32, [B, H, Sq]: the term the backward
+    subtracts from dP (the JAX two-pass wrapper's ``delta``)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2)
+
+
+def _bwd_p_ds(q, k, v, lse, delta, do, scale):
+    """(p, dS) [B, H, Sq, Sk] in f32, dS rounded to the input dtype;
+    ``delta`` None leaves the term out."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(logits - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    if delta is not None:
+        dp = dp - delta.float()[..., None]
+    return p, (p * dp).to(q.dtype).float()
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float,
                               with_delta: bool = True):
     """(dq, dk, dv) of ``flash_attention`` from the saved o and lse,
@@ -89,18 +111,29 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float,
     kernel checks: dS without the ``- delta`` term, what a kernel that
     dropped its rowsum(dO * o) would compute."""
     dt = q.dtype
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    p = torch.exp(logits - lse.float()[..., None])
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    if with_delta:
-        delta = (dof * o.float()).sum(-1).transpose(1, 2)   # [B, H, Sq]
-        dp = dp - delta[..., None]
-    ds = (p * dp).to(dt).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    delta = flash_attention_bwd_delta(o, do) if with_delta else None
+    p, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float):
+    """dq of the two-pass backward's dq pass, from lse and delta [B, H,
+    Sq] f32 (the counterpart of ``_flash_bwd_dq_kernel``)."""
+    _, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv) of the two-pass backward's dk/dv pass, from lse and delta
+    [B, H, Sq] f32 (the counterpart of ``_flash_bwd_dkv_kernel``)."""
+    dt = q.dtype
+    p, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dk.to(dt), dv.to(dt)
 
 
 def flash_attention_bwd_unmasked(q, k, v, do, scale: float):
@@ -170,12 +203,12 @@ def _forward(q, k, v, scale, return_lse):
     return o, lse
 
 
-def _bwd_launch(name, q, k, v, o, lse, do, dq, dk, dv, scale):
+def _bwd_launch(name, q, k, v, o, lse, do, delta, dq, dk, dv, scale):
     B, Sq, H, D = q.shape
     rc = getattr(_cuda.library(), f"topiaxl_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *(0 if t is None else t.data_ptr()
-                                         for t in (dq, dk, dv)),
+                                         for t in (delta, dq, dk, dv)),
         B, H, Sq, k.shape[1], D, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], float(scale),
         _cuda.stream_of(q))
@@ -210,14 +243,17 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float):
     if bwd_form(Sk) == "fused":
         dq_acc = torch.zeros((B, Sq, H, D), dtype=torch.float32,
                              device=q.device)
-        _bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, dq_acc, dk, dv,
-                    scale)
+        _bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, None, dq_acc, dk,
+                    dv, scale)
         return dq_acc.to(q.dtype), dk, dv
+    # the dq pass writes delta, the dk/dv pass (after it, on the same
+    # stream) reads it
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_attn_bwd_dq", q, k, v, o, lse, do, dq, None, None,
-                scale)
-    _bwd_launch("flash_attn_bwd_dkv", q, k, v, o, lse, do, None, dk, dv,
-                scale)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_attn_bwd_dq", q, k, v, o, lse, do, delta, dq, None,
+                None, scale)
+    _bwd_launch("flash_attn_bwd_dkv", q, k, v, o, lse, do, delta, None, dk,
+                dv, scale)
     return dq, dk, dv
 
 
