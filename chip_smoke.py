@@ -20,7 +20,9 @@ the script exits non-zero without a result line):
 4. probes: the three tensor-core probe kernels (``csrc/mma_probe.cu``:
    the int8/bf16 rate loop and the attention dot forms) against their
    plain versions at the probe path's shapes, with planted faults, each
-   form's time, bound and the PyTorch call that computes one product.
+   form's time, bound and the PyTorch call that computes one product,
+   the blocks that share each output tile (S) and the launch's block
+   count, and whether two launches give the same bits (they must).
 5. probe_path: ``python -m topiaxl_torch.benchmarks.microbench_int8`` and
    ``...exp_dot_forms`` as a user runs them (their ``main``), with the
    launch counters zeroed before and read after.
@@ -30,22 +32,30 @@ the script exits non-zero without a result line):
 7. serving_int8: the same with ``model.generator.quant=true`` (W8A8), in
    turns with bf16 (int8, bf16, int8 after phase 6's bf16): stage 1 of
    each run's warm image, and the same launch counts.
-8. serving_samplers: ``inference.sampler=dpm`` on a 12-step chain and
+8. serving_pos_emb: one image with ``model.generator.class_name=
+   topiaxl.DiTAdditivePosEmb`` (the registry builds the point-embedding
+   DiT), with the same launch counts.
+9. serving_samplers: ``inference.sampler=dpm`` on a 12-step chain and
    ``ancestral`` on 25, one image each, with the launches of that many
    steps.
-9. stage 2: ``extract_glb`` on a 2048-prim sphere shell at mc 256,
-   decimate 100k, texture 1024; the GLB must parse and lie on the sphere.
-10. dit: one full-width, depth-2 DiT CFG step on the card (bf16, kernels)
+10. stage 2: ``extract_glb`` on a 2048-prim sphere shell at mc 256,
+    decimate 100k, texture 1024; the GLB must parse and lie on the
+    sphere.
+11. dit: one full-width, depth-2 DiT CFG step on the card (bf16, kernels)
     against the same weights on the CPU (f32, plain versions).
-11. dit_int8: the same step with both DiTs W8A8 from the same int8
+12. dit_int8: the same step with both DiTs W8A8 from the same int8
     weights (the card's activations bf16, the CPU's f32).
-12. train: ``topiaxl_torch.cli.train.main`` at the flagship config
+13. train: ``topiaxl_torch.cli.train.main`` at the flagship config
     (synthetic data, batch 8, random init) for 6 steps, then a resume
     from its checkpoint for one more, with the exact kernel launch counts
     per step, finite losses and gradient norms, step time and peak memory.
-13. train_long: the same trainer at 4096 prims (depth 2, batch 2): the
+14. train_remat: two steps of the same recipe with
+    ``model.generator.gradient_checkpointing=true`` (each block recomputed
+    in the backward: its launches doubled), step time and peak memory
+    beside the plain trainer's.
+15. train_long: the same trainer at 4096 prims (depth 2, batch 2): the
     self-attention's 4096 keys take the two-pass backward pair.
-14. train_parity: one full-width, depth-2 training step's loss and
+16. train_parity: one full-width, depth-2 training step's loss and
     gradients on the card (bf16, kernels) against the CPU (f32, plain),
     and a control step whose attention backward leaves out delta, which
     must fail the bars.
@@ -93,6 +103,10 @@ EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
 TRAIN_LAUNCHES = {"flash_attn_fwd": 56, "flash_attn_bwd": 56,
                   "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                   "ln_modulate": 29, "ln_modulate_residual": 56, **NO_PROBES}
+# with remat (gradient_checkpointing) each block's forward runs again in
+# the backward: its two flash forwards and three LN kernels twice
+TRAIN_REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, flash_attn_fwd=2 * 56,
+                            ln_modulate=2 * 28 + 1, ln_modulate_residual=2 * 56)
 # at 4096 prims and depth 2 the self-attention (4096 keys) takes the
 # two-pass pair, the cross-attention (1370 keys) the single pass
 TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 2,
@@ -110,6 +124,14 @@ TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 2,
 # at least one of them.
 TRAIN_LOSS_BAR = 5e-6
 TRAIN_GNORM_BAR = 2e-4
+# remat against the plain trainer, the same seed and synthetic batches:
+# |remat - plain| / |plain| of each of the first two steps' loss and grad
+# norm. The forward kernels are deterministic, so the step-1 loss agrees
+# to f32 rounding; the single-pass backward adds dq in an order that may
+# vary from run to run, which can move the grad norm (and through the
+# update the step-2 loss) in its last f32 digits. Recomputing a block
+# with other inputs (a wrong RNG or drop mask) moves them by far more.
+REMAT_REL_BAR = 1e-4
 TRAIN_COS_BAR = 0.999
 # flash: max |kernel - plain| / max |plain| per shape (bf16 output, P
 # rounded to bf16 on both sides; sound kernels read 3e-3 to 5e-3). A
@@ -282,11 +304,13 @@ def ptxas_summary(build_log: str) -> list[str]:
             name = line.split("'")[1]
             for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
                           "flash_bwd_dq_kernel", "ln_modulate_kernel",
-                          "mma_probe_kernel"):
+                          "mma_probe_kernel", "reduce_splits_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
         elif "spill stores" in line:
             spill = line.strip()
+        elif "Performance Loss" in line:   # e.g. wgmma serialised (C7514)
+            out.append(f"  {line.strip()}")
         elif "Used" in line and "registers" in line and name:
             out.append(f"  {name}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
@@ -320,12 +344,14 @@ def phase_build():
     summary = ptxas_summary((lib.parent / "build.log").read_text())
     for line in summary:
         log(line)
-    spills = [line for line in summary if " 0 bytes spill stores" not in line]
+    spills = [line for line in summary if " 0 bytes spill stores" not in line
+              and "Performance Loss" not in line]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     # the host stages' C++ library (g++): built here, from this checkout,
-    # so that phase 5 is known to run the C++ stages and not their numpy
-    # fall-backs, and times stage 2 and not the build; a failed g++ raises
+    # so that the stage 2 phase is known to run the C++ stages and not
+    # their numpy fall-backs, and times stage 2 and not the build; a failed
+    # g++ raises
     from topiaxl_torch import native
 
     t0 = time.perf_counter()
@@ -641,6 +667,12 @@ def library_ms(fn, calls: int) -> float:
     return cuda_ms(fn, calls) * calls
 
 
+def plan_msg(plan: dict) -> str:
+    return (f"S={plan['splits']} x {plan['tiles']} tiles = {plan['blocks']} "
+            f"blocks on {plan['slots']} slots, bitwise repeat "
+            f"{plan['bitwise_repeat']}")
+
+
 def check_probe(name: str, tag: str, got, ref, faults: dict, exact: bool):
     """Kernel against plain: exact (int8) or max |kernel - plain| / max
     |plain| within PROBE_REL_BAR (bf16); each planted fault, computed by the
@@ -667,12 +699,22 @@ def phase_probes() -> dict:
     one graph as the kernel makes products."""
     import torch
 
-    from topiaxl_torch.benchmarks import PEAK_BF16_FLOPS, PEAK_INT8_OPS
+    from topiaxl_torch.benchmarks import PEAK_BF16_FLOPS, PEAK_INT8_OPS, plans
     from topiaxl_torch.benchmarks import exp_dot_forms as edf
     from topiaxl_torch.benchmarks import microbench_int8 as mbi
 
     dev = torch.device("cuda")
     results = {}
+
+    def split_and_repeat(name, got, again):
+        """The last launch's plan (blocks sharing each output tile) and
+        whether a second launch gave the same bits; raises if it did not
+        (the partial sums are reduced in a fixed order)."""
+        plan = dict(plans[name])
+        plan["bitwise_repeat"] = torch.equal(got, again)
+        if not plan["bitwise_repeat"]:
+            raise AssertionError(f"{name}: two launches differ ({plan})")
+        return plan
 
     # 7: the rate loop, at the TPU's shape and with two tiles per SM
     forms = {}
@@ -681,6 +723,8 @@ def phase_probes() -> dict:
             int8 = dtype == torch.int8
             a, b = mbi.operands(m, dtype, dev, seed=7)
             got = mbi.mma_rate_loop(a, b, mbi.L)
+            plan = split_and_repeat("mma_rate_loop", got,
+                                    mbi.mma_rate_loop(a, b, mbi.L))
             ref = mbi.mma_rate_loop_plain(a, b, mbi.L)
             fault = mbi.mma_rate_loop_plain(a, b, mbi.L, coef=lambda i: 1)
             torch.cuda.synchronize()
@@ -704,17 +748,18 @@ def phase_probes() -> dict:
             unit = "TOP/s" if int8 else "TFLOP/s"
             log(f"  mma_rate_loop {tag} {m}x{mbi.K}x{mbi.N} x{mbi.L}: max abs "
                 f"err {err:.3e}, rel {rel:.3e} ({'exact' if int8 else PROBE_REL_BAR}; "
-                f"fault {faults['coefficients +1']:.3e}), kernel {ms:.4f} ms "
+                f"fault {faults['coefficients +1']:.3e}), {plan_msg(plan)}, "
+                f"kernel {ms:.4f} ms "
                 f"({ops / ms / 1e9:.1f} {unit}, {ops / ms / 1e9 / (peak / 1e12):.3f}"
                 f" of peak), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}), library {lib_ms:.4f} ms "
                 f"({ops / lib_ms / 1e9:.1f} {unit}, {'_int_mm' if int8 else 'matmul'}"
-                f" x{mbi.L})")
+                f" x{mbi.L}; kernel/library {ms / lib_ms:.2f})")
             forms[f"{tag}_m{m}"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms, max_abs_err=err, max_rel_err=rel,
                 rate_t=ops / ms / 1e9, library_rate_t=ops / lib_ms / 1e9,
-                fault=faults["coefficients +1"])
+                fault=faults["coefficients +1"], **plan)
     head = forms[f"int8_m{mbi.M_FULL}"]
     results["mma_rate_loop"] = dict(
         {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -763,6 +808,7 @@ def phase_probes() -> dict:
         for label, a_shape, b_shape, dn in table:
             a, b = edf.operands(a_shape, b_shape, dev, seed=8)
             got = kernel(a, b, dn, iters)
+            plan = split_and_repeat(name, got, kernel(a, b, dn, iters))
             ref = plain(a, b, dn, iters)
             faults = form_faults(a, b, dn, plain, iters, ref)
             torch.cuda.synchronize()
@@ -779,23 +825,32 @@ def phase_probes() -> dict:
             per_dot = {"us_per_dot": ms * 1e3 / iters}
             if name == "dot_form_accum":   # the slope, as the TPU script
                 hi = cuda_ms(lambda: kernel(a, b, dn, edf.G_HI), 2)
+                # the slope cancels the fixed cost, the reduction's
+                # included, only if both G share one S
+                if plans[name]["splits"] != plan["splits"]:
+                    raise AssertionError(
+                        f"{name} {label}: S={plan['splits']} at G={edf.G_LO}"
+                        f" but S={plans[name]['splits']} at G={edf.G_HI}")
                 per_dot = {"us_per_dot": (hi - ms) * 1e3 / (edf.G_HI - edf.G_LO),
-                           "ms_g_hi": hi}
+                           "ms_g_hi": hi, "splits_g_hi": plans[name]["splits"]}
             us = per_dot["us_per_dot"]
             log(f"  {name} {label} {list(a_shape)}x{list(b_shape)} c={list(dn)} "
                 f"x{iters}: max rel err {rel:.3e} (bar {PROBE_REL_BAR}; faults "
                 + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
-                + f"), kernel {ms:.4f} ms, {us:.3f} us/dot "
+                + f"), {plan_msg(plan)}, kernel {ms:.4f} ms, {us:.3f} us/dot "
                 f"({flops / us / 1e6:.1f} TFLOP/s, "
-                f"{flops / us / 1e6 / (PEAK_BF16_FLOPS / 1e12):.3f} of peak), "
-                f"plain {plain_ms:.4f} ms, "
+                f"{flops / us / 1e6 / (PEAK_BF16_FLOPS / 1e12):.3f} of peak"
+                + (f"; S={per_dot['splits_g_hi']} at G={edf.G_HI}"
+                   if "splits_g_hi" in per_dot else "")
+                + f"), plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms "
-                f"({lib_ms * 1e3 / iters:.3f} us/dot, matmul bf16 out)")
+                f"({lib_ms * 1e3 / iters:.3f} us/dot, matmul bf16 out; "
+                f"kernel/library {ms / lib_ms:.2f})")
             forms[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, library_ms=lib_ms,
                                 max_abs_err=err, max_rel_err=rel,
                                 tflops=flops / us / 1e6, faults=readings,
-                                **per_dot)
+                                **per_dot, **plan)
         head = forms[table[-1][0] if name == "dot_form_chain" else table[0][0]]
         results[name] = dict(
             {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -918,6 +973,15 @@ def phase_serving_int8(tmp: str, bf16: list) -> None:
     log(f"  stage 1 of the warm image, in run order bf16, int8, bf16, int8: "
         f"bf16 {[round(v, 3) for v in stage1['bf16']]} s, int8 "
         f"{[round(v, 3) for v in stage1['int8']]} s")
+
+
+def phase_serving_pos_emb(tmp: str) -> None:
+    """``model.generator.class_name=topiaxl.DiTAdditivePosEmb``: the CLI
+    builds and serves the point-embedding DiT, with the launches of the
+    plain DiT's image."""
+    run_cli(tmp, "pos_emb", 1,
+            ["model.generator.class_name=topiaxl.DiTAdditivePosEmb"],
+            EXPECTED_LAUNCHES)
 
 
 def phase_serving_samplers(tmp: str) -> None:
@@ -1079,7 +1143,44 @@ def phase_train(tmp: str) -> dict:
     run_trainer(args + ["train.max_steps=7"], TRAIN_LAUNCHES, [7])
     log(f"  resumed from step 6 and ran step 7 in "
         f"{time.perf_counter() - t0:.3f} s (checkpoint load, step, save)")
-    return {**total, "step_s": median, "peak_gib": peak / 2 ** 30}
+    return {**total, "step_s": median, "peak_gib": peak / 2 ** 30,
+            "recs": recs[:2]}
+
+
+def phase_train_remat(tmp: str, plain: dict) -> dict:
+    """Two steps of the flagship recipe with the reference's
+    ``gradient_checkpointing: true`` (``remat``): every block's forward runs
+    again in the backward, so its flash and LN launches double (the final
+    layer's LN does not); each step's loss and grad norm within
+    ``REMAT_REL_BAR`` of the plain trainer's, and step seconds and peak
+    memory beside its."""
+    import torch
+
+    args = [FLAGSHIP, "train.synthetic=true", "train.batch_size=8",
+            "train.max_steps=2", "train.log_every_n_steps=1",
+            "train.ckpt_every_n_steps=1000000", "train.keep_ckpts=1",
+            "model.generator.gradient_checkpointing=true",
+            f"root_data_dir={tmp}/train_remat"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, recs = run_trainer(args, TRAIN_REMAT_LAUNCHES, [1, 2])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  remat step, batch 8: first {recs[0]['seconds']:.3f} s, second "
+        f"{recs[1]['seconds']:.3f} s (plain steps 2-6 median "
+        f"{plain['step_s']:.3f} s); peak device memory {peak:.2f} GiB (plain "
+        f"{plain['peak_gib']:.2f} GiB)")
+    for rec, ref in zip(recs, plain["recs"]):
+        rels = {k: abs(rec[k] - ref[k]) / abs(ref[k])
+                for k in ("loss", "grad_norm")}
+        log(f"  step {rec['step']} against the plain trainer's: loss "
+            f"{rec['loss']:.8f} / {ref['loss']:.8f}, grad norm "
+            f"{rec['grad_norm']:.8f} / {ref['grad_norm']:.8f}; rel "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + f" (bar {REMAT_REL_BAR})")
+        if max(rels.values()) > REMAT_REL_BAR:
+            raise AssertionError(f"remat step {rec['step']}: {rels} "
+                                 f"> {REMAT_REL_BAR}")
+    return {"step_s": recs[1]["seconds"], "peak_gib": peak}
 
 
 def phase_train_long(tmp: str) -> dict:
@@ -1212,6 +1313,8 @@ def main() -> int:
             launches, bf16_recs = phase_serving(tmp)
         with Phase("serving_int8"):
             phase_serving_int8(tmp, bf16_recs)
+        with Phase("serving_pos_emb"):
+            phase_serving_pos_emb(tmp)
         with Phase("serving_samplers"):
             phase_serving_samplers(tmp)
         with Phase("stage2"):
@@ -1223,6 +1326,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("train"):
             train = phase_train(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("train_remat"):
+            phase_train_remat(tmp, train)
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("train_long"):
             train_long = phase_train_long(tmp)

@@ -41,6 +41,7 @@ def test_port_imports_without_jax():
         import topiaxl_torch.core.profiling
         import topiaxl_torch.cli.train
         import topiaxl_torch.core.config
+        import topiaxl_torch.registry
         import topiaxl_torch.extract
         import topiaxl_torch.extract.glb
         import topiaxl_torch.extract.objio

@@ -19,12 +19,15 @@ lse within 1e-4 of the plain logsumexp. LN
 outputs within one bf16 ulp of the plain f32 chain plus 1e-5 for the
 f32 summation order. The probe kernel (``csrc/mma_probe.cu``): int8
 exact, bf16 within 1e-3 of max|plain| (f32 sums in another order), with
-planted faults (coefficients +1, one product fewer, a pad of ones) above.
+planted faults (coefficients +1, one product fewer, a pad of ones) above,
+also where several blocks share an output tile (their partial sums
+reduced in a fixed order, so two launches give the same bits).
 """
 
 import pytest
 import torch
 
+from topiaxl_torch import benchmarks
 from topiaxl_torch.benchmarks import exp_dot_forms as edf
 from topiaxl_torch.benchmarks import microbench_int8 as mbi
 from topiaxl_torch.ops import _cuda
@@ -358,6 +361,95 @@ def test_probe_refuses_what_it_cannot_run(dev):
     with pytest.raises(ValueError, match="N=96"):
         edf.dot_form_chain(_randn(dev, 128, 64), _randn(dev, 96, 64), (1, 1), 2)
     assert _cuda.launches == before
+
+
+def _int8(dev, *shape, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randint(-127, 127, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+# (what, m, k, n, iters, splits) for the rate loop: S blocks share each
+# output tile, over the contraction's chunks first, then the product index
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,k,n,iters,splits", [
+    (128, 1024, 128, 7, 3),     # odd product count, splits across chunks
+    (256, 1024, 128, 10, 8),    # splits inside chunks too
+    (128, 400, 256, 5, 4),      # a K tail shorter than a chunk
+    (128, 64, 128, 2, 11),      # fewer products than splits: empty blocks
+])
+def test_rate_loop_splits_match_plain(dev, dtype, m, k, n, iters, splits,
+                                      monkeypatch):
+    """(No product count is a multiple of 3: the coefficients would cancel.)"""
+    monkeypatch.setattr(benchmarks, "pick_splits", lambda *_: splits)
+    if dtype == torch.int8:
+        a, b = _int8(dev, m, k, seed=47), _int8(dev, k, n, seed=48)
+    else:
+        a, b = _randn(dev, m, k, seed=47), _randn(dev, k, n, seed=48)
+    before = _cuda.launches["mma_rate_loop"]
+    got = mbi.mma_rate_loop(a, b, iters)
+    assert _cuda.launches["mma_rate_loop"] == before + 1
+    assert benchmarks.plans["mma_rate_loop"]["splits"] == splits
+    ref = mbi.mma_rate_loop_plain(a, b, iters)
+    fault = mbi.mma_rate_loop_plain(a, b, iters, coef=lambda i: 1)
+    torch.cuda.synchronize()
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert _rel_err(got, ref) <= PROBE_REL_BAR
+    assert _rel_err(fault.double(), ref.double()) > PROBE_REL_BAR
+
+
+@pytest.mark.parametrize("form,iters,splits", [
+    (((128, 384), (384, 256), (1, 0)), 9, 5),   # n128, B MN-major
+    (((80, 256), (128, 256), (1, 1)), 7, 6),    # n80, stored transposed
+    (((72, 256), (128, 256), (1, 1)), 5, 3),    # n72, stored transposed
+    (((128, 256), (256, 72), (1, 0)), 6, 4),    # n72
+    (((72, 128), (72, 256), (0, 0)), 3, 2),     # contraction 72, A MN-major
+])
+def test_dot_form_splits_match_plain(dev, form, iters, splits, monkeypatch):
+    monkeypatch.setattr(benchmarks, "pick_splits", lambda *_: splits)
+    a_shape, b_shape, dn = form
+    a, b = _randn(dev, *a_shape, seed=49), _randn(dev, *b_shape, seed=50)
+    before = dict(_cuda.launches)
+    chain = edf.dot_form_chain(a, b, dn, iters)
+    accum = edf.dot_form_accum(a, b, dn, iters)
+    assert _cuda.launches["dot_form_chain"] == before["dot_form_chain"] + 1
+    assert _cuda.launches["dot_form_accum"] == before["dot_form_accum"] + 1
+    assert benchmarks.plans["dot_form_accum"]["splits"] == splits
+    ref_chain = edf.dot_form_chain_plain(a, b, dn, iters)
+    ref = edf.dot_form_accum_plain(a, b, dn, iters)
+    fewer = edf.dot_form_accum_plain(a, b, dn, iters - 1)
+    torch.cuda.synchronize()
+    assert accum.shape == ref.shape and accum.dtype == torch.float32
+    assert _rel_err(chain, ref_chain) <= PROBE_REL_BAR
+    assert _rel_err(accum, ref) <= PROBE_REL_BAR
+    assert _rel_err(fewer, ref) > PROBE_REL_BAR
+
+
+def test_probe_splits_repeat_bit_for_bit(dev):
+    """The partial sums are reduced in slice order: two launches give the
+    same bits, for the dot forms and the rate loop."""
+    a, b = _randn(dev, 512, 2048, seed=51), _randn(dev, 2048, 72, seed=52)
+    first = edf.dot_form_accum(a, b, (1, 0), 40)
+    assert benchmarks.plans["dot_form_accum"]["splits"] > 1
+    assert torch.equal(first, edf.dot_form_accum(a, b, (1, 0), 40))
+    a, b = _randn(dev, 128, 1024, seed=53), _randn(dev, 1024, 128, seed=54)
+    first = mbi.mma_rate_loop(a, b, 64)
+    assert benchmarks.plans["mma_rate_loop"]["splits"] > 1
+    assert torch.equal(first, mbi.mma_rate_loop(a, b, 64))
+
+
+def test_probe_default_splits_fill_the_card(dev):
+    """A 4-tile form runs on most of the card's block slots; the rate loop
+    at M = 4224 (264 tiles, two per SM) keeps one block a tile."""
+    a, b = _randn(dev, 512, 2048, seed=55), _randn(dev, 2048, 128, seed=56)
+    edf.dot_form_accum(a, b, (1, 0), edf.G_LO)
+    plan = benchmarks.plans["dot_form_accum"]
+    assert plan["tiles"] == 4 and plan["blocks"] >= 0.9 * plan["slots"]
+    a, b = mbi.operands(mbi.M_FULL, torch.int8, dev)
+    mbi.mma_rate_loop(a, b, 4)
+    assert benchmarks.plans["mma_rate_loop"]["splits"] == 1
 
 
 @pytest.mark.parametrize("B,N,D", [(2, 2048, 1152), (3, 37, 8), (1, 5, 200),

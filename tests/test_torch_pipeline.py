@@ -222,10 +222,12 @@ def _tiny_config(tmp_path, img_dir):
           batch_size: 4096
           remesh: false
         model:
+          class_name: topiaxl.PrimX
           num_prims: 64
           dim_feat: 6
           prim_shape: 8
           vae:
+            class_name: topiaxl.VAE3D
             in_channels: 6
             latent_channels: 1
             out_channels: 6
@@ -236,10 +238,14 @@ def _tiny_config(tmp_path, img_dir):
             dtype: fp32
           vae_checkpoint_path: null
           conditioner:
+            class_name: topiaxl.ImageConditioner
+            num_prims: ${{model.num_prims}}
             encoder_config:
+              class_name: topiaxl.DinoV2Wrapper
               model_name: dinov2_tiny_test
               dtype: fp32
           generator:
+            class_name: topiaxl.DiT
             seq_length: 64
             in_channels: 68
             condition_channels: 32

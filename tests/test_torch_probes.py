@@ -143,3 +143,55 @@ def test_probe_forms_are_the_tpu_probes():
     for label, a_shape, b_shape, dn in edf.CHAIN_FORMS + edf.ACCUM_FORMS:
         ca, cb = dn
         assert a_shape[ca] == b_shape[cb], label
+
+
+# the probe path's launches: (what, M, N, K, element bytes, products); the
+# dot forms as ``exp_dot_forms._launch`` hands them to the kernel (an
+# output of 72 or 80 rows computed as its transpose)
+def _probe_launches():
+    out = []
+    for table, iters in ((edf.CHAIN_FORMS, edf.N_ITER),
+                         (edf.ACCUM_FORMS, edf.G_LO),
+                         (edf.ACCUM_FORMS, edf.G_HI)):
+        for label, a_shape, b_shape, (ca, cb) in table:
+            X, Y, K = a_shape[1 - ca], b_shape[1 - cb], a_shape[ca]
+            M, N = (X, Y) if X % 128 == 0 else (Y, X)
+            out.append((f"{label} x{iters}", M, N, K, 2, iters))
+    for m in (mbi.M, mbi.M_FULL):
+        for elem in (1, 2):
+            out.append((f"rate {elem}B M={m}", m, mbi.N, mbi.K, elem, mbi.L))
+    return out
+
+
+@pytest.mark.parametrize("what,M,N,K,elem,iters", _probe_launches())
+def test_split_plan_fills_the_card(what, M, N, K, elem, iters):
+    """On 132 block slots (one block per SM of an H100) every launch of the
+    probe path keeps at least 95% of the slots of its waves busy, at most
+    four waves, each block with at least ``MIN_PRODUCTS`` products unless
+    the tile has fewer."""
+    from topiaxl_torch import benchmarks as B
+
+    slots = 132
+    tiles, work = B.tiles_and_work(M, N, K, elem, iters)
+    s = B.pick_splits(tiles, work, slots)
+    waves = -(-tiles * s // slots)
+    assert 1 <= s and waves <= B.MAX_WAVES
+    assert s == 1 or work // s >= B.MIN_PRODUCTS
+    assert tiles * work / (waves * slots * -(-work // s)) >= 0.95, (tiles, s)
+
+
+def test_split_plan_edges():
+    """The rate loop's 264 tiles (two per SM) keep one block a tile; the
+    4-tile dot forms spread over the card; no work, one split; a tile with
+    few products keeps ``MIN_PRODUCTS`` a block."""
+    from topiaxl_torch import benchmarks as B
+
+    assert B.pick_splits(*B.tiles_and_work(mbi.M_FULL, 1024, 1024, 1, 256),
+                         132) == 1
+    tiles, work = B.tiles_and_work(512, 128, 2048, 2, edf.G_LO)
+    assert tiles == 4 and tiles * B.pick_splits(tiles, work, 132) == 132
+    assert B.tiles_and_work(512, 72, 2048, 2, 1) == (4, 16)
+    assert B.tiles_and_work(128, 128, 400, 2, 3) == (1, 12)   # a K tail
+    assert B.pick_splits(4, 0, 132) == 1
+    assert B.pick_splits(1, 56, 132) == 56 // B.MIN_PRODUCTS
+    assert B.pick_splits(1, 5, 132) == 1

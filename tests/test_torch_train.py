@@ -218,7 +218,7 @@ def test_lsm_sampler_state_matches_jax():
     assert torch.equal(wu, torch.ones(32))
 
 
-def _tiny_pair(seq=520, cond_seq=530, depth=2, seed=0):
+def _tiny_pair(seq=520, cond_seq=530, depth=2, seed=0, remat=False):
     """A randomised port DiT (f32, cond-drop 0.1) and the same weights in
     the JAX DiT; both attentions take the flash path (>= 512 keys)."""
     from topiaxl.models import DiT as JaxDiT
@@ -227,7 +227,7 @@ def _tiny_pair(seq=520, cond_seq=530, depth=2, seed=0):
     kw = dict(seq_length=seq, in_channels=68, condition_channels=32,
               hidden_size=144, depth=depth, num_heads=2)
     dit = DiT(cond_drop_prob=0.1, dtype=torch.float32,
-              param_dtype=torch.float32, **kw)
+              param_dtype=torch.float32, remat=remat, **kw)
     sd = randomize_(dit, seed)
     jd = JaxDiT(cond_drop_prob=0.1, attn_proj_bias=True, dtype=jnp.float32,
                 **kw)
@@ -246,11 +246,65 @@ def test_whole_train_step_loss_and_grads_match_jax(grad_accum):
     path does (``topiaxl/pipelines/train.py:210-214``): there the null
     embedding's gradient is zero on both sides, and the microbatch
     gradients are summed and divided by 2."""
+    _train_step_vs_jax(grad_accum, remat=False)
+
+
+def test_remat_step_matches_plain_and_jax():
+    """``remat=True`` recomputes each block in the backward (its two
+    attentions run forward again): the same loss and gradients as the
+    plain step, to f32 summation order, and JAX's within the bars
+    above."""
+    loss, grads = _train_step_vs_jax(1, remat=True)
+    loss0, grads0 = _train_step_vs_jax(1, remat=False)
+    np.testing.assert_allclose(loss, loss0, rtol=1e-6)
+    gmax = max(g.abs().max().item() for g in grads0.values())
+    for name, g in grads.items():
+        torch.testing.assert_close(g, grads0[name], rtol=1e-5,
+                                   atol=1e-6 * gmax, msg=name)
+
+
+def test_gradient_checkpointing_reaches_remat(tmp_path, monkeypatch):
+    """The reference's ``gradient_checkpointing: true`` builds the DiT with
+    ``remat=True`` (``topiaxl/registry.py:make_dit``), and the trainer then
+    runs every block under the checkpoint, with the plain run's losses."""
+    from topiaxl_torch import registry  # noqa: F401
+    from topiaxl_torch.cli.train import main
+    from topiaxl_torch.core.attrdict import AttrDict
+    from topiaxl_torch.core.config import build
+    from topiaxl_torch.models import dit as dit_module
+
+    small = dict(class_name="topiaxl.DiT", seq_length=8, in_channels=4,
+                 condition_channels=6, hidden_size=16, depth=2, num_heads=2,
+                 dtype="fp32", precision="bf16")
+    assert build(AttrDict(small, gradient_checkpointing=True)).remat is True
+    assert build(AttrDict(small)).remat is False
+    with pytest.raises(ValueError, match="'dots'"):
+        build(AttrDict(small, remat="dots"))
+
+    calls = []
+    real = dit_module.checkpoint
+    monkeypatch.setattr(dit_module, "checkpoint",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    runs = {}
+    for tag, extra in (("plain", []),
+                       ("remat", ["model.generator.gradient_checkpointing=true"])):
+        recs: list = []
+        os.makedirs(tmp_path / tag)
+        assert main([_tiny_train_config(tmp_path / tag, 2), *extra],
+                    metrics_out=recs) == 0
+        runs[tag] = [r["loss"] for r in recs]
+    assert len(calls) == 2   # one block, two steps: remat run only
+    np.testing.assert_allclose(runs["remat"], runs["plain"], rtol=1e-6)
+
+
+def _train_step_vs_jax(grad_accum: int, remat: bool):
+    """One step of the tiny DiT, port against JAX (the test above);
+    returns the port's loss and gradients."""
     from topiaxl.diffusion import gaussian as jg
     from topiaxl_torch.ops import flash_attention as fa
     from topiaxl_torch.pipelines.train import accumulate_gradients
 
-    dit, jd, params = _tiny_pair()
+    dit, jd, params = _tiny_pair(remat=remat)
     kw = dict(noise_schedule="squaredcos_cap_v2", diffusion_steps=1000,
               parameterization="v")
     tdiff, jdiff = _port_diffusion(**kw), _jax_diffusion(**kw)
@@ -301,8 +355,9 @@ def test_whole_train_step_loss_and_grads_match_jax(grad_accum):
                                                 drop)), grad_accum)
     finally:
         fa._FlashAttention.apply = real
-    # self + cross in each of the two blocks, per microbatch
-    assert len(calls) == 4 * grad_accum
+    # self + cross in each of the two blocks, per microbatch; remat runs
+    # them again in the backward
+    assert len(calls) == 4 * grad_accum * (2 if remat else 1)
     np.testing.assert_allclose(loss.item(), float(jl), rtol=TOL)
     ref = weights.dit_from_jax(jax.tree.map(np.asarray, jgrads))
     got = {n: (torch.zeros_like(p) if p.grad is None else p.grad / grad_accum)
@@ -322,6 +377,7 @@ def test_whole_train_step_loss_and_grads_match_jax(grad_accum):
         assert np.abs(r).max() > 1e-4 * gmax, name   # not vacuous
         np.testing.assert_allclose(g.numpy(), r, rtol=0,
                                    atol=1e-4 * np.abs(r).max(), err_msg=name)
+    return loss.item(), got
 
 
 def test_dit_from_jax_takes_scan_layout_and_moment_trees():
@@ -474,6 +530,7 @@ def _tiny_train_config(tmp_path, max_steps):
         model:
           num_prims: 8
           generator:
+            class_name: topiaxl.DiT
             seq_length: ${{model.num_prims}}
             in_channels: 4
             condition_channels: 6
@@ -534,9 +591,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     from topiaxl_torch.cli.train import main
 
     cfg = _tiny_train_config(tmp_path, 1)
-    for flag in ("quant", "remat"):
+    # remat=true trains (test_remat_step_matches_plain_and_jax); a remat
+    # policy by name does not
+    for flag, value in (("quant", "true"), ("remat", "dots"),
+                        ("scan_blocks", "true")):
         with pytest.raises(ValueError, match=flag):
-            main([cfg, f"model.generator.{flag}=true"])
+            main([cfg, f"model.generator.{flag}={value}"])
     assert main([]) == 1
 
 

@@ -20,6 +20,7 @@ from ..ops import _cuda
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 BLOCK_M = 128   # output rows of one block of the kernel
+CHUNK_BYTES = 256   # contraction bytes of each row the kernel stages at once
 
 
 def require_card() -> None:
@@ -28,11 +29,69 @@ def require_card() -> None:
                          "false)")
 
 
+# how an output tile's sum is shared among blocks (``pick_splits``)
+MIN_PRODUCTS = 16   # products a block keeps at least, so that staging its
+                    # chunks stays small beside them
+MAX_WAVES = 4       # blocks at most, in waves of the card's block slots
+SPLIT_SLACK = 0.02  # a smaller S within 2% of the best is taken
+
+# the last plan of each probe launch, by counter name (``probe_launch``)
+plans: dict = {}
+_SLOTS: dict = {}   # blocks the card holds at once, by kernel and device
+
+
+def pick_splits(tiles: int, work: int, slots: int) -> int:
+    """S, the blocks that share each of ``tiles`` output tiles, when a
+    tile's ``work`` products (one per chunk of the contraction and
+    iteration) are cut into S ranges and the card holds ``slots`` blocks
+    at once. Each S takes ``ceil(tiles S / slots)`` waves of ``ceil(work /
+    S)`` products; the smallest S within ``SPLIT_SLACK`` of the fewest is
+    taken, with at least ``MIN_PRODUCTS`` products a block and at most
+    ``MAX_WAVES`` waves. Many tiles (the rate loop at M = 4224) give 1."""
+    most = max(1, min(work // MIN_PRODUCTS, MAX_WAVES * slots // tiles))
+
+    def cost(s: int) -> int:
+        return -(-tiles * s // slots) * -(-work // s)
+
+    best = min(cost(s) for s in range(1, most + 1))
+    return next(s for s in range(1, most + 1)
+                if cost(s) <= best * (1 + SPLIT_SLACK))
+
+
+def tiles_and_work(M: int, N: int, K: int, elem_bytes: int,
+                   iters: int) -> tuple[int, int]:
+    """The kernel's output tiles (128 x 128, or 128 x N for N of 72 or 80)
+    and each tile's products: one per staged chunk of the contraction and
+    iteration."""
+    block_n = 128 if N % 128 == 0 else N
+    chunks = -(-K * elem_bytes // CHUNK_BYTES)
+    return (M // BLOCK_M) * (N // block_n), chunks * iters
+
+
+def _slots(int8: bool, ta: bool, tb: bool, coef: bool, n: int,
+           device: torch.device) -> int:
+    """Blocks of this kernel the card holds at once: per SM (registers,
+    shared memory) times the SMs."""
+    key = (int8, ta, tb, coef, n, device.index)
+    if key not in _SLOTS:
+        per_sm = _cuda.library().topiaxl_mma_probe_occupancy(
+            int(int8), int(ta), int(tb), int(coef), n)
+        if per_sm < 1:
+            raise RuntimeError(f"probe kernel: no occupancy for {key}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SLOTS[key] = per_sm * sms
+    return _SLOTS[key]
+
+
 def probe_launch(name: str, a: torch.Tensor, b: torch.Tensor,
                  out: torch.Tensor, *, coef: bool, ta: bool, tb: bool,
                  iters: int, out_t: bool) -> None:
     """One launch of the probe kernel into ``out`` (see the source's C
-    entry for what each flag means); counts under ``launches[name]``."""
+    entry for what each flag means); counts under ``launches[name]``.
+    ``pick_splits`` blocks share each output tile; with more than one,
+    their partial sums go to a workspace that a second kernel reduces, in
+    a fixed order. The plan (tiles, splits, blocks, slots) is kept in
+    ``plans[name]``."""
     for label, t in (("a", a), ("b", b), ("out", out)):
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"{name}: {label} on {t.device}, a on {a.device}")
@@ -60,12 +119,21 @@ def probe_launch(name: str, a: torch.Tensor, b: torch.Tensor,
     elif (N % 128 and N not in (72, 80)) or (ta and not tb):
         raise ValueError(f"{name}: N={N} must be 72, 80 or a multiple of "
                          f"128, and a transposed A needs a [K, N] B")
+    block_n = 128 if N % 128 == 0 else N
+    slots = _slots(int8, ta, tb, coef, block_n, a.device)
+    tiles, work = tiles_and_work(M, N, K, a.element_size(), iters)
+    splits = pick_splits(tiles, work, slots)
+    ws = (torch.empty((splits, *out.shape), device=out.device, dtype=out.dtype)
+          if splits > 1 else None)
     rc = _cuda.library().topiaxl_mma_probe(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), int(int8), int(ta),
-        int(tb), int(coef), M, N, K, int(iters), int(out_t),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), int(int8), int(ta), int(tb),
+        int(coef), M, N, K, int(iters), int(out_t), splits,
         _cuda.stream_of(a))
     _cuda.check(rc, name)
     _cuda.count_launch(name)
+    plans[name] = {"tiles": tiles, "splits": splits, "blocks": tiles * splits,
+                   "slots": slots}
 
 
 def device_ms(fn, iters: int) -> float:

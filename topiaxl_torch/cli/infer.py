@@ -2,10 +2,16 @@
 
 Reads the same YAML as ``topiaxl.cli.infer`` (through the port's copy
 of its loader, ``topiaxl_torch.core.config.load_config``), builds the
-DiT, VAE and DINOv2 encoder from the config's fields, loads the reference checkpoints (DiT
-under ``ema``, VAE under ``model_state_dict``, DINOv2's own state_dict)
-or warns and keeps the seeded random init, and runs image -> PrimX ->
-GLB for every image in ``inference.input_dir``. Per image it writes
+generator, VAE and conditioner that ``model.*.class_name`` name through
+the port's registry (``topiaxl_torch/registry.py``: ``topiaxl.DiT`` or
+``topiaxl.DiTAdditivePosEmb``, ``topiaxl.VAE3D``, ``topiaxl.ImageConditioner``
+over ``topiaxl.DinoV2Wrapper``; a name the port does not build yet
+raises), loads the reference checkpoints (DiT under ``ema``, VAE under
+``model_state_dict``, DINOv2's own state_dict) or warns and keeps the
+seeded random init, and runs image -> PrimX -> GLB for every image in
+``inference.input_dir``. ``model.native_checkpoint_dir`` (orbax) and
+``inference.u2net_checkpoint`` raise when they name something on disk:
+the port reads neither yet. Per image it writes
 ``denoised.npz`` and, with ``inference.export_glb``, ``pbr_mesh.glb``,
 ``texture.jpg`` and ``roughness_metallic.jpg``.
 
@@ -28,10 +34,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger("topiaxl_torch.infer")
-
-_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-           "fp32": torch.float32, "float32": torch.float32}
-
 
 def prepare_image(path: str, foreground_ratio: float = 0.85,
                   matting: str = "auto") -> np.ndarray:
@@ -85,40 +87,44 @@ def _load_state_dict(path: str, key: str | None = None) -> dict:
     return sd[key] if key is not None else sd
 
 
-def build_models(cfg, device, generator: torch.Generator):
-    """(dit, vae, encoder) from the config's model fields, with checkpoints
-    loaded where the config names them. With ``model.generator.quant``
-    the DiT serves W8A8: its float weights (checkpoint or random init)
-    are quantized once, as ``topiaxl/cli/infer.py:_maybe_quantize`` does."""
-    from ..models.conditioner.image import DinoV2Wrapper
-    from ..models.dit import DiT, quantize_dit_state_dict
-    from ..models.vae3d import VAE3D
+def refuse_unported_checkpoints(cfg) -> None:
+    """Raise where the config names weights the JAX CLI would read and the
+    port cannot: orbax trees in ``model.native_checkpoint_dir`` (which the
+    JAX CLI loads ahead of ``checkpoint_path``) and the U^2-Net matting of
+    ``inference.u2net_checkpoint`` (which its ``auto`` matting uses ahead
+    of GrabCut). Either would serve something else without a word."""
+    native = cfg.model.get("native_checkpoint_dir")
+    if native and os.path.isdir(native):
+        raise ValueError(
+            f"model.native_checkpoint_dir={native!r}: the port reads no orbax "
+            f"trees; give the reference's torch checkpoints instead "
+            f"(checkpoint_path, model.vae_checkpoint_path, "
+            f"model.conditioner.encoder_checkpoint_path)")
+    u2net = cfg.inference.get("u2net_checkpoint")
+    if u2net and os.path.exists(u2net):
+        raise ValueError(
+            f"inference.u2net_checkpoint={u2net!r}: U^2-Net matting is not "
+            f"ported yet (ROADMAP queue 1 #6); unset it and choose "
+            f"inference.matting=grabcut (or threshold)")
 
+
+def build_models(cfg, device, generator: torch.Generator):
+    """(dit, vae, conditioner) built through the registry from the config's
+    ``model.generator``, ``model.vae`` and ``model.conditioner`` (each by
+    its ``class_name``), with checkpoints loaded where the config names
+    them. With ``model.generator.quant`` the DiT serves W8A8: its float
+    weights (checkpoint or random init) are quantized once, as
+    ``topiaxl/cli/infer.py:_maybe_quantize`` does."""
+    from .. import registry  # noqa: F401  (fills the factory table)
+    from ..core.config import build
+    from ..models.dit import quantize_dit_state_dict
+
+    refuse_unported_checkpoints(cfg)
     g = cfg.model.generator
-    dit_kw = dict(seq_length=g.get("seq_length", 2048),
-                  in_channels=g.get("in_channels", 68),
-                  condition_channels=g.get("condition_channels", 768),
-                  hidden_size=g.get("hidden_size", 1152),
-                  depth=g.get("depth", 28), num_heads=g.get("num_heads", 16),
-                  mlp_ratio=g.get("mlp_ratio", 4.0),
-                  attn_proj_bias=g.get("attn_proj_bias", False),
-                  learn_sigma=g.get("learn_sigma", True),
-                  dtype=_DTYPES[g.get("dtype", "bf16")], device=device)
-    dit = DiT(generator=generator, **dit_kw).eval()
-    v = cfg.model.vae
-    vae = VAE3D(in_channels=v.get("in_channels", 6),
-                latent_channels=v.get("latent_channels", 1),
-                out_channels=v.get("out_channels", 6),
-                down_channels=tuple(v.get("down_channels", (32, 256))),
-                mid_attention=v.get("mid_attention", True),
-                up_channels=tuple(v.get("up_channels", (256, 32))),
-                layers_per_block=v.get("layers_per_block", 2),
-                dtype=_DTYPES[v.get("dtype", "bf16")], device=device,
-                generator=generator).eval()
-    e = cfg.model.conditioner.encoder_config
-    encoder = DinoV2Wrapper(e.get("model_name", "dinov2_vitb14_reg"),
-                            dtype=_DTYPES[e.get("dtype", "bf16")],
-                            device=device, generator=generator).eval()
+    dit = build(g, device=device, generator=generator, quant=False).eval()
+    vae = build(cfg.model.vae, device=device, generator=generator).eval()
+    conditioner = build(cfg.model.conditioner, device=device,
+                        generator=generator).eval()
 
     if cfg.get("checkpoint_path"):
         dit.load_state_dict(_load_state_dict(cfg.checkpoint_path, "ema"))
@@ -128,7 +134,7 @@ def build_models(cfg, device, generator: torch.Generator):
     if g.get("quant", False):
         # built from its own seed: the caller's generator stream (the VAE,
         # the encoder, the noise) is the float build's
-        qdit = DiT(quant=True, **dit_kw).eval()
+        qdit = build(g, device=device, quant=True).eval()
         qdit.load_state_dict(quantize_dit_state_dict(qdit, dit.state_dict()))
         logger.info("quantized the DiT's block matmuls for int8 serving")
         dit = qdit
@@ -137,12 +143,14 @@ def build_models(cfg, device, generator: torch.Generator):
                                              "model_state_dict"))
     else:
         logger.warning("no vae_checkpoint_path: VAE runs with random init")
-    if cfg.model.conditioner.get("encoder_checkpoint_path"):
+    encoder = getattr(conditioner, "encoder", None)
+    if encoder is not None and cfg.model.conditioner.get(
+            "encoder_checkpoint_path"):
         encoder.vit.load_state_dict(
             _load_state_dict(cfg.model.conditioner.encoder_checkpoint_path))
-    else:
+    elif encoder is not None:
         logger.warning("no DINOv2 checkpoint: conditioner runs random init")
-    return dit, vae, encoder
+    return dit, vae, conditioner
 
 
 def _sync(device: torch.device) -> None:
@@ -170,7 +178,7 @@ def main(argv=None, timings_out: list | None = None) -> int:
     os.makedirs(inference_dir, exist_ok=True)
 
     gen = torch.Generator(device=device).manual_seed(int(cfg.inference.seed))
-    dit, vae, encoder = build_models(cfg, device, gen)
+    dit, vae, conditioner = build_models(cfg, device, gen)
     diffusion = create_diffusion(
         timestep_respacing=(f"ddim{cfg.inference.ddim}"
                             if cfg.inference.ddim > 0 else None),
@@ -192,7 +200,8 @@ def main(argv=None, timings_out: list | None = None) -> int:
         t0 = time.perf_counter()
         image = prepare_image(os.path.join(img_dir, name), matting=matting)
         with torch.inference_mode():
-            y = encoder(torch.from_numpy(image[None]).to(device))
+            y = conditioner.encode_image(
+                torch.from_numpy(image[None]).to(device))
         _sync(device)
         rec["encode_s"] = time.perf_counter() - t0
 

@@ -2,9 +2,9 @@
 
     python -m topiaxl_torch.cli.profile configs/inference_dit.yml [k=v ...]
 
-Builds the models from the config as ``topiaxl_torch.cli.infer`` does
-(random weights unless the config names checkpoints) and measures, on
-synthetic inputs (``pipelines/synthetic.py``):
+Builds the models the config names as ``topiaxl_torch.cli.infer`` does
+(``build_models``; random weights unless the config names checkpoints)
+and measures, on synthetic inputs (``pipelines/synthetic.py``):
 
 - ``prepare``: host matting and recentring of a 512² image (wall);
 - ``encode``: DINOv2 on that image;
@@ -187,7 +187,7 @@ def main(argv=None) -> int:
     if device.type != "cuda" or not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA card (inference.device=cuda)")
     gen = torch.Generator(device=device).manual_seed(int(cfg.inference.seed))
-    dit, vae, encoder = build_models(cfg, device, gen)
+    dit, vae, conditioner = build_models(cfg, device, gen)
     diffusion = create_diffusion(
         timestep_respacing=(f"ddim{cfg.inference.ddim}"
                             if cfg.inference.ddim > 0 else None),
@@ -206,9 +206,10 @@ def main(argv=None) -> int:
         report["prepare"] = {"wall_ms": (time.perf_counter() - t0) * 1e3 / 3}
         print(f"[prepare] wall {report['prepare']['wall_ms']:.3f} ms (host)")
         img = torch.from_numpy(image[None]).to(device)
-        report["encode"] = profile_region("encode", lambda: encoder(img), 5)
+        report["encode"] = profile_region(
+            "encode", lambda: conditioner.encode_image(img), 5)
 
-        y = encoder(img)
+        y = conditioner.encode_image(img)
         kvs = dit.precompute_kv(y)
         null_outs = dit.precompute_null_out()
         report["precompute"] = profile_region(
@@ -244,7 +245,7 @@ def main(argv=None) -> int:
             print(f"[stage2] {json.dumps(tm)}", flush=True)
             runs.append(tm)
         report["stage2"] = runs
-    del dit, vae, encoder
+    del dit, vae, conditioner
     if cfg.model.generator.get("quant", False):
         print("[train_step] skipped: the trainer refuses model.generator.quant")
     else:

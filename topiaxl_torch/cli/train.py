@@ -7,6 +7,13 @@ optimizer.* / scheduler.* / model.generator.* / diffusion.*), read
 through ``topiaxl_torch.core.config.load_config``; no mesh
 (``train.mesh`` is ignored).
 
+The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
+or ``topiaxl.DiTAdditivePosEmb``). ``model.generator.remat=true``, or the
+reference's ``gradient_checkpointing: true``, recomputes each block in
+the backward instead of keeping its activations (less memory, a slower
+step); a remat policy by name (``dots``, ``flash``, ...), ``scan_blocks``
+and ``quant`` are refused.
+
 Data: ``train.data_glob`` pointing at token shards (pipelines/data), or
 ``train.synthetic=true`` for smoke runs and measurement. ``train.device``
 (default ``cuda``) picks the device; there is no silent fallback to the
@@ -29,32 +36,20 @@ import torch
 
 logger = logging.getLogger("topiaxl_torch.train")
 
-_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-           "fp32": torch.float32, "float32": torch.float32}
-
 
 def build_dit(g, device, generator: torch.Generator):
-    """The trainable DiT of ``model.generator``: f32 master weights,
-    compute in ``g.dtype`` (default bf16)."""
-    from ..models.dit import DiT
+    """The trainable DiT that ``model.generator`` names (its
+    ``class_name``, through ``topiaxl_torch/registry.py``): f32 master
+    weights, compute in ``g.dtype`` (default bf16), ``remat`` or
+    ``gradient_checkpointing`` honoured."""
+    from .. import registry  # noqa: F401  (fills the factory table)
+    from ..core.config import build
 
     if g.get("quant", False):
         raise ValueError("model.generator.quant=true is inference-only; unset "
                          "it for training")
-    if g.get("remat", False) or g.get("scan_blocks", False):
-        raise ValueError("model.generator.remat / scan_blocks are not ported: "
-                         "the port trains the unrolled blocks without remat")
-    return DiT(seq_length=g.get("seq_length", 2048),
-               in_channels=g.get("in_channels", 68),
-               condition_channels=g.get("condition_channels", 768),
-               hidden_size=g.get("hidden_size", 1152),
-               depth=g.get("depth", 28), num_heads=g.get("num_heads", 16),
-               mlp_ratio=g.get("mlp_ratio", 4.0),
-               cond_drop_prob=g.get("cond_drop_prob", 0.0),
-               attn_proj_bias=g.get("attn_proj_bias", False),
-               learn_sigma=g.get("learn_sigma", True),
-               dtype=_DTYPES[g.get("dtype", "bf16")],
-               param_dtype=torch.float32, device=device, generator=generator)
+    return build(g, device=device, generator=generator,
+                 param_dtype=torch.float32)
 
 
 def main(argv=None, metrics_out: list | None = None) -> int:

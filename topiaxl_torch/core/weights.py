@@ -16,7 +16,8 @@ Layouts (inverse of the converter's rules):
 The maps are linear in the leaves, so any tree shaped like the
 parameters maps the same way: a gradient tree or an Adam moment tree
 (optax's ``mu`` / ``nu``) comes back under the port's parameter names.
-``dit_from_jax`` also takes the ``scan_blocks`` layout (``blocks.block.*``
+``dit_from_jax`` also takes ``DiTAdditivePosEmb``'s tree (its
+``point_emb.mlp`` Dense), the ``scan_blocks`` layout (``blocks.block.*``
 stacked on a leading depth axis, ``topiaxl/models/dit.py:502-530``) and
 the quantized tree of ``quantize_dit_params`` (``kernel_q`` int8 [in,
 out] and ``kernel_scale`` f32 [out] -> ``weight_q`` [out, in] and
@@ -105,6 +106,8 @@ def dit_from_jax(tree: Mapping) -> dict:
     _linear(sd, "t_embedder.mlp.2", p["t_embedder"]["fc2"])
     if "null_cond_embedding" in p:
         sd["null_cond_embedding"] = _t(p["null_cond_embedding"])
+    if "point_emb" in p:   # DiTAdditivePosEmb
+        _linear(sd, "point_emb.mlp", p["point_emb"]["mlp"])
     for i in range(_count(p, "blocks_")):
         b, q = f"blocks.{i}", p[f"blocks_{i}"]
         _linear(sd, f"{b}.adaLN_modulation.1", q["adaLN_modulation"])

@@ -1,1 +1,2 @@
-"""Image conditioners (DINOv2)."""
+"""Image conditioners (DINOv2, the render-then-encode wrapper, a
+passthrough)."""

@@ -1,10 +1,14 @@
-"""Image conditioner (counterpart of
-``topiaxl/models/conditioner/image.py:DinoV2Wrapper``).
+"""Image conditioners (counterparts of
+``topiaxl/models/conditioner/image.py``).
 
-Preprocessing as the reference: [0, 255] HWC -> /255 -> antialiased
-bicubic resize to the encoder's size -> CLIP-stat normalisation -> ViT
--> cat(cls, patch tokens) = [B, 1 + (518/14)^2, 768] = [B, 1370, 768]
-for ViT-B/14-reg.
+* ``DinoV2Wrapper``: preprocessing as the reference, [0, 255] HWC -> /255
+  -> antialiased bicubic resize to the encoder's size -> CLIP-stat
+  normalisation -> ViT -> cat(cls, patch tokens) = [B, 1 + (518/14)^2,
+  768] = [B, 1370, 768] for ViT-B/14-reg.
+* ``ImageConditioner``: holds the encoder; inference encodes the user's
+  image (``encode_image``). Its training path renders a PrimX batch
+  first, which needs the renderer (not ported yet).
+* ``DummyImageConditioner``: passes precomputed conditioning through.
 """
 
 from __future__ import annotations
@@ -42,3 +46,43 @@ class DinoV2Wrapper(torch.nn.Module):
         outs = self.vit((x - mean) / std)
         return torch.cat([outs["x_norm_clstoken"][:, None, :],
                           outs["x_norm_patchtokens"]], dim=1)
+
+
+class ImageConditioner(torch.nn.Module):
+    """Render-then-encode conditioner; at inference only ``encoder`` runs
+    (``encode_image``, also its ``forward``)."""
+
+    def __init__(self, encoder: torch.nn.Module):
+        super().__init__()
+        self.encoder = encoder
+
+    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
+        return self.encoder(image)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        return self.encode_image(image)
+
+    def render_batch(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ImageConditioner.render_batch needs the PrimX renderer "
+            "(render/raymarch.py), which is not ported yet (ROADMAP queue 1 "
+            "#5)")
+
+    def condition_from_primx(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ImageConditioner.condition_from_primx renders the PrimX batch "
+            "with the renderer (render/raymarch.py), which is not ported yet "
+            "(ROADMAP queue 1 #5)")
+
+
+class DummyImageConditioner(torch.nn.Module):
+    """Passthrough for precomputed conditioning."""
+
+    def __init__(self, **_):
+        super().__init__()
+
+    def encode_image(self, image):
+        return image
+
+    def forward(self, image):
+        return image

@@ -22,16 +22,26 @@ against K/V stacked as [cond; null].
 
 Training path: ``forward(x, t, y, drop)`` (``topiaxl/models/dit.py:
 424-453``) replaces the dropped samples' conditioning by the null
-embedding, then runs ``precompute_kv`` and ``forward_kv`` with
+embedding, then runs each block on its own cross-attention K/V with
 gradients; ``cond_drop_mask`` draws the mask from an explicit generator.
 Train with ``param_dtype=torch.float32`` (f32 master weights, bf16
-compute).
+compute). ``remat=True`` (the JAX package's ``remat=True``, the
+reference's ``gradient_checkpointing``) runs each block, its
+cross-attention K/V included, under ``torch.utils.checkpoint``: the
+backward recomputes it instead of keeping its activations.
+
+``DiTAdditivePosEmb`` adds a Fourier embedding of the prim centres
+(token channels 1:4, ``PointEmbed``) to the token embedding on every
+path (``topiaxl/models/dit.py:162-182,548-560``).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_ln import ln_modulate, ln_modulate_residual
 from ..ops.int8 import quantize_state_dict_like
@@ -111,6 +121,43 @@ class FinalLayer(nn.Module):
         return self.linear(x).float()
 
 
+class PointEmbed(nn.Module):
+    """Fourier embedding of points [B, N, 3] (f32): sin and cos of each
+    axis at ``hidden_dim / 6`` power-of-2 frequencies times pi, and the
+    raw xyz, through one Linear (``mlp``) to ``dim``."""
+
+    def __init__(self, hidden_dim: int = 48, dim: int = 128):
+        super().__init__()
+        if hidden_dim % 6:
+            raise ValueError(f"hidden_dim={hidden_dim} must be a multiple of 6")
+        self.hidden_dim = hidden_dim
+        self.mlp = linear(hidden_dim + 3, dim)
+
+    def basis(self, device) -> torch.Tensor:
+        """[3, hidden_dim / 2]: axis a's frequencies in columns a * f to
+        (a + 1) * f, f = hidden_dim / 6."""
+        f = self.hidden_dim // 6
+        e = 2.0 ** torch.arange(f, dtype=torch.float32, device=device) * math.pi
+        return torch.block_diag(e[None], e[None], e[None])
+
+    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+        proj = pts @ self.basis(pts.device)
+        return self.mlp(torch.cat([proj.sin(), proj.cos(), pts], dim=-1))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the reference keeps the frequencies as a buffer; a state_dict that
+        # carries them loads if they are these
+        given = state_dict.pop(prefix + "basis", None)
+        if given is not None and not torch.allclose(
+                given.float().cpu(), self.basis("cpu")):
+            raise ValueError(f"{prefix}basis is not PointEmbed's frequencies")
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def _block_with_kv(blk: DiTBlock, h, y, t_emb):
+    return blk(h, blk.cond_kv(y), t_emb)
+
+
 class DiT(nn.Module):
     """Flagship generator; keys follow the reference's DiT state_dict."""
 
@@ -119,12 +166,16 @@ class DiT(nn.Module):
                  depth: int = 28, num_heads: int = 16, mlp_ratio: float = 4.0,
                  cond_drop_prob: float = 0.0, attn_proj_bias: bool = True,
                  learn_sigma: bool = True, dtype=torch.bfloat16,
-                 param_dtype=None, quant: bool = False, device=None,
-                 generator: torch.Generator | None = None):
+                 param_dtype=None, quant: bool = False, remat: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         if quant and param_dtype not in (None, dtype):
             raise ValueError("quant serves W8A8: no master weights")
+        if not isinstance(remat, bool):
+            raise ValueError(f"remat={remat!r} is not ported: the port "
+                             f"recomputes whole blocks (remat=True) or none")
         self.quant = quant
+        self.remat = remat
         self.seq_length = seq_length
         self.in_channels = in_channels
         self.condition_channels = condition_channels
@@ -144,7 +195,12 @@ class DiT(nn.Module):
                                       param_dtype)
         self.null_cond_embedding = nn.Parameter(
             torch.empty(condition_channels, device="meta"))
+        self.add_token_modules()
         materialize_(self, device, generator, DiT.init_weights)
+
+    def add_token_modules(self) -> None:
+        """Modules that ``embed_tokens`` adds to the token embedding, built
+        before the weights are materialised; the plain DiT has none."""
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -173,10 +229,14 @@ class DiT(nn.Module):
 
     # ---- forward passes ---------------------------------------------------
 
+    def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N, C_in] tokens -> [B, N, D] in the compute dtype."""
+        return self.x_embedder(x.to(self.dtype))
+
     def forward_kv(self, x, t, kvs):
         """Denoise step against precomputed per-block K/V; x [B, N, C_in],
         t [B] -> [B, N, C_out] f32."""
-        h = self.x_embedder(x.to(self.dtype))
+        h = self.embed_tokens(x)
         t_emb = self.t_embedder(t)
         for blk, kv in zip(self.blocks, kvs):
             h = blk(h, kv, t_emb)
@@ -198,7 +258,24 @@ class DiT(nn.Module):
         if drop is not None:
             null = self.null_cond_embedding.to(y.dtype)[None, None, :]
             y = torch.where(drop.to(y.device)[:, None, None], null, y)
-        return self.forward_kv(x, t, self.precompute_kv(y))
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        h = self.embed_tokens(x)
+        t_emb = self.t_embedder(t)
+        for blk in self.blocks:
+            h = (checkpoint(_block_with_kv, blk, h, y, t_emb,
+                            use_reentrant=False)
+                 if remat else _block_with_kv(blk, h, y, t_emb))
+        return self.final_layer(h, t_emb)
+
+    def forward_with_cfg(self, x, t, y, cfg_scale: float):
+        """Classifier-free guidance by batch doubling: the conditioning
+        stacked on the null embedding broadcast to its shape
+        (``topiaxl/models/dit.py:455-468``)."""
+        null = self.null_cond_embedding.to(y.dtype)[None, None, :].expand_as(y)
+        out = self(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0),
+                   torch.cat([y, null], dim=0))
+        cond, uncond = out.chunk(2, dim=0)
+        return uncond + cfg_scale * (cond - uncond)
 
     def forward_with_cfg_kv(self, x, t, kvs_pair, cfg_scale: float):
         """Classifier-free guidance against precomputed K/V whose batch is
@@ -213,12 +290,24 @@ class DiT(nn.Module):
                               cfg_scale: float):
         """Classifier-free guidance: ``uncond + s * (cond - uncond)`` with
         cond-only K/V and the per-block null vectors."""
-        h = self.x_embedder(torch.cat([x, x], dim=0).to(self.dtype))
+        h = self.embed_tokens(torch.cat([x, x], dim=0))
         t_emb = self.t_embedder(torch.cat([t, t], dim=0))
         for blk, kv, no in zip(self.blocks, kvs_cond, null_outs):
             h = blk(h, kv, t_emb, null_out=no)
         cond, uncond = self.final_layer(h, t_emb).chunk(2, dim=0)
         return uncond + cfg_scale * (cond - uncond)
+
+
+class DiTAdditivePosEmb(DiT):
+    """DiT whose token embedding adds ``point_emb`` of the prim centres
+    (token channels 1:4), computed in f32 and cast to the compute dtype."""
+
+    def add_token_modules(self) -> None:
+        self.point_emb = PointEmbed(48, self.hidden_size)
+
+    def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        pts = x[:, :, 1:4].float()
+        return super().embed_tokens(x) + self.point_emb(pts).to(self.dtype)
 
 
 def quantize_dit_state_dict(qdit: DiT, float_sd) -> dict:

@@ -58,9 +58,11 @@ _SIGNATURES = {
     "topiaxl_ln_modulate": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _P],
     "topiaxl_ln_modulate_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _L, _L, _L, _F, _P],
-    # a, b, out; int8, ta, tb, coef, M, N, K, L, out_t; stream
-    # (csrc/mma_probe.cu)
-    "topiaxl_mma_probe": [_P, _P, _P] + [_I] * 9 + [_P],
+    # a, b, out, workspace; int8, ta, tb, coef, M, N, K, L, out_t, splits;
+    # stream (csrc/mma_probe.cu)
+    "topiaxl_mma_probe": [_P] * 4 + [_I] * 10 + [_P],
+    # int8, ta, tb, coef, N
+    "topiaxl_mma_probe_occupancy": [_I] * 5,
 }
 
 

@@ -1,0 +1,139 @@
+"""Factory registrations: a config's ``class_name`` -> the port's classes.
+
+The counterpart of the JAX package's ``topiaxl/registry.py``, under the
+same names: its ``topiaxl.*`` names and the reference's dotted class
+paths (the names are strings; nothing of the JAX package is imported).
+``core.config.build(cfg, device=..., generator=...)`` instantiates one;
+``device`` and ``generator`` reach the models' constructors (the
+generator fills their random init), and the DiT factories also take
+``param_dtype`` (f32 master weights for training).
+
+Keys as the JAX factories read them, with the same defaults;
+``gradient_checkpointing: true`` maps to the DiT's ``remat=True`` and
+``precision`` is dropped (``dtype`` sets the compute type). A registered
+name whose class the port does not have yet raises
+``NotImplementedError`` naming it and the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .core.config import build, register
+
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "fp32": torch.float32, "float32": torch.float32}
+
+
+def _dtype(kw: dict) -> torch.dtype:
+    name = kw.get("dtype", "bf16")
+    if name not in _DTYPES:
+        raise ValueError(f"dtype={name!r}: expected one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _dit_kwargs(kw: dict) -> dict:
+    """The DiT's constructor arguments from a ``model.generator`` node
+    (``topiaxl/registry.py:make_dit``)."""
+    kw = dict(kw)
+    if kw.pop("gradient_checkpointing", False):
+        kw.setdefault("remat", True)
+    kw.pop("precision", None)
+    if kw.get("scan_blocks", False):
+        raise ValueError("model.generator.scan_blocks is not ported: the port "
+                         "runs the unrolled blocks")
+    remat = kw.get("remat", False)
+    return dict(seq_length=kw.get("seq_length", 2048),
+                in_channels=kw.get("in_channels", 68),
+                condition_channels=kw.get("condition_channels", 768),
+                hidden_size=kw.get("hidden_size", 1152),
+                depth=kw.get("depth", 28), num_heads=kw.get("num_heads", 16),
+                mlp_ratio=kw.get("mlp_ratio", 4.0),
+                cond_drop_prob=kw.get("cond_drop_prob", 0.0),
+                attn_proj_bias=kw.get("attn_proj_bias", False),
+                learn_sigma=kw.get("learn_sigma", True), dtype=_dtype(kw),
+                remat=remat if isinstance(remat, str) else bool(remat),
+                quant=bool(kw.get("quant", False)))
+
+
+@register("topiaxl.DiT", "models.dit_crossattn.DiT")
+def make_dit(device=None, generator=None, param_dtype=None, **kw):
+    from .models.dit import DiT
+
+    return DiT(**_dit_kwargs(kw), param_dtype=param_dtype, device=device,
+               generator=generator)
+
+
+@register("topiaxl.DiTAdditivePosEmb", "models.dit_crossattn.DiTAdditivePosEmb")
+def make_dit_additive(device=None, generator=None, param_dtype=None, **kw):
+    from .models.dit import DiTAdditivePosEmb
+
+    return DiTAdditivePosEmb(**_dit_kwargs(kw), param_dtype=param_dtype,
+                             device=device, generator=generator)
+
+
+@register("topiaxl.VAE3D", "models.vae3d_dib.VAE")
+def make_vae(device=None, generator=None, **kw):
+    from .models.vae3d import VAE3D
+
+    kw.pop("gradient_checkpointing", None)
+    return VAE3D(in_channels=kw.get("in_channels", 6),
+                 latent_channels=kw.get("latent_channels", 1),
+                 out_channels=kw.get("out_channels", 6),
+                 down_channels=tuple(kw.get("down_channels", (32, 256))),
+                 mid_attention=kw.get("mid_attention", True),
+                 up_channels=tuple(kw.get("up_channels", (256, 32))),
+                 layers_per_block=kw.get("layers_per_block", 2),
+                 dtype=_dtype(kw), device=device, generator=generator)
+
+
+@register("topiaxl.DinoV2Wrapper",
+          "models.conditioner.image_dinov2.Dinov2Wrapper")
+def make_dinov2(device=None, generator=None, **kw):
+    from .models.conditioner.image import DinoV2Wrapper
+
+    return DinoV2Wrapper(model_name=kw.get("model_name", "dinov2_vitb14_reg"),
+                         dtype=_dtype(kw), device=device, generator=generator)
+
+
+@register("topiaxl.ImageConditioner",
+          "models.conditioner.image.ImageConditioner")
+def make_image_conditioner(device=None, generator=None, **kw):
+    from .models.conditioner.image import DinoV2Wrapper, ImageConditioner
+
+    enc = kw.get("encoder_config")
+    encoder = (build(enc, device=device, generator=generator) if enc
+               else DinoV2Wrapper(device=device, generator=generator))
+    # num_prims, dim_feat, prim_shape, sample_view and the image size are
+    # the renderer's, which is not ported yet: accepted and left unread
+    return ImageConditioner(encoder)
+
+
+@register("topiaxl.DummyImageConditioner",
+          "models.conditioner.image.DummyImageConditioner")
+def make_dummy_conditioner(device=None, generator=None, **kw):
+    from .models.conditioner.image import DummyImageConditioner
+
+    return DummyImageConditioner(**kw)
+
+
+def _not_ported(names: tuple, item: str) -> None:
+    def make(device=None, generator=None, **kw):
+        raise NotImplementedError(
+            f"{names[0]} is not ported to topiaxl_torch yet (ROADMAP queue 1 "
+            f"{item})")
+
+    register(*names)(make)
+
+
+_not_ported(("topiaxl.PrimX", "models.primsdf.PrimSDF"),
+            "#7, with pipelines/fit.py")
+_not_ported(("topiaxl.ImageMultiViewConditioner",
+             "models.conditioner.image.ImageMultiViewConditioner"),
+            "#8, after the renderer")
+_not_ported(("topiaxl.TextConditioner",
+             "models.conditioner.text.TextConditioner"), "#8")
+_not_ported(("topiaxl.CLIPImageEncoder",
+             "models.conditioner.image.CLIPImageEncoder"), "#8")
+_not_ported(("topiaxl.CLIPTextEncoder",
+             "models.conditioner.text.CLIPTextEncoder"), "#8")
