@@ -60,6 +60,28 @@ the script exits non-zero without a result line):
     and a control step whose attention backward leaves out delta, which
     must fail the bars.
 
+The serving phases (6-9) also check each image's ``recon.jpg`` (the
+renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
+seconds. After stage 2 come four phases of the renderer, U^2-Net and
+multi-asset serving (plain PyTorch; they launch no counted kernel of
+their own):
+
+- render: ``visualize_primvolume`` of the 2048-prim sphere at 518², its
+  alpha silhouette against the sphere's projected disc, the pair's ms and
+  peak memory; ``render_primx`` on the card against the CPU at 64² with a
+  planted fault (no border fade); one orbit video (``view_counts=3``),
+  its files and ms per frame.
+- matting: the CLI on one image with ``inference.matting=u2net`` and a
+  randomised full ``u2net`` ``.pth`` (same launches as serving), and the
+  network on the card against the CPU at 320², with its ms.
+- conditioner_render: ``condition_from_primx`` on two sphere assets at
+  518² through the flagship DINOv2 (12 flash launches), and the registry's
+  ``topiaxl.ImageMultiViewConditioner`` with two views.
+- serve_assets: four DINOv2-encoded images through the flagship DiT and
+  VAE, stage 2 on the sphere asset (mc 256, decimate 100k, texture 1024,
+  box unwrap), serially, pipelined and batched two at a time: assets per
+  minute each, the exact launches of every chain, every GLB on the sphere.
+
 Phase 3 also holds the forward's output and lse, the three backward
 kernels and the LN kernels against their plain versions at the training
 shapes (batch 8 for the flagship, 4096 prims at batch 2), with planted
@@ -166,6 +188,26 @@ LSE_ABS_BAR = 1e-4
 # backward with the padded keys unmasked for dv (the padded keys' share
 # of the softmax mass, ~2.2e-2 to 2.9e-2 at these shapes).
 ATTN_BWD_REL_BAR = 1.2e-2
+
+# render: the 2048-prim sphere at 518² (focal 1054.7 px, principal point
+# 259): its projected disc has radius f r / sqrt(d^2 - r^2) = 116.7 px. The
+# opaque pixels (alpha > 0.5) have the disc's area to within
+# RENDER_AREA_PX of radius; none lies beyond the disc by more than
+# RENDER_EDGE_PX (the prims' payload reaches 0.07 past the surface, ~1/3
+# voxel of alpha blur) and RENDER_FILL of the pixels inside the disc less
+# RENDER_EDGE_PX are opaque (a few rays miss the sparse alpha shell).
+RENDER_AREA_PX = 3.0
+RENDER_EDGE_PX = 8.0
+RENDER_FILL = 0.97
+# render_primx card vs CPU (f32 both, 64²): rgb max |card - cpu| / max
+# |cpu rgb|, alpha max |card - cpu|; the march without its border fade must
+# land above one of them
+RENDER_RGB_REL = 1e-3
+RENDER_ALPHA_ABS = 1e-4
+# U^2-Net card vs CPU (f32 both, TF32 off, 320²): max |card - cpu| over the
+# CPU saliency's spread (max - min); upsampling with aligned corners (a
+# planted fault) must land above it
+U2NET_REL_BAR = 1e-3
 
 # the card's peaks for the bounds (H100 SXM data sheet: dense bf16 on the
 # tensor cores, f32 outside them, HBM3)
@@ -911,9 +953,12 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
             expected: dict) -> tuple[dict, list]:
     """``cli.infer.main`` at the flagship config on ``images`` synthetic
     images (no GLB export), the counters zeroed just before; checks each
-    image's launches against ``expected`` and its denoised PrimX (finite,
-    shaped). Returns the run's total launches and one record per image
-    (stage seconds, launches)."""
+    image's launches against ``expected``, its denoised PrimX (finite,
+    shaped) and its ``recon.jpg`` (decodes at 518 x 1036). Returns the
+    run's total launches and one record per image (stage seconds,
+    launches)."""
+    import cv2
+
     from topiaxl_torch.cli.infer import main
     from topiaxl_torch.ops import _cuda
 
@@ -938,13 +983,17 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
         per = {k: rec["launches"][k] - prev[k] for k in total}
         prev = rec["launches"]
         log(f"  [{tag}] {rec['image']}: encode {rec['encode_s']:.3f} s, "
-            f"stage1 {rec['stage1_s']:.3f} s, stage2 {rec['stage2_s']:.3f} s; "
-            f"launches {per}")
+            f"stage1 {rec['stage1_s']:.3f} s, recon {rec['recon_s']:.3f} s, "
+            f"stage2 {rec['stage2_s']:.3f} s; launches {per}")
         if per != expected:
             raise AssertionError(f"{tag}: launches {per} != {expected}")
-        z = np.load(os.path.join(root, "inference", "topiaxl-sview",
-                                 "inference_folder", rec["image"],
-                                 "denoised.npz"))
+        out = os.path.join(root, "inference", "topiaxl-sview",
+                           "inference_folder", rec["image"])
+        recon = cv2.imread(os.path.join(out, "recon.jpg"))
+        if recon is None or recon.shape != (518, 1036, 3):
+            raise AssertionError(f"{tag}: recon.jpg is "
+                                 f"{None if recon is None else recon.shape}")
+        z = np.load(os.path.join(out, "denoised.npz"))
         if z["srt"].shape != (2048, 4) or z["feat"].shape != (2048, 3072):
             raise AssertionError(f"denoised shapes {z['srt'].shape} "
                                  f"{z['feat'].shape}")
@@ -993,20 +1042,12 @@ def phase_serving_samplers(tmp: str) -> None:
         run_cli(tmp, tag, 1, overrides, serving_launches(steps))
 
 
-def phase_stage2(tmp: str):
-    import torch
-
+def check_sphere_glb(glb: str) -> str:
+    """The GLB parses, has faces and its vertices lie within two voxels (of
+    the mc 256 lattice) of the sphere; returns a summary."""
     from topiaxl_torch.extract.glb import read_glb
-    from topiaxl_torch.pipelines.infer import extract_glb
-    from topiaxl_torch.pipelines.synthetic import SPHERE_R, sphere_asset
+    from topiaxl_torch.pipelines.synthetic import SPHERE_R
 
-    params = sphere_asset(torch.device("cuda"))
-    tm: dict = {}
-    t0 = time.perf_counter()
-    glb = extract_glb(params, os.path.join(tmp, "sphere"), mc_resolution=256,
-                      decimate=100000, texture_size=1024, batch_size=32768,
-                      pos_scale=1.0, timings_out=tm)
-    log(f"  extract_glb {time.perf_counter() - t0:.3f} s: {json.dumps(tm)}")
     gltf, blob = read_glb(glb)
     prim = gltf["meshes"][0]["primitives"][0]
     n_faces = gltf["accessors"][prim["indices"]]["count"] // 3
@@ -1016,12 +1057,398 @@ def phase_stage2(tmp: str):
                           view.get("byteOffset", 0)).reshape(-1, 3)
     dev = np.abs(np.linalg.norm(verts, axis=1) - SPHERE_R)
     voxel = 2.0 / (256 - 1)
-    log(f"  GLB: {n_faces} faces, {len(verts)} vertices, max |r - {SPHERE_R}| "
-        f"{dev.max():.3e} = {dev.max() / voxel:.3f} voxels")
     if n_faces <= 0:
-        raise AssertionError("GLB has no faces")
+        raise AssertionError(f"{glb}: no faces")
     if not dev.max() <= 2 * voxel:
-        raise AssertionError(f"vertices off the sphere by {dev.max() / voxel} voxels")
+        raise AssertionError(f"{glb}: vertices off the sphere by "
+                             f"{dev.max() / voxel} voxels")
+    return (f"{n_faces} faces, {len(verts)} vertices, max |r - {SPHERE_R}| "
+            f"{dev.max():.3e} = {dev.max() / voxel:.3f} voxels")
+
+
+def phase_stage2(tmp: str):
+    import torch
+
+    from topiaxl_torch.pipelines.infer import extract_glb
+    from topiaxl_torch.pipelines.synthetic import sphere_asset
+
+    params = sphere_asset(torch.device("cuda"))
+    tm: dict = {}
+    t0 = time.perf_counter()
+    glb = extract_glb(params, os.path.join(tmp, "sphere"), mc_resolution=256,
+                      decimate=100000, texture_size=1024, batch_size=32768,
+                      pos_scale=1.0, timings_out=tm)
+    log(f"  extract_glb {time.perf_counter() - t0:.3f} s: {json.dumps(tm)}")
+    log(f"  GLB: {check_sphere_glb(glb)}")
+
+
+def events_ms(fn, iters: int) -> float:
+    """Mean ms of ``iters`` calls of ``fn`` between two CUDA events, after
+    a warm-up call (for work a CUDA graph cannot hold: host syncs, cuDNN)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def phase_render(tmp: str) -> None:
+    """The renderer on the 2048-prim sphere: the recon pair at 518² (time,
+    peak memory, silhouette), ``render_primx`` card vs CPU at 64² with a
+    planted fault, and a three-view orbit video."""
+    import cv2
+    import torch
+
+    from topiaxl_torch.models.primx import PrimXParams
+    from topiaxl_torch.pipelines.synthetic import SPHERE_R, sphere_asset
+    from topiaxl_torch.render import (colored_box_payload, compute_rays,
+                                      frontal_camera, raymarch, render_primx)
+    from topiaxl_torch.render.camera import REF_FOCAL_1024
+    from topiaxl_torch.render.visualize import (primx_to_payload,
+                                                visualize_primvolume,
+                                                visualize_video_primvolume)
+
+    dev = torch.device("cuda")
+    asset = sphere_asset(dev)
+    out = os.path.join(tmp, "render")
+    os.makedirs(out)
+    H = 518
+    path = os.path.join(out, "recon.jpg")
+    visualize_primvolume(path, asset, H, H)            # warm-up
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rgb, _ = visualize_primvolume(path, asset, H, H)
+    recon_ms = (time.perf_counter() - t0) / 3 * 1e3
+    img = cv2.imread(path)
+    if img is None or img.shape != (H, 2 * H, 3):
+        raise AssertionError(f"recon.jpg is {None if img is None else img.shape}")
+
+    # the pair alone, as visualize_primvolume renders it, and its memory
+    cam = frontal_camera(H, H, device=dev)
+    boxes = colored_box_payload(asset.srt.shape[0], 8, device=dev)
+    with torch.inference_mode():
+        def pair():
+            render_primx(asset.srt, asset.feat, cam, num_steps=128, max_hits=8)
+            render_primx(asset.srt, asset.feat, cam, num_steps=128, max_hits=8,
+                         payload=boxes)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pair_ms = events_ms(pair, 3)
+        peak = torch.cuda.max_memory_allocated() - base
+
+    # silhouette: the opaque pixels against the sphere's projected disc
+    focal = REF_FOCAL_1024 * H / 1024
+    r_disc = focal * SPHERE_R / np.sqrt(25.0 - SPHERE_R ** 2)
+    c = 512.0 * H / 1024
+    yy, xx = np.mgrid[0:H, 0:H]
+    d = np.hypot(xx - c, yy - c)
+    opaque = rgb[..., 3] > 0.5
+    r_area = np.sqrt(opaque.sum() / np.pi)
+    beyond = float(d[opaque].max() - r_disc)
+    fill = float(opaque[d < r_disc - RENDER_EDGE_PX].mean())
+    log(f"  recon.jpg of the 2048-prim sphere at {H}²: {recon_ms:.3f} ms "
+        f"(visualize_primvolume: pair, copy back, JPEG); the pair on the card "
+        f"{pair_ms:.3f} ms (CUDA events), peak memory {peak / 2 ** 20:.1f} MiB "
+        f"above the {base / 2 ** 20:.1f} MiB held before (chunk 32768 rays); "
+        f"silhouette: area radius {r_area:.2f} px against the disc's "
+        f"{r_disc:.2f} (bar {RENDER_AREA_PX}), farthest opaque pixel "
+        f"{beyond:+.2f} px past it (bar {RENDER_EDGE_PX}), {fill:.4f} of the "
+        f"disc less {RENDER_EDGE_PX} px opaque (bar {RENDER_FILL})")
+    if not (abs(r_area - r_disc) <= RENDER_AREA_PX and beyond <= RENDER_EDGE_PX
+            and fill >= RENDER_FILL):
+        raise AssertionError("the sphere's silhouette is not its disc")
+
+    # render_primx, card against CPU at 64², and the march without its fade
+    cpu = PrimXParams(asset.srt.cpu(), asset.feat.cpu())
+    with torch.inference_mode():
+        got = render_primx(asset.srt, asset.feat, frontal_camera(64, 64, device=dev),
+                           num_steps=128, max_hits=8).cpu()
+        ref = render_primx(cpu.srt, cpu.feat, frontal_camera(64, 64, device="cpu"),
+                           num_steps=128, max_hits=8)
+        rp, rd, tm = (t.reshape(-1, t.shape[-1]) for t in
+                      compute_rays(frontal_camera(64, 64, device=dev)))
+        no_fade = raymarch(primx_to_payload(asset.srt, asset.feat), asset.srt[:, 1:4],
+                           1.0 / asset.srt[:, 0], rp, rd, tm, num_steps=128,
+                           max_hits=8, fadescale=0.0).reshape(64, 64, 4).cpu()
+
+    def readings(img):
+        return ((img[..., :3] - ref[..., :3]).abs().max().item()
+                / ref[..., :3].abs().max().item(),
+                (img[..., 3] - ref[..., 3]).abs().max().item())
+
+    sound, fault = readings(got), readings(no_fade)
+    log(f"  render_primx card vs CPU at 64²: rgb max rel err {sound[0]:.3e} "
+        f"(bar {RENDER_RGB_REL}), alpha max abs err {sound[1]:.3e} (bar "
+        f"{RENDER_ALPHA_ABS}); planted fault (no border fade) rgb "
+        f"{fault[0]:.3e}, alpha {fault[1]:.3e}")
+    if not (sound[0] <= RENDER_RGB_REL and sound[1] <= RENDER_ALPHA_ABS):
+        raise AssertionError(f"render_primx card vs CPU: {sound}")
+    if fault[0] <= RENDER_RGB_REL and fault[1] <= RENDER_ALPHA_ABS:
+        raise AssertionError(f"the render bars cannot see a missing fade: {fault}")
+
+    # one orbit video: 4 frames of rgb, prim boxes and materials
+    video = os.path.join(out, "video")
+    t0 = time.perf_counter()
+    branches = visualize_video_primvolume(video, asset, view_counts=3,
+                                          height=H, width=H)
+    frame_ms = (time.perf_counter() - t0) / 4 * 1e3
+    for name, branch in sorted(branches.items()):
+        files = ([os.path.join(video, f"{name}.mp4")] if branch == "mp4" else
+                 [os.path.join(video, name, f"{i:04d}.jpg") for i in range(4)])
+        for f in files:
+            if branch == "jpg":
+                fr = cv2.imread(f)
+                if fr is None or fr.shape != (H, H, 3):
+                    raise AssertionError(f"{f}: {None if fr is None else fr.shape}")
+            elif not os.path.getsize(f) > 0:
+                raise AssertionError(f"{f} is empty")
+    if sorted(branches) != ["mat", "prim", "rgb"]:
+        raise AssertionError(f"video wrote {branches}")
+    log(f"  orbit video, view_counts=3 at {H}²: {frame_ms:.3f} ms per frame "
+        f"(rgb, prim and mat renders), written as {branches}")
+
+
+def randomized_u2net(arch: str, seed: int):
+    """A U^2-Net with every parameter and BatchNorm statistic from a numpy
+    seed (weights N(0, 0.1), running variances in [0.5, 1.5]), eval mode."""
+    import torch
+
+    from topiaxl_torch.models.matting_u2net import U2Net
+
+    model = U2Net(arch)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            r = rng.standard_normal(tuple(t.shape)).astype(np.float32) * 0.1
+            if name.endswith("running_var"):
+                r = rng.uniform(0.5, 1.5, t.shape).astype(np.float32)
+            t.copy_(torch.from_numpy(r))
+    return model.eval()
+
+
+def phase_matting(tmp: str) -> None:
+    """The CLI mattes with a U^2-Net ``.pth`` (full ``u2net``, random), with
+    serving's launches; the network on the card against the CPU at 320²."""
+    import torch
+    import torch.nn.functional as F
+
+    from topiaxl_torch.models import matting_u2net
+
+    model = randomized_u2net("u2net", seed=12)
+    pth = os.path.join(tmp, "u2net.pth")
+    torch.save(model.state_dict(), pth)
+    run_cli(tmp, "u2net", 1, ["inference.matting=u2net",
+                              f"inference.u2net_checkpoint={pth}"],
+            EXPECTED_LAUNCHES)
+
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (1, 3, 320, 320)).astype(np.float32))
+    card = randomized_u2net("u2net", seed=12).cuda()
+    xc = x.cuda()
+    with torch.inference_mode():
+        ref = model(x)
+        got = card(xc).cpu()
+        sound_up = matting_u2net._up_to
+        matting_u2net._up_to = lambda a, like: (
+            a if a.shape[2:] == like.shape[2:] else F.interpolate(
+                a, size=like.shape[2:], mode="bilinear", align_corners=True))
+        try:
+            fault = card(xc).cpu()
+        finally:
+            matting_u2net._up_to = sound_up
+        ms = events_ms(lambda: card(xc), 10)
+    spread = (ref.max() - ref.min()).item()
+    rel = (got - ref).abs().max().item() / spread
+    fault_rel = (fault - ref).abs().max().item() / spread
+    log(f"  U^2-Net (u2net, f32) at 320²: card {ms:.3f} ms (CUDA events, "
+        f"cuDNN, TF32 off); card vs CPU max |err| / spread {rel:.3e} (spread "
+        f"{spread:.3e}, bar {U2NET_REL_BAR}); planted fault (aligned-corner "
+        f"upsampling) {fault_rel:.3e}")
+    if not rel <= U2NET_REL_BAR:
+        raise AssertionError(f"U^2-Net card vs CPU: {rel} > {U2NET_REL_BAR}")
+    if not fault_rel > U2NET_REL_BAR:
+        raise AssertionError(f"the U^2-Net bar cannot see its fault ({fault_rel})")
+
+
+def phase_conditioner_render() -> None:
+    """``condition_from_primx`` on two sphere assets through the flagship
+    DINOv2 (random, bf16): [2, 1370, 768] finite tokens and 12 flash
+    launches; then the registry's multi-view conditioner with two views:
+    [2, 2740, 768] and 24."""
+    import torch
+
+    from topiaxl_torch import registry  # noqa: F401  (fills the table)
+    from topiaxl_torch.core.attrdict import AttrDict
+    from topiaxl_torch.core.config import build, load_config
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.pipelines.synthetic import sphere_asset
+
+    dev = torch.device("cuda")
+    node = load_config(FLAGSHIP).model.conditioner
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a, b = sphere_asset(dev, seed=0), sphere_asset(dev, seed=1)
+    srt, feat = torch.stack([a.srt, b.srt]), torch.stack([a.feat, b.feat])
+    for tag, cls, views in (("frontal", "topiaxl.ImageConditioner", 1),
+                            ("multi-view", "topiaxl.ImageMultiViewConditioner",
+                             2)):
+        cond = build(AttrDict(dict(node, class_name=cls, view_counts=views)),
+                     device=dev, generator=gen).eval()
+        with torch.inference_mode():
+            cond.condition_from_primx(srt, feat)      # warm-up
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            tokens = cond.condition_from_primx(srt, feat)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _cuda.launches.items() if v}
+        log(f"  {cls} ({tag}, {views} view(s)) on two 2048-prim assets at "
+            f"518²: tokens {list(tokens.shape)}, {ms:.3f} ms, launches "
+            f"{launches}")
+        want = {"flash_attn_fwd": 12 * views}
+        if tuple(tokens.shape) != (2, 1370 * views, 768) or launches != want:
+            raise AssertionError(f"{cls}: {tuple(tokens.shape)}, {launches}")
+        if not torch.isfinite(tokens).all():
+            raise AssertionError(f"{cls}: tokens are not finite")
+        del cond
+
+
+def phase_serve_assets(tmp: str) -> None:
+    """Four DINOv2-encoded synthetic images through the flagship DiT and
+    VAE, serially (``generate_primx`` then ``extract_glb`` per asset),
+    pipelined (``serve_assets``, ``stage1_batch=1``) and batched
+    (``stage1_batch=2``), in one process. Random weights give degenerate
+    fields, so here (and only here) the extractor ``serve_assets`` calls
+    runs the real ``extract_glb`` on the sphere asset. Assets per minute
+    of each way; every chain's launches exact; every GLB on the sphere."""
+    import torch
+
+    from topiaxl_torch.cli.infer import build_models, prepare_image
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.diffusion import create_diffusion
+    from topiaxl_torch.models.latent_stats import resolve_latent_stats
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.pipelines import infer as P
+    from topiaxl_torch.pipelines.synthetic import sphere_asset
+
+    dev = torch.device("cuda")
+    cfg = load_config(FLAGSHIP)
+    dit, vae, cond = build_models(cfg, dev, torch.Generator(dev).manual_seed(4))
+    diffusion = create_diffusion(
+        timestep_respacing=f"ddim{cfg.inference.ddim}",
+        noise_schedule=cfg.diffusion.noise_schedule,
+        diffusion_steps=cfg.diffusion.diffusion_steps,
+        parameterization=cfg.diffusion.parameterization, device=dev)
+    mean, std = resolve_latent_stats(cfg.model)
+    img_dir = write_images(tmp, 4)
+    ys = []
+    with torch.inference_mode():
+        for name in sorted(os.listdir(img_dir)):
+            image = prepare_image(os.path.join(img_dir, name))
+            ys.append(cond.encode_image(torch.from_numpy(image[None]).to(dev)))
+    del cond
+    sphere = sphere_asset(dev)
+    extract_kw = dict(mc_resolution=256, decimate=100000, texture_size=1024,
+                      batch_size=32768, fast_unwrap=True, pos_scale=1.0)
+    chain_kw = dict(cfg_scale=float(cfg.inference.cfg))
+    want = dict(serving_launches(cfg.inference.ddim),
+                flash_attn_fwd=serving_launches(cfg.inference.ddim)[
+                    "flash_attn_fwd"] - 12)          # no DINOv2 here
+
+    real_extract, real_generate = P.extract_glb, P.generate_primx
+    chains = []
+    # the timeline of a way: each chain and extraction on its thread, with
+    # wall and thread CPU seconds; a chain's end on the card from an event
+    spans = []
+    origin = {}
+
+    def on_sphere(params, output_dir, **kw):
+        tm, s, c = {}, time.perf_counter(), time.thread_time()
+        out = real_extract(sphere, output_dir, timings_out=tm, **kw)
+        spans.append((f"extract {os.path.basename(output_dir)}", s,
+                      time.perf_counter(), time.thread_time() - c, tm))
+        return out
+
+    def counted(*args, **kw):
+        before = dict(_cuda.launches)
+        s, c = time.perf_counter(), time.thread_time()
+        out = real_generate(*args, **kw)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record()
+        spans.append(("chain", s, time.perf_counter(),
+                      time.thread_time() - c, done))
+        chains.append({k: _cuda.launches[k] - before[k] for k in before})
+        return out
+
+    def timeline():
+        rows = []
+        for what, s, e, cpu, extra in sorted(spans, key=lambda r: r[1]):
+            s, e = s - origin["t"], e - origin["t"]
+            if what == "chain":
+                detail = (f"its last kernel done at "
+                          f"{origin['ev'].elapsed_time(extra) / 1e3:.3f} s")
+            else:
+                detail = ", ".join(
+                    f"{k} {v}" for k, v in extra.items()
+                    if k in ("sdf_grid", "clean_mesh", "decimate", "uv_unwrap",
+                             "bake_queries", "inpaint", "write_glb"))
+                detail += (f" (sdf_grid's coarse query "
+                           f"{extra['sdf_grid_phases']['coarse_query']}, "
+                           f"refine {extra['sdf_grid_phases']['refine_query']})")
+            rows.append(f"    {what}: {s:.3f}-{e:.3f} s wall, {cpu:.3f} s "
+                        f"thread CPU; {detail}")
+        return "\n".join(rows)
+
+    rates = {}
+    P.extract_glb, P.generate_primx = on_sphere, counted
+    try:
+        for way, batch in (("serial", None), ("pipelined", 1), ("batched", 2)):
+            dirs = [os.path.join(tmp, "serve", way, f"a{i}") for i in range(4)]
+            gen = torch.Generator(dev).manual_seed(5)
+            chains.clear()
+            spans.clear()
+            torch.cuda.synchronize()
+            origin["ev"] = torch.cuda.Event(enable_timing=True)
+            origin["ev"].record()
+            t0 = origin["t"] = time.perf_counter()
+            if batch is None:
+                glbs = []
+                for y, d in zip(ys, dirs):
+                    p = P.generate_primx(dit, vae, diffusion, y, mean, std,
+                                         generator=gen, **chain_kw)
+                    glbs.append(P.extract_glb(p, d, **extract_kw))
+            else:
+                glbs = P.serve_assets(dit, vae, diffusion, ys, dirs, mean, std,
+                                      stage1_batch=batch, generator=gen,
+                                      **chain_kw, **extract_kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            rates[way] = 4 / sec * 60
+            summary = [check_sphere_glb(g) for g in glbs]
+            log(f"  {way}: 4 assets in {sec:.3f} s = {rates[way]:.3f} assets/min"
+                f" ({len(chains)} chains); GLB 0: {summary[0]}\n{timeline()}")
+            if len(chains) != (4 if batch is None else -(-4 // batch)):
+                raise AssertionError(f"{way}: {len(chains)} chains")
+            for n, got in enumerate(chains):
+                if got != want:
+                    raise AssertionError(f"{way} chain {n}: launches {got} != "
+                                         f"{want}")
+    finally:
+        P.extract_glb, P.generate_primx = real_extract, real_generate
+    log(f"  launches per chain (any batch) {want}; assets/min serial "
+        f"{rates['serial']:.3f}, pipelined {rates['pipelined']:.3f}, batched "
+        f"{rates['batched']:.3f}")
 
 
 def phase_dit(quant: bool = False):
@@ -1319,6 +1746,14 @@ def main() -> int:
             phase_serving_samplers(tmp)
         with Phase("stage2"):
             phase_stage2(tmp)
+        with Phase("render"):
+            phase_render(tmp)
+        with Phase("matting"):
+            phase_matting(tmp)
+        with Phase("conditioner_render"):
+            phase_conditioner_render()
+        with Phase("serve_assets"):
+            phase_serve_assets(tmp)
     with Phase("dit"):
         phase_dit()
     with Phase("dit_int8"):

@@ -49,6 +49,9 @@ def test_port_imports_without_jax():
         import topiaxl_torch.ops.int8
         import topiaxl_torch.benchmarks.microbench_int8
         import topiaxl_torch.benchmarks.exp_dot_forms
+        import topiaxl_torch.render
+        import topiaxl_torch.render.geom
+        import topiaxl_torch.models.matting_u2net
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
         assert not bad, bad
         print("ok")

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_models import randomize_, tiny_dit
+from test_torch_models import randomize_, tiny_dit, torch_threads  # noqa: F401
 from test_torch_pipeline import _tiny_config
 from topiaxl.ops import int8 as jint8
 from topiaxl_torch.core import weights

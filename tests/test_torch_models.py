@@ -14,6 +14,20 @@ import torch
 from topiaxl.core import convert
 from topiaxl_torch.core import weights
 
+# torch's CPU threads while a port test module runs (the modules that run
+# torch import ``torch_threads``). Tier 1 runs six pytest workers on one
+# host: at torch's default of one thread per core in each, their OpenMP
+# teams oversubscribe the cores and every torch test slows several-fold.
+TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(n)
+
 
 def randomize_(model: torch.nn.Module, seed: int = 0) -> dict:
     """Fill every parameter from numpy: norm/LayerScale gains 1 + N(0, .1),

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_models import torch_threads  # noqa: F401
 from topiaxl.ops.attention import multi_head_attention as jax_mha
 from topiaxl.ops.flash_attention import flash_attention as jax_flash
 from topiaxl.ops.fused_ln import ln_modulate as jax_ln

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 import reference_runtime as rr
-from test_torch_models import tiny_dit, tiny_vae
+from test_torch_models import tiny_dit, tiny_vae, torch_threads  # noqa: F401
 from topiaxl.models import primx as jprimx
 from topiaxl.models.latent_stats import get_latent_stats
 from topiaxl_torch.models.primx import PrimXParams
@@ -209,6 +209,8 @@ def _tiny_config(tmp_path, img_dir):
         root_data_dir: {tmp_path}/runs
         checkpoint_path: null
         global_seed: 0
+        image_height: 32
+        image_width: 32
         inference:
           device: cpu
           input_dir: {img_dir}
@@ -288,8 +290,35 @@ def test_cli_writes_glb(tmp_path):
     assert gltf["accessors"][gltf["meshes"][0]["primitives"][0]["indices"]][
         "count"] > 0
     assert os.path.exists(out / "texture.jpg")
+    # the frontal rgb | prim-box snapshot at image_height x 2 image_width
+    assert cv2.imread(str(out / "recon.jpg")).shape == (32, 64, 3)
     assert [sorted(r) for r in timings] == [
-        ["encode_s", "image", "stage1_s", "stage2_s"]]
+        ["encode_s", "image", "recon_s", "stage1_s", "stage2_s"]]
+
+
+def test_cli_debug_writes_the_orbit_videos(tmp_path):
+    """``debug=true``: beside recon.jpg, the 61-frame orbit of rgb, prim
+    boxes and materials (mp4, or frame JPEGs where no mp4 writer is
+    installed), at image_height x image_width."""
+    import cv2
+
+    from topiaxl_torch.cli.infer import main
+
+    img_dir = tmp_path / "imgs"
+    os.makedirs(img_dir)
+    img = np.zeros((64, 64, 3), np.uint8)
+    cv2.circle(img, (32, 32), 20, (200, 180, 160), -1)
+    cv2.imwrite(str(img_dir / "blob.png"), img)
+    assert main([str(_tiny_config(tmp_path, img_dir)), "debug=true",
+                 "inference.export_glb=false"]) == 0
+    out = tmp_path / "runs" / "tiny" / "inference_folder" / "blob"
+    assert cv2.imread(str(out / "recon.jpg")).shape == (32, 64, 3)
+    for name in ("rgb", "prim", "mat"):
+        if (out / f"{name}.mp4").exists():
+            continue
+        frames = sorted(os.listdir(out / name))
+        assert frames == [f"{i:04d}.jpg" for i in range(61)], name
+        assert cv2.imread(str(out / name / frames[-1])).shape == (32, 32, 3)
 
 
 def test_cli_without_config_prints_usage(capsys):

@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from test_torch_models import torch_threads  # noqa: F401
 from topiaxl_torch.benchmarks import exp_dot_forms as edf
 from topiaxl_torch.benchmarks import microbench_int8 as mbi
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from test_torch_int8 import rel_rms
+from test_torch_models import torch_threads  # noqa: F401
 from test_torch_pipeline import _tiny_config
 from topiaxl_torch.core import weights
 
@@ -189,7 +190,7 @@ def test_registry_has_the_jax_package_names():
     assert "topiaxl.DiTAdditivePosEmb" in jax_names
     assert jax_names <= set(registry_names())
     for name in ("topiaxl.PrimX", "models.primsdf.PrimSDF",
-                 "topiaxl.ImageMultiViewConditioner",
+                 "models.conditioner.text.TextConditioner",
                  "topiaxl.TextConditioner", "topiaxl.CLIPImageEncoder",
                  "models.conditioner.text.CLIPTextEncoder"):
         cls = "PrimX" if "Prim" in name else name.rsplit(".", 1)[1]
@@ -322,22 +323,96 @@ def test_cli_refuses_what_it_cannot_build(tmp_path):
 
 
 def test_cli_refuses_checkpoints_it_cannot_read(tmp_path):
-    """An existing ``model.native_checkpoint_dir`` (orbax) or
-    ``inference.u2net_checkpoint`` raises before any model is built; the
-    same keys naming nothing on disk are ignored, as the JAX CLI ignores
-    them."""
+    """An existing ``model.native_checkpoint_dir`` (orbax) raises before any
+    model is built; an ``inference.u2net_checkpoint`` that is a directory
+    (a converted orbax tree) raises too. The same keys naming nothing on
+    disk are ignored, as the JAX CLI ignores them."""
     from topiaxl_torch.cli.infer import main, refuse_unported_checkpoints
     from topiaxl_torch.core.config import load_config
 
     cfg_path = str(_tiny_config(tmp_path, _image_dir(tmp_path)))
     native = tmp_path / "native"
     os.makedirs(native / "dit")
-    u2net = tmp_path / "u2net.pth"
-    u2net.write_bytes(b"")
+    u2net = tmp_path / "u2net_orbax"
+    os.makedirs(u2net)
     with pytest.raises(ValueError, match="orbax.*checkpoint_path"):
         main([cfg_path, f"model.native_checkpoint_dir={native}"])
-    with pytest.raises(ValueError, match="U\\^2-Net.*matting=grabcut"):
+    with pytest.raises(ValueError, match="directory.*\\.pth"):
         main([cfg_path, f"inference.u2net_checkpoint={u2net}"])
     refuse_unported_checkpoints(load_config(cfg_path, [
         f"model.native_checkpoint_dir={tmp_path / 'none'}",
         f"inference.u2net_checkpoint={tmp_path / 'none.pth'}"]))
+    assert main([cfg_path, "inference.export_glb=false",
+                 f"inference.u2net_checkpoint={tmp_path / 'none.pth'}"]) == 0
+
+
+def test_cli_mattes_with_the_u2net_checkpoint(tmp_path):
+    """``inference.u2net_checkpoint`` naming a torch ``.pth`` (a randomised
+    u2netp state_dict) with ``inference.matting=u2net``: the CLI's PrimX is
+    the one made from the U^2-Net-matted image, which differs from the
+    GrabCut-matted one."""
+    from test_torch_matting import randomized_u2net
+    from topiaxl_torch.cli.infer import build_models, main, prepare_image
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.diffusion import create_diffusion
+    from topiaxl_torch.models.latent_stats import resolve_latent_stats
+    from topiaxl_torch.ops.matting import load_u2net
+    from topiaxl_torch.pipelines import infer as P
+
+    img_dir = _image_dir(tmp_path)
+    pth = tmp_path / "u2netp.pth"
+    torch.save(randomized_u2net("u2netp", seed=11).state_dict(), pth)
+    cfg_path = str(_tiny_config(tmp_path, img_dir))
+    overrides = ["inference.export_glb=false", "inference.matting=u2net",
+                 f"inference.u2net_checkpoint={pth}"]
+    assert main([cfg_path] + overrides) == 0
+    z = np.load(tmp_path / "runs" / "tiny" / "inference_folder" / "blob"
+                / "denoised.npz")
+
+    matter = load_u2net(str(pth), device="cpu")
+    assert matter.model.arch == "u2netp"
+    image = prepare_image(str(img_dir / "blob.png"), matting="u2net",
+                          matter=matter)
+    assert not np.array_equal(image, prepare_image(str(img_dir / "blob.png"),
+                                                   matting="grabcut"))
+    cfg = load_config(cfg_path, overrides=overrides)
+    gen = torch.Generator().manual_seed(int(cfg.inference.seed))
+    dit, vae, cond = build_models(cfg, torch.device("cpu"), gen)
+    with torch.no_grad():
+        y = cond.encode_image(torch.from_numpy(image[None]))
+    mean, std = resolve_latent_stats(cfg.model)
+    out = P.generate_primx(
+        dit, vae, create_diffusion("ddim3", noise_schedule="squaredcos_cap_v2",
+                                   parameterization="v", diffusion_steps=50),
+        y, mean, std, cfg_scale=2.0, generator=gen)
+    np.testing.assert_allclose(z["srt"], out.srt.numpy(), atol=1e-6)
+    np.testing.assert_allclose(z["feat"], out.feat.numpy(), atol=1e-6)
+
+
+def test_registry_builds_the_render_then_encode_conditioners():
+    """The renderer's settings reach the conditioners, as the JAX
+    registry passes them; the multi-view class is built."""
+    from topiaxl_torch import registry  # noqa: F401
+    from topiaxl_torch.core.attrdict import AttrDict
+    from topiaxl_torch.core.config import build
+    from topiaxl_torch.models.conditioner.image import (
+        DinoV2Wrapper, ImageMultiViewConditioner)
+
+    enc = AttrDict(class_name="topiaxl.DinoV2Wrapper",
+                   model_name="dinov2_tiny_test", dtype="fp32")
+    for name, views in (("topiaxl.ImageMultiViewConditioner", 3),
+                        ("models.conditioner.image.ImageMultiViewConditioner",
+                         4)):
+        kw = dict(class_name=name, num_prims=16, prim_shape=4,
+                  sample_view=True, encoder_config=enc)
+        if views == 3:
+            kw["view_counts"] = 3
+        cond = build(AttrDict(kw), device=torch.device("cpu"))
+        assert isinstance(cond, ImageMultiViewConditioner)
+        assert isinstance(cond.encoder, DinoV2Wrapper)
+        assert (cond.num_prims, cond.prim_shape, cond.dim_feat,
+                cond.sample_view, cond.view_counts) == (16, 4, 6, True, views)
+    cond = build(AttrDict(class_name="topiaxl.ImageConditioner",
+                          encoder_config=enc), device=torch.device("cpu"))
+    assert (cond.num_prims, cond.prim_shape, cond.sample_view) == (2048, 8,
+                                                                   False)

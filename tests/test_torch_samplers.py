@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_models import tiny_dit
+from test_torch_models import tiny_dit, torch_threads  # noqa: F401
 from test_torch_pipeline import _tiny_config
 from topiaxl.diffusion import create_diffusion as jax_diffusion
 from topiaxl.diffusion import gaussian as jg

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_models import randomize_, tree
+from test_torch_models import randomize_, torch_threads, tree  # noqa: F401
 from topiaxl.core import convert
 from topiaxl_torch.core import weights
 

@@ -9,11 +9,14 @@ over ``topiaxl.DinoV2Wrapper``; a name the port does not build yet
 raises), loads the reference checkpoints (DiT under ``ema``, VAE under
 ``model_state_dict``, DINOv2's own state_dict) or warns and keeps the
 seeded random init, and runs image -> PrimX -> GLB for every image in
-``inference.input_dir``. ``model.native_checkpoint_dir`` (orbax) and
-``inference.u2net_checkpoint`` raise when they name something on disk:
-the port reads neither yet. Per image it writes
-``denoised.npz`` and, with ``inference.export_glb``, ``pbr_mesh.glb``,
-``texture.jpg`` and ``roughness_metallic.jpg``.
+``inference.input_dir``. ``inference.u2net_checkpoint`` (a torch
+``.pth``) mattes with U^2-Net ahead of GrabCut, as ``inference.matting``
+(auto | u2net | grabcut | threshold) asks; ``model.native_checkpoint_dir``
+(orbax) raises when it names a directory: the port reads no orbax. Per
+image it writes ``denoised.npz``, the frontal snapshot ``recon.jpg`` (rgb
+| coloured prim boxes, ``image_height`` x 2 ``image_width``) and, with
+``debug``, the orbit videos; with ``inference.export_glb``,
+``pbr_mesh.glb``, ``texture.jpg`` and ``roughness_metallic.jpg``.
 
 ``inference.device`` (default ``cuda``) picks the device; there is no
 silent fallback to the CPU. ``inference.sampler`` picks the chain:
@@ -36,18 +39,21 @@ import torch
 logger = logging.getLogger("topiaxl_torch.infer")
 
 def prepare_image(path: str, foreground_ratio: float = 0.85,
-                  matting: str = "auto") -> np.ndarray:
+                  matting: str = "auto", matter=None) -> np.ndarray:
     """Load, matte, recenter: [H, W, 3] f32 in [0, 255], background 0.
 
-    An existing alpha channel wins; otherwise GrabCut, then a near-white
-    threshold for synthetic white-background renders. ``matting``:
-    'auto' | 'grabcut' | 'threshold' (U^2-Net is not ported yet)."""
+    Matting order: an existing alpha channel wins; otherwise the learned
+    U^2-Net matting (``matter``, from ``ops.matting.load_u2net``) when
+    weights were loaded, its soft saliency binarised at > 32; otherwise
+    GrabCut; a near-white threshold last, for synthetic white-background
+    renders. ``matting``: 'auto' | 'u2net' | 'grabcut' | 'threshold'."""
     import cv2
 
     from ..ops.matting import remove_background
 
-    if matting not in ("auto", "grabcut", "threshold"):
-        raise ValueError(f"matting={matting!r} is not available in the port")
+    if matting not in ("auto", "u2net", "grabcut", "threshold"):
+        raise ValueError(f"matting={matting!r}: expected auto, u2net, grabcut "
+                         f"or threshold")
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise FileNotFoundError(path)
@@ -57,10 +63,24 @@ def prepare_image(path: str, foreground_ratio: float = 0.85,
         rgba = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA)
     else:
         rgb = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-        alpha = remove_background(rgb) if matting != "threshold" else None
+        alpha = None
+        if matting == "u2net" and matter is None:
+            raise ValueError(
+                "matting='u2net' but no U^2-Net weights were loaded "
+                "(set inference.u2net_checkpoint)")
+        if matting in ("auto", "u2net") and matter is not None:
+            alpha = matter(rgb)
+            # saliency maps are soft; binarise faint backgrounds away
+            alpha = np.where(alpha > 32, alpha, 0).astype(np.uint8)
+            if not (alpha > 0).any():
+                alpha = None
+        if alpha is None and matting in ("auto", "grabcut"):
+            alpha = remove_background(rgb)
         if alpha is None:
             if matting == "grabcut":
                 raise ValueError(f"grabcut matting degenerated on {path}")
+            if matting == "u2net":
+                raise ValueError(f"u2net matting found nothing in {path}")
             bg = rgb.astype(np.int32).sum(-1) > 3 * 247
             alpha = np.where(bg, 0, 255).astype(np.uint8)
         rgba = np.dstack([rgb, alpha])
@@ -89,10 +109,9 @@ def _load_state_dict(path: str, key: str | None = None) -> dict:
 
 def refuse_unported_checkpoints(cfg) -> None:
     """Raise where the config names weights the JAX CLI would read and the
-    port cannot: orbax trees in ``model.native_checkpoint_dir`` (which the
-    JAX CLI loads ahead of ``checkpoint_path``) and the U^2-Net matting of
-    ``inference.u2net_checkpoint`` (which its ``auto`` matting uses ahead
-    of GrabCut). Either would serve something else without a word."""
+    port cannot: orbax trees in ``model.native_checkpoint_dir``, which the
+    JAX CLI loads ahead of ``checkpoint_path`` (serving something else
+    without a word)."""
     native = cfg.model.get("native_checkpoint_dir")
     if native and os.path.isdir(native):
         raise ValueError(
@@ -100,12 +119,6 @@ def refuse_unported_checkpoints(cfg) -> None:
             f"trees; give the reference's torch checkpoints instead "
             f"(checkpoint_path, model.vae_checkpoint_path, "
             f"model.conditioner.encoder_checkpoint_path)")
-    u2net = cfg.inference.get("u2net_checkpoint")
-    if u2net and os.path.exists(u2net):
-        raise ValueError(
-            f"inference.u2net_checkpoint={u2net!r}: U^2-Net matting is not "
-            f"ported yet (ROADMAP queue 1 #6); unset it and choose "
-            f"inference.matting=grabcut (or threshold)")
 
 
 def build_models(cfg, device, generator: torch.Generator):
@@ -160,12 +173,15 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None, timings_out: list | None = None) -> int:
     """Run the CLI; ``timings_out`` (a list) receives one dict of
-    per-image stage seconds (encode, stage1, stage2)."""
+    per-image stage seconds (encode, stage1, recon, stage2)."""
     from topiaxl_torch.core.config import load_config
 
     from ..diffusion.schedule import create_diffusion
     from ..models.latent_stats import resolve_latent_stats
+    from ..ops.matting import load_u2net
     from ..pipelines import infer as P
+    from ..render.visualize import (visualize_primvolume,
+                                    visualize_video_primvolume)
 
     argv = list(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(level=logging.INFO)
@@ -191,14 +207,19 @@ def main(argv=None, timings_out: list | None = None) -> int:
     img_list = sorted(f for f in os.listdir(img_dir) if f.lower().endswith(
         (".png", ".jpg", ".jpeg", ".webp")))
     logger.info("running inference on %d images", len(img_list))
+    matter = load_u2net(cfg.inference.get("u2net_checkpoint", ""),
+                        device=device)
     matting = cfg.inference.get("matting", "auto")
+    if matter is not None:
+        logger.info("matting: U^2-Net (%s)", matter.model.arch)
     for name in img_list:
         stem = os.path.splitext(name)[0]
         out_dir = os.path.join(inference_dir, stem)
         os.makedirs(out_dir, exist_ok=True)
         rec = {"image": stem}
         t0 = time.perf_counter()
-        image = prepare_image(os.path.join(img_dir, name), matting=matting)
+        image = prepare_image(os.path.join(img_dir, name), matting=matting,
+                              matter=matter)
         with torch.inference_mode():
             y = conditioner.encode_image(
                 torch.from_numpy(image[None]).to(device))
@@ -214,8 +235,17 @@ def main(argv=None, timings_out: list | None = None) -> int:
             generator=gen, sampler=cfg.inference.get("sampler", "ddim"))
         P.save_primx(os.path.join(out_dir, "denoised.npz"), params)
         rec["stage1_s"] = time.perf_counter() - t0
-        logger.info("stage1 done: %s (recon.jpg skipped: the renderer is "
-                    "not ported yet)", stem)
+
+        # the frontal rgb | prim-box snapshot and, with debug, the orbit
+        t0 = time.perf_counter()
+        visualize_primvolume(os.path.join(out_dir, "recon.jpg"), params,
+                             cfg.image_height, cfg.image_width,
+                             cfg.model.prim_shape)
+        if cfg.get("debug"):
+            visualize_video_primvolume(out_dir, params, 60, cfg.image_height,
+                                       cfg.image_width)
+        rec["recon_s"] = time.perf_counter() - t0
+        logger.info("stage1 done: %s", stem)
 
         t0 = time.perf_counter()
         if cfg.inference.export_glb:
@@ -235,8 +265,9 @@ def main(argv=None, timings_out: list | None = None) -> int:
                 # e.g. an untrained model; stage-1 output is already saved
                 logger.error("stage2 failed for %s: %s", stem, e)
         rec["stage2_s"] = time.perf_counter() - t0
-        logger.info("%s: encode %.3fs, stage1 %.3fs, stage2 %.3fs", stem,
-                    rec["encode_s"], rec["stage1_s"], rec["stage2_s"])
+        logger.info("%s: encode %.3fs, stage1 %.3fs, recon %.3fs, stage2 "
+                    "%.3fs", stem, rec["encode_s"], rec["stage1_s"],
+                    rec["recon_s"], rec["stage2_s"])
         if timings_out is not None:
             timings_out.append(rec)
     return 0

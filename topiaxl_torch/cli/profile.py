@@ -12,6 +12,9 @@ and measures, on synthetic inputs (``pipelines/synthetic.py``):
 - ``cfg_step``: one CFG'd DiT step (``forward_with_cfg_fast``);
 - ``chain``: the whole DDIM chain (``sample_tokens``);
 - ``vae_decode``: ``decode_primx`` of 2048 primitives;
+- ``recon``: the CLI's ``recon.jpg`` pair (the frontal render of the
+  2048-prim sphere shell and of its coloured prim boxes, 128 steps, 8
+  hits) at the config's ``image_height`` x ``image_width``;
 - ``stage2``: ``extract_glb`` on the 2048-prim sphere shell at the config's
   ``mc_resolution`` and ``decimate`` (texture 1024, ``pos_scale`` 1.0),
   with the box and the LSCM unwrap in turn, twice each, so that the
@@ -51,7 +54,8 @@ _GROUPS = {"flash_attn_fwd": ("flash_fwd_kernel",),
            "optimizer": ("foreach", "multi_tensor"),
            "gemm": ("gemm", "cutlass", "nvjet", "xmma", "cublas"),
            "conv": ("conv", "cudnn", "implicit"),
-           "norm": ("norm",)}
+           "norm": ("norm",),
+           "sort": ("sort", "topk")}
 
 
 def _group(name: str) -> str:
@@ -176,6 +180,7 @@ def main(argv=None) -> int:
     from ..ops import _cuda
     from ..pipelines import infer as P
     from ..pipelines.synthetic import sphere_asset, write_bench_image
+    from ..render import colored_box_payload, frontal_camera, render_primx
     from .infer import build_models, prepare_image
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -231,6 +236,14 @@ def main(argv=None) -> int:
                 vae, tokens, cfg.model.prim_shape, cfg.model.dim_feat), 3)
 
         sphere = sphere_asset(device, S=cfg.model.prim_shape)
+        cam = frontal_camera(cfg.image_height, cfg.image_width, device=device)
+        boxes = colored_box_payload(sphere.srt.shape[0], cfg.model.prim_shape,
+                                    device=device)
+        report["recon"] = profile_region("recon", lambda: [
+            render_primx(sphere.srt, sphere.feat, cam, cfg.model.prim_shape,
+                         num_steps=128, max_hits=8, payload=payload)
+            for payload in (None, boxes)], 3, top=12)
+
         runs = []
         for fast_unwrap in (True, False, True, False):
             tm: dict = {}

@@ -6,12 +6,15 @@
   normalisation -> ViT -> cat(cls, patch tokens) = [B, 1 + (518/14)^2,
   768] = [B, 1370, 768] for ViT-B/14-reg.
 * ``ImageConditioner``: holds the encoder; inference encodes the user's
-  image (``encode_image``). Its training path renders a PrimX batch
-  first, which needs the renderer (not ported yet).
+  image (``encode_image``), training renders the PrimX batch with the
+  raymarcher and encodes the picture (``condition_from_primx``).
+* ``ImageMultiViewConditioner``: the tokens of V orbit views, concatenated.
 * ``DummyImageConditioner``: passes precomputed conditioning through.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -49,12 +52,24 @@ class DinoV2Wrapper(torch.nn.Module):
 
 
 class ImageConditioner(torch.nn.Module):
-    """Render-then-encode conditioner; at inference only ``encoder`` runs
-    (``encode_image``, also its ``forward``)."""
+    """Render-then-encode conditioner. Inference encodes the user's image
+    (``encode_image``, also its ``forward``); training conditions on the
+    PrimX batch itself, raymarched from the frontal camera (or a sampled
+    orbit view with ``sample_view``) onto a white background and encoded
+    (``condition_from_primx``)."""
 
-    def __init__(self, encoder: torch.nn.Module):
+    def __init__(self, encoder: torch.nn.Module, num_prims: int = 2048,
+                 dim_feat: int = 6, prim_shape: int = 8,
+                 sample_view: bool = False, image_height: int = 518,
+                 image_width: int = 518):
         super().__init__()
         self.encoder = encoder
+        self.num_prims = num_prims
+        self.dim_feat = dim_feat
+        self.prim_shape = prim_shape
+        self.sample_view = sample_view
+        self.image_height = image_height
+        self.image_width = image_width
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         return self.encoder(image)
@@ -62,17 +77,64 @@ class ImageConditioner(torch.nn.Module):
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         return self.encode_image(image)
 
-    def render_batch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ImageConditioner.render_batch needs the PrimX renderer "
-            "(render/raymarch.py), which is not ported yet (ROADMAP queue 1 "
-            "#5)")
+    def render_batch(self, srt: torch.Tensor, feat: torch.Tensor, cam,
+                     bg_color: float = 1.0) -> torch.Tensor:
+        """srt [B, N, 4], feat [B, N, C S^3] seen from ``cam`` ->
+        [B, H, W, 3] in the encoder's [0, 255] convention: the render's
+        rgb (already 0..255) over bg_color * 255 * (1 - alpha)."""
+        from ...render import render_primx
 
-    def condition_from_primx(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ImageConditioner.condition_from_primx renders the PrimX batch "
-            "with the renderer (render/raymarch.py), which is not ported yet "
-            "(ROADMAP queue 1 #5)")
+        if srt.dim() != 3 or feat.dim() != 3:
+            raise ValueError(f"expected batched srt, feat; got {tuple(srt.shape)}"
+                             f", {tuple(feat.shape)}")
+        imgs = []
+        for b in range(srt.shape[0]):
+            rgba = render_primx(srt[b], feat[b], cam,
+                                prim_shape=self.prim_shape)
+            imgs.append(rgba[..., :3] + bg_color * 255.0 * (1.0 - rgba[..., 3:4]))
+        return torch.stack(imgs)
+
+    def condition_from_primx(self, srt: torch.Tensor, feat: torch.Tensor,
+                             generator: torch.Generator | None = None,
+                             bg_color: float = 1.0) -> torch.Tensor:
+        """Tokens of the PrimX batch rendered from the frontal camera, or,
+        with ``sample_view`` and a ``generator``, from an orbit angle drawn
+        uniformly in [0, 2 pi) from it."""
+        from ...render import frontal_camera, orbit_camera
+
+        dev = srt.device
+        if self.sample_view and generator is not None:
+            angle = torch.rand((), generator=generator,
+                               device=generator.device) * (2 * math.pi)
+            cam = orbit_camera(angle, self.image_height, self.image_width,
+                               device=dev)
+        else:
+            cam = frontal_camera(self.image_height, self.image_width,
+                                 device=dev)
+        return self.encoder(self.render_batch(srt, feat, cam, bg_color))
+
+
+class ImageMultiViewConditioner(ImageConditioner):
+    """The tokens of ``view_counts`` orbit views (angles 2 pi v / V)
+    concatenated along the token axis, in view order."""
+
+    def __init__(self, *args, view_counts: int = 4, **kw):
+        super().__init__(*args, **kw)
+        self.view_counts = view_counts
+
+    def condition_from_primx(self, srt: torch.Tensor, feat: torch.Tensor,
+                             generator: torch.Generator | None = None,
+                             bg_color: float = 1.0) -> torch.Tensor:
+        from ...render import orbit_camera
+
+        tokens = []
+        for vi in range(self.view_counts):
+            cam = orbit_camera(2 * math.pi * vi / self.view_counts,
+                               self.image_height, self.image_width,
+                               device=srt.device)
+            tokens.append(self.encoder(self.render_batch(srt, feat, cam,
+                                                         bg_color)))
+        return torch.cat(tokens, dim=1)
 
 
 class DummyImageConditioner(torch.nn.Module):

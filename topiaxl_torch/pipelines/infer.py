@@ -11,6 +11,8 @@ host stages (``topiaxl_torch.extract``, the port's copy of the JAX
 package's: isosurface, cleanup, decimation, UV unwrap, rasterisation,
 with their C++ parts in ``topiaxl_torch.native``), the texel bake on the
 device, EDT inpaint and the GLB writer.
+
+``serve_assets`` runs the two stages over many assets as a pipeline.
 """
 
 from __future__ import annotations
@@ -119,6 +121,13 @@ def save_primx(path: str, params: PrimXParams) -> None:
     """Persist stage-1 output (same keys as the JAX package's save_primx)."""
     np.savez(path, srt=params.srt.float().cpu().numpy(),
              feat=params.feat.float().cpu().numpy())
+
+
+def load_primx(path: str, device="cuda") -> PrimXParams:
+    """Read what either package's ``save_primx`` wrote, onto ``device``."""
+    z = np.load(path)
+    return PrimXParams(torch.from_numpy(z["srt"]).to(device),
+                       torch.from_numpy(z["feat"]).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -234,15 +243,17 @@ def bake_query_u8(params: PrimXParams, pts: torch.Tensor, dim_feat: int = 6,
     return torch.round(v.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 
 
+@torch.inference_mode()
 def extract_glb(params: PrimXParams, output_dir: str, mc_resolution: int = 256,
                 decimate: int = 100000, texture_size: int = 1024,
                 batch_size: int = 8192, prim_shape: int = 8, dim_feat: int = 6,
                 fast_unwrap: bool = True, remesh: bool = False,
-                pos_scale: float = 0.85, ssaa: int = 1,
+                inpaint_pad: int = 32, pos_scale: float = 0.85, ssaa: int = 1,
                 timings_out: dict | None = None) -> str:
     """PrimX -> ``pbr_mesh.glb`` (+ ``texture.jpg`` and
     ``roughness_metallic.jpg``) in ``output_dir``; returns the GLB path.
-    Raises EmptyIsosurfaceError when the field has no surface."""
+    The bake is inpainted ``inpaint_pad`` texels beyond the charts. Raises
+    EmptyIsosurfaceError when the field has no surface."""
     import cv2
 
     from topiaxl_torch.extract import (
@@ -316,7 +327,7 @@ def extract_glb(params: PrimXParams, output_dir: str, mc_resolution: int = 256,
     feats = np.concatenate([tex, np.zeros_like(tex[..., :1]), mat], axis=-1)
     feats[~mask] = 0.0
     tick("bake_queries")
-    feats = nearest_inpaint(feats, mask, pad_width=32)
+    feats = nearest_inpaint(feats, mask, pad_width=inpaint_pad)
     tick("inpaint")
     if rs != texture_size:
         feats = cv2.resize(feats, (texture_size, texture_size),
@@ -338,3 +349,55 @@ def extract_glb(params: PrimXParams, output_dir: str, mc_resolution: int = 256,
         jpg_thread.join()
     tick("write_glb")
     return glb_path
+
+
+# ---------------------------------------------------------------------------
+# Multi-asset serving
+# ---------------------------------------------------------------------------
+
+def serve_assets(dit: DiT, vae: VAE3D, diffusion: Diffusion, ys, output_dirs,
+                 latent_mean, latent_std, latent_nf: float = 1.0,
+                 cfg_scale: float = 6.0, prim_shape: int = 8,
+                 dim_feat: int = 6, sampler: str = "ddim",
+                 stage1_batch: int = 1, extract_workers: int = 2,
+                 generator: torch.Generator | None = None,
+                 **extract_kw) -> list:
+    """Serve many assets as a two-stage pipeline: stage 1 (chain and
+    decode) of the next group runs on this thread while ``extract_workers``
+    host threads run ``extract_glb`` on the assets before it; returns the
+    GLB paths in input order (a worker's exception is raised here).
+
+    ``ys`` are conditioning tokens [1, M, C], one per entry of
+    ``output_dirs``. ``stage1_batch`` assets share one chain at that batch
+    (each with its own noise); each group's noise is drawn from
+    ``generator`` in group order, so a serial loop of ``generate_primx``
+    calls on the same generator state makes the same assets.
+    ``extract_kw`` goes to ``extract_glb``.
+
+    The workers enqueue their device work on the same default stream as
+    the chain, which orders it; what overlaps is the host's share of
+    stage 2 (isosurface, cleanup, decimation, unwrap, inpaint, GLB
+    writing, in numpy, cv2 and C++ that release the GIL) with the chain.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    ys, output_dirs = list(ys), list(output_dirs)
+    if len(ys) != len(output_dirs):
+        raise ValueError(f"{len(ys)} conditionings for {len(output_dirs)} "
+                         f"output directories")
+    b = max(1, int(stage1_batch))
+    with ThreadPoolExecutor(max_workers=max(1, extract_workers)) as pool:
+        futures = []
+        for start in range(0, len(ys), b):
+            group = ys[start:start + b]
+            params = generate_primx(
+                dit, vae, diffusion, torch.cat(group, dim=0), latent_mean,
+                latent_std, latent_nf, cfg_scale, prim_shape, dim_feat,
+                generator=generator, sampler=sampler)
+            if len(group) == 1:
+                params = [params]
+            for j, p in enumerate(params):
+                futures.append(pool.submit(
+                    extract_glb, p, output_dirs[start + j],
+                    prim_shape=prim_shape, dim_feat=dim_feat, **extract_kw))
+        return [f.result() for f in futures]

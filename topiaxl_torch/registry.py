@@ -96,17 +96,39 @@ def make_dinov2(device=None, generator=None, **kw):
                          dtype=_dtype(kw), device=device, generator=generator)
 
 
+def _renderer_kwargs(kw: dict) -> dict:
+    """The render-then-encode settings as the JAX factories pass them."""
+    return dict(num_prims=kw.get("num_prims", 2048),
+                dim_feat=kw.get("dim_feat", 6),
+                prim_shape=kw.get("prim_shape", 8),
+                sample_view=kw.get("sample_view", False))
+
+
+def _encoder(kw: dict, device, generator):
+    from .models.conditioner.image import DinoV2Wrapper
+
+    enc = kw.get("encoder_config")
+    return (build(enc, device=device, generator=generator) if enc
+            else DinoV2Wrapper(device=device, generator=generator))
+
+
 @register("topiaxl.ImageConditioner",
           "models.conditioner.image.ImageConditioner")
 def make_image_conditioner(device=None, generator=None, **kw):
-    from .models.conditioner.image import DinoV2Wrapper, ImageConditioner
+    from .models.conditioner.image import ImageConditioner
 
-    enc = kw.get("encoder_config")
-    encoder = (build(enc, device=device, generator=generator) if enc
-               else DinoV2Wrapper(device=device, generator=generator))
-    # num_prims, dim_feat, prim_shape, sample_view and the image size are
-    # the renderer's, which is not ported yet: accepted and left unread
-    return ImageConditioner(encoder)
+    return ImageConditioner(_encoder(kw, device, generator),
+                            **_renderer_kwargs(kw))
+
+
+@register("topiaxl.ImageMultiViewConditioner",
+          "models.conditioner.image.ImageMultiViewConditioner")
+def make_image_multiview_conditioner(device=None, generator=None, **kw):
+    from .models.conditioner.image import ImageMultiViewConditioner
+
+    return ImageMultiViewConditioner(_encoder(kw, device, generator),
+                                     **_renderer_kwargs(kw),
+                                     view_counts=kw.get("view_counts", 4))
 
 
 @register("topiaxl.DummyImageConditioner",
@@ -128,9 +150,6 @@ def _not_ported(names: tuple, item: str) -> None:
 
 _not_ported(("topiaxl.PrimX", "models.primsdf.PrimSDF"),
             "#7, with pipelines/fit.py")
-_not_ported(("topiaxl.ImageMultiViewConditioner",
-             "models.conditioner.image.ImageMultiViewConditioner"),
-            "#8, after the renderer")
 _not_ported(("topiaxl.TextConditioner",
              "models.conditioner.text.TextConditioner"), "#8")
 _not_ported(("topiaxl.CLIPImageEncoder",
