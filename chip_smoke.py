@@ -59,6 +59,19 @@ the script exits non-zero without a result line):
     gradients on the card (bf16, kernels) against the CPU (f32, plain),
     and a control step whose attention backward leaves out delta, which
     must fail the bars.
+17. prepare_data: ``topiaxl_torch.cli.prepare_data.main`` on two meshes
+    written here (a 20480-face icosphere and a concave box less a sphere)
+    at the flagship config, 150 shape steps in a 250-step fit: 12 flash
+    forwards an asset and no other launch; the shard's shapes; each fitted
+    field's held-out SDF error below half the zero payload's; ``MeshSDF``
+    card vs CPU at 8192 points and its peak memory; one fit step's loss
+    and gradients card vs CPU with a planted fault; seconds an asset
+    (mesh SDF, fit, encode, condition), ms a fit step, peak memory.
+18. train_from_shards: ``cli.train`` on that shard at the flagship width,
+    batch 2, two steps, with the trainer's exact launches.
+19. train_vae: the flagship VAE (bf16 compute, f32 masters) for 20 Adam
+    steps on the 2048 fitted payloads of one asset: the loss falls; step
+    1 card vs CPU in f32 with a planted fault; ms a step, peak memory.
 
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
@@ -208,6 +221,31 @@ RENDER_ALPHA_ABS = 1e-4
 # CPU saliency's spread (max - min); upsampling with aligned corners (a
 # planted fault) must land above it
 U2NET_REL_BAR = 1e-3
+
+# prepare_data: per mesh, DINOv2's 12 flash forwards (one rendered view)
+# and nothing else: the fit, the mesh SDF and the VAE (64 tokens, head dim
+# 32, einsum attention) run no counted kernel
+PREP_LAUNCHES = dict({k: 0 for k in EXPECTED_LAUNCHES}, flash_attn_fwd=12)
+# one fit step at full width (2048 prims of 8^3 x 6, 8192 points), card
+# against CPU, f32 on both (TF32 off): loss |card - cpu| / |cpu| and each
+# gradient's max |card - cpu| / max |cpu|. They sum in other orders, and
+# the card's gather backward is a scatter-add in a varying order. The
+# volume term with scale in place of 1/scale (a planted fault) must land
+# above a bar.
+FIT_LOSS_BAR = 1e-5
+FIT_GRAD_BAR = 1e-4
+# MeshSDF card vs CPU: |distance| (the closest-point arithmetic in f32,
+# fused differently); signs exact on the convex icosphere, where the faces
+# of an argmin tie all give the same sign; on the concave bowl only printed
+MESH_SDF_ABS_BAR = 1e-5
+# train_vae: step 1 of the flagship VAE on 32 fitted payloads, card against
+# CPU, f32 on both (TF32 off), the same posterior draw: loss and grad norm
+# relative; decoding the posterior's mode instead of its draw (a planted
+# fault) must land above a bar. Over 20 bf16 steps on 2048 payloads the
+# mean of the last five losses must fall below VAE_FALL of the first five's.
+VAE_LOSS_BAR = 1e-5
+VAE_GNORM_BAR = 1e-4
+VAE_FALL = 0.7
 
 # the card's peaks for the bounds (H100 SXM data sheet: dense bf16 on the
 # tensor cores, f32 outside them, HBM3)
@@ -1507,7 +1545,8 @@ def phase_dit(quant: bool = False):
 
 
 class PerStep(list):
-    """Snapshots the launch counters as each step's metrics arrive."""
+    """Snapshots the launch counters as each step's metrics (or each
+    asset's record) arrive."""
 
     def append(self, rec):
         from topiaxl_torch.ops import _cuda
@@ -1717,6 +1756,316 @@ def phase_train_parity():
                              "delta")
 
 
+def icosphere_mesh(subdivisions: int = 5, radius: float = 0.5):
+    """An icosahedron subdivided ``subdivisions`` times onto the sphere
+    (20 * 4^n faces), faces wound outward."""
+    t = (1 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+         (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+         (-t, 0, -1), (-t, 0, 1)]
+    v = [np.asarray(p, np.float64) / np.linalg.norm(p) for p in v]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+         (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+         (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+         (8, 6, 7), (9, 8, 1)]
+    for _ in range(subdivisions):
+        mids: dict = {}
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mids:
+                m = v[a] + v[b]
+                v.append(m / np.linalg.norm(m))
+                mids[key] = len(v) - 1
+            return mids[key]
+
+        f = [g for a, b, c in f for g in (
+            (a, mid(a, b), mid(c, a)), (b, mid(b, c), mid(a, b)),
+            (c, mid(c, a), mid(b, c)), (mid(a, b), mid(b, c), mid(c, a)))]
+    v = radius * np.asarray(v, np.float32)
+    f = np.asarray(f, np.int64)
+    tri = v[f]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    inward = (n * tri.mean(1)).sum(-1) < 0
+    f[inward] = f[inward][:, ::-1]
+    return v, f
+
+
+def bowl_mesh(res: int = 64):
+    """A concave solid: the box [-0.5, 0.5]^3 less a sphere of radius 0.4
+    centred on its top face, through the port's marching tetrahedra."""
+    from topiaxl_torch.extract.isosurface import extract_isosurface
+
+    lin = np.linspace(-1, 1, res, dtype=np.float32)
+    z, y, x = np.meshgrid(lin, lin, lin, indexing="ij")
+    box = np.maximum(np.maximum(np.abs(x), np.abs(y)), np.abs(z)) - 0.5
+    ball = np.sqrt(x ** 2 + y ** 2 + (z - 0.5) ** 2) - 0.4
+    return extract_isosurface(np.maximum(box, -ball))
+
+
+def near_surface_points(sdf, n: int, seed: int) -> np.ndarray:
+    """Surface samples with N(0, 0.05) jitter, as the fit draws its
+    near-surface half, from seeds the fit does not use."""
+    rng = np.random.default_rng(seed)
+    pts = sdf.sample_surface(n, seed=seed) + rng.normal(0, 0.05, (n, 3))
+    return pts.astype(np.float32).clip(-1, 1)
+
+
+def faulty_fit_loss(params, pts, tgt_sdf, tgt_tex, tgt_mat, it, cfg,
+                    weights):
+    """``pipelines/fit.py:fit_loss`` with the volume term over scale in
+    place of 1/scale (the planted fault)."""
+    from topiaxl_torch.models import primx as PX
+    from topiaxl_torch.pipelines.losses import primsdf_fit_loss
+
+    out = PX.query(params, pts, dim_feat=cfg.dim_feat,
+                   prim_shape=cfg.prim_shape, training=True)
+    N = params.srt.shape[0]
+    preds = {"sdf": out["sdf"], "tex": out["feat"][:, 1:4],
+             "mat": out["feat"][:, 4:6],
+             "prim_scale": params.srt[:, 0:1].expand(N, 3)[None]}
+    return primsdf_fit_loss({"sdf": tgt_sdf, "tex": tgt_tex, "mat": tgt_mat},
+                            preds, weights, it, cfg.shape_opt_steps,
+                            cfg.tex_opt_steps)
+
+
+def check_fit_step(params, sdf, surface) -> None:
+    """One fit step's loss and gradients (shape stage) at full width, card
+    against CPU in f32, and the planted fault against the CPU."""
+    import torch
+
+    from topiaxl_torch.models.primx import PrimXParams
+    from topiaxl_torch.pipelines import fit as F
+
+    cfg = F.FitConfig(shape_opt_steps=150, tex_opt_steps=250)
+    weights = F.fit_weights(cfg, None, None)
+    pts = F.sample_batch(np.random.default_rng(5), cfg, surface)
+    arrs = (pts, sdf(pts)[:, None], np.zeros((len(pts), 3), np.float32),
+            np.zeros((len(pts), 2), np.float32))
+
+    def run(dev, loss_fn):
+        p = PrimXParams(params.srt.detach().to(dev).clone().requires_grad_(),
+                        params.feat.detach().to(dev).clone().requires_grad_())
+        batch = [torch.from_numpy(a).to(dev) for a in arrs]
+        loss, _ = loss_fn(p, *batch, 100, cfg, weights)
+        loss.backward()
+        return loss.item(), {"srt": p.srt.grad.cpu(), "feat": p.feat.grad.cpu()}
+
+    ref_loss, ref = run("cpu", F.fit_loss)
+
+    def readings(loss, grads):
+        rels = {k: ((g - ref[k]).abs().max() / ref[k].abs().max()).item()
+                for k, g in grads.items()}
+        return abs(loss - ref_loss) / abs(ref_loss), rels
+
+    loss_rel, rels = readings(*run("cuda", F.fit_loss))
+    f_loss, f_rels = readings(*run("cuda", faulty_fit_loss))
+    log(f"  one fit step (2048 prims, 8192 points, shape stage) card vs cpu "
+        f"f32: loss {ref_loss:.6f}, rel {loss_rel:.3e} (bar {FIT_LOSS_BAR}); "
+        f"grad rel srt {rels['srt']:.3e}, feat {rels['feat']:.3e} (bar "
+        f"{FIT_GRAD_BAR}); planted fault (volume over scale): loss rel "
+        f"{f_loss:.3e}, grad rel srt {f_rels['srt']:.3e}, feat "
+        f"{f_rels['feat']:.3e}")
+    if loss_rel > FIT_LOSS_BAR or max(rels.values()) > FIT_GRAD_BAR:
+        raise AssertionError("fit step: card vs cpu outside its bars")
+    if f_loss <= FIT_LOSS_BAR and max(f_rels.values()) <= FIT_GRAD_BAR:
+        raise AssertionError("fit step: the bars cannot see the planted fault")
+
+
+def phase_prepare_data(tmp: str) -> dict:
+    """``topiaxl_torch.cli.prepare_data.main`` on two meshes written here (a
+    20480-face icosphere and a concave box less a sphere) at the flagship
+    config: 2048 prims of 8^3, 150 shape steps in 250, the flagship VAE and
+    DINOv2. Checks each asset's launches, the shard, each fitted field
+    against its mesh, MeshSDF and one fit step card vs CPU."""
+    import torch
+
+    from topiaxl_torch.cli.prepare_data import main
+    from topiaxl_torch.extract.mesh_sdf import MeshSDF
+    from topiaxl_torch.extract.objio import (load_obj, normalize_to_unit_cube,
+                                             save_obj)
+    from topiaxl_torch.models import primx as PX
+    from topiaxl_torch.ops import _cuda
+
+    mesh_dir = os.path.join(tmp, "meshes")
+    os.makedirs(mesh_dir)
+    for name, (v, f) in (("icosphere", icosphere_mesh()),
+                         ("bowl", bowl_mesh())):
+        save_obj(os.path.join(mesh_dir, f"{name}.obj"), v, f)
+    out = os.path.join(tmp, "shards")
+    recs = PerStep()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main([FLAGSHIP, f"data.input_glob={mesh_dir}/*.obj",
+               f"data.output_dir={out}", "data.assets_per_shard=2",
+               "data.shape_opt_steps=150", "data.tex_opt_steps=250",
+               f"root_data_dir={tmp}/prep"], records_out=recs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rc != 0 or len(recs) != 2:
+        raise AssertionError(f"prepare_data returned {rc}, {len(recs)} assets")
+    prev = dict.fromkeys(PREP_LAUNCHES, 0)
+    fitted = {}
+    for rec in recs:
+        per = {k: rec["launches"][k] - prev[k] for k in PREP_LAUNCHES}
+        prev = rec["launches"]
+        name = os.path.splitext(os.path.basename(rec["path"]))[0]
+        mesh = load_obj(rec["path"])
+        v, _, _ = normalize_to_unit_cube(mesh["v"])
+        sdf = MeshSDF(v, mesh["f"], device="cuda")
+        pts = near_surface_points(sdf, 8192, seed=11)
+        tgt = sdf(pts)
+        errs = {}
+        for training in (False, True):
+            with torch.no_grad():
+                pred = PX.query(rec["params"], torch.from_numpy(pts).cuda(),
+                                training=training)["sdf"][:, 0].cpu().numpy()
+            errs[training] = float(np.abs(pred - tgt).mean())
+        base = float(np.abs(tgt).mean())
+        fitted[name] = (rec["params"], sdf, v, mesh["f"])
+        log(f"  {name} ({len(mesh['f'])} faces): mesh SDF "
+            f"{rec['mesh_sdf_s']:.3f} s, fit {rec['fit_s']:.3f} s "
+            f"({rec['fit_s'] / rec['fit_steps'] * 1e3:.3f} ms a step, "
+            f"{rec['fit_steps']} steps), encode {rec['encode_s']:.3f} s, "
+            f"condition {rec['condition_s']:.3f} s; launches {per}; held-out "
+            f"near-surface mean |SDF error| {errs[False]:.5f} (training query "
+            f"{errs[True]:.5f}) against the zero payload's {base:.5f}")
+        if per != PREP_LAUNCHES:
+            raise AssertionError(f"{name}: launches {per} != {PREP_LAUNCHES}")
+        if not errs[False] < 0.5 * base:
+            raise AssertionError(f"{name}: the fit left the SDF error at "
+                                 f"{errs[False]} (zero payload {base})")
+    log(f"  two assets in {wall:.3f} s; peak device memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+
+    with np.load(os.path.join(out, "shard_00000.npz")) as z:
+        x, y = z["x"], z["y"]
+    log(f"  shard: x {list(x.shape)}, y {list(y.shape)}")
+    if x.shape != (2, 2048, 68) or y.shape != (2, 1370, 768):
+        raise AssertionError(f"shard shapes {x.shape}, {y.shape}")
+    if not (np.isfinite(x).all() and np.isfinite(y).all()):
+        raise AssertionError("shard values are not finite")
+
+    # MeshSDF on the card against the CPU, and its peak at chunk 2048
+    for name, (_, sdf, v, f) in fitted.items():
+        rng = np.random.default_rng(12)
+        pts = np.concatenate([rng.uniform(-1, 1, (4096, 3)).astype(np.float32),
+                              near_surface_points(sdf, 4096, seed=13)])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = sdf(pts)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        sdf_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ref = MeshSDF(v, f, chunk=512, device="cpu")(pts)
+        dist = float(np.abs(np.abs(got) - np.abs(ref)).max())
+        agree = float((np.sign(got) == np.sign(ref)).mean())
+        log(f"  MeshSDF {name} ({len(f)} faces), 8192 points: card "
+            f"{card_ms:.3f} ms, peak {sdf_peak:.2f} GiB above its inputs at "
+            f"chunk 2048; card vs cpu max |distance| diff {dist:.3e} (bar "
+            f"{MESH_SDF_ABS_BAR}), signs agree {agree:.6f}")
+        if dist > MESH_SDF_ABS_BAR or (name == "icosphere" and agree != 1.0):
+            raise AssertionError(f"MeshSDF {name}: card vs cpu {dist}, {agree}")
+
+    params, sdf, _, _ = fitted["icosphere"]
+    check_fit_step(params, sdf, sdf.sample_surface(20000))
+    return {"shards": os.path.join(out, "*.npz"), "params": params}
+
+
+def phase_train_from_shards(tmp: str, shards: str) -> None:
+    """``cli.train`` on prepare_data's shards at the flagship width, batch
+    2, two steps: the trainer's launches per step and finite metrics."""
+    args = [FLAGSHIP, f"train.data_glob={shards}", "train.batch_size=2",
+            "train.max_steps=2", "train.log_every_n_steps=1",
+            "train.ckpt_every_n_steps=1000000", "train.keep_ckpts=1",
+            f"root_data_dir={tmp}/train_shards"]
+    _, recs = run_trainer(args, TRAIN_LAUNCHES, [1, 2])
+    log(f"  two steps on the shards, batch 2: {recs[0]['seconds']:.3f} s, "
+        f"{recs[1]['seconds']:.3f} s")
+
+
+def phase_train_vae(params) -> None:
+    """The flagship VAE (bf16 compute, f32 masters) trained 20 Adam steps
+    on the 2048 normalised payloads of the fitted icosphere; step 1 card
+    vs CPU in f32 on 32 of them, beside the planted fault."""
+    import torch
+
+    from topiaxl_torch import registry  # noqa: F401  (fills the table)
+    from topiaxl_torch.core.attrdict import AttrDict
+    from topiaxl_torch.core.config import build, load_config
+    from topiaxl_torch.pipelines.data import normalize_payload
+    from topiaxl_torch.pipelines.losses import vae_loss
+    from topiaxl_torch.pipelines.train_vae import (DEFAULT_WEIGHTS,
+                                                   create_vae_train_state,
+                                                   make_vae_train_step)
+
+    node = load_config(FLAGSHIP).model.vae
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vae = build(node, device="cuda", generator=gen,
+                param_dtype=torch.float32).train()
+    gt = normalize_payload(params.feat.detach())
+    init = {k: v.detach().clone() for k, v in vae.state_dict().items()}
+
+    # step 1 in f32 on 32 payloads, the same draw on both sides
+    sub = gt[:32].cpu()
+    noise = torch.randn((32, 1, 4, 4, 4), generator=torch.Generator()
+                        .manual_seed(8))
+
+    def first_step(dev, mode=False):
+        model = build(AttrDict(dict(node, dtype="fp32")), device=dev)
+        model.load_state_dict(init)
+        x = sub.to(dev)
+        post = model.encode(x)
+        z = post.mode() if mode else post.sample(noise=noise.to(dev))
+        loss, _ = vae_loss(x, model.decode(z), post, DEFAULT_WEIGHTS,
+                           "sep_l1")
+        loss.backward()
+        gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                               for p in model.parameters()))
+        return loss.item(), gnorm.item()
+
+    ref = first_step("cpu")
+    got, fault = first_step("cuda"), first_step("cuda", mode=True)
+    rel = lambda a: (abs(a[0] - ref[0]) / abs(ref[0]),  # noqa: E731
+                     abs(a[1] - ref[1]) / ref[1])
+    log(f"  VAE step 1, 32 payloads, f32: loss cpu {ref[0]:.6f} card "
+        f"{got[0]:.6f}, rel {rel(got)[0]:.3e} (bar {VAE_LOSS_BAR}); grad norm "
+        f"rel {rel(got)[1]:.3e} (bar {VAE_GNORM_BAR}); planted fault (the "
+        f"mode decoded): rel {rel(fault)[0]:.3e}, {rel(fault)[1]:.3e}")
+    if rel(got)[0] > VAE_LOSS_BAR or rel(got)[1] > VAE_GNORM_BAR:
+        raise AssertionError("VAE step: card vs cpu outside its bars")
+    if rel(fault)[0] <= VAE_LOSS_BAR and rel(fault)[1] <= VAE_GNORM_BAR:
+        raise AssertionError("VAE step: the bars cannot see the planted fault")
+
+    state = create_vae_train_state(vae, torch.optim.Adam(vae.parameters(),
+                                                         lr=3e-3))
+    step = make_vae_train_step(vae)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        m = step(state, {"gt": gt}, 9)
+        losses.append(m["loss_total"].item())
+        secs.append(time.perf_counter() - t0)
+        if not np.isfinite([losses[-1], m["grad_norm"].item()]).all():
+            raise AssertionError(f"VAE step {state.step}: not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = sorted(secs[1:])
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"  flagship VAE, batch 2048, bf16 compute, f32 masters: 20 Adam "
+        f"steps, loss {losses[0]:.5f} -> {losses[-1]:.5f} (first five mean "
+        f"{first:.5f}, last five {last:.5f}, bar {VAE_FALL}x); step "
+        f"{secs[0] * 1e3:.3f} ms first, median {warm[len(warm) // 2] * 1e3:.3f}"
+        f" ms after; peak device memory {peak:.2f} GiB")
+    if not last < VAE_FALL * first:
+        raise AssertionError(f"VAE loss did not fall: {first} -> {last}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "topiaxl_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -1769,6 +2118,13 @@ def main() -> int:
             train_long = phase_train_long(tmp)
     with Phase("train_parity"):
         phase_train_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("prepare_data"):
+            prepared = phase_prepare_data(tmp)
+        with Phase("train_from_shards"):
+            phase_train_from_shards(tmp, prepared["shards"])
+    with Phase("train_vae"):
+        phase_train_vae(prepared["params"])
 
     # launches: serving for the forward and LN kernels, the flagship
     # trainer for the single-pass backward, the 4096-prim trainer for the

@@ -52,6 +52,11 @@ def test_port_imports_without_jax():
         import topiaxl_torch.render
         import topiaxl_torch.render.geom
         import topiaxl_torch.models.matting_u2net
+        import topiaxl_torch.pipelines.losses
+        import topiaxl_torch.pipelines.train_vae
+        import topiaxl_torch.pipelines.fit
+        import topiaxl_torch.extract.mesh_sdf
+        import topiaxl_torch.cli.prepare_data
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
         assert not bad, bad
         print("ok")

@@ -116,7 +116,7 @@ def test_vae_decode_and_encode_match_jax():
     ref = np.asarray(jv.apply(params, jnp.asarray(x),
                               method=JaxVAE.encode).parameters)
     with torch.no_grad():
-        got = vae.encode(torch.from_numpy(x).permute(0, 4, 1, 2, 3))
+        got = vae.encode(torch.from_numpy(x).permute(0, 4, 1, 2, 3)).parameters
     np.testing.assert_allclose(got.permute(0, 2, 3, 4, 1).numpy(), ref,
                                atol=1e-4, rtol=0)
 

@@ -199,3 +199,60 @@ def test_cli_honours_inference_sampler(tmp_path):
 
     with pytest.raises(ValueError, match="sampler='foo'"):
         main([cfg_path, "inference.export_glb=false", "inference.sampler=foo"])
+
+
+@pytest.mark.parametrize("eta,clip", [(0.0, False), (0.7, False), (0.7, True)])
+def test_ddim_loop_options_match_jax(eta, clip):
+    """DDIM with ``eta`` (JAX's per-step draws fed in), ``clip_denoised``,
+    ``denoised_fn`` and ``keep_trajectory`` against ``jg.ddim_sample_loop``."""
+    noise = _noise((2, 16, 6), 6)
+    key = jax.random.PRNGKey(8)
+    jd, td = jax_diffusion("ddim12", **KW), create_diffusion("ddim12", **KW)
+    ref = jg.ddim_sample_loop(jd, _toy_jax, jnp.asarray(noise), key,
+                              clip_denoised=clip,
+                              denoised_fn=lambda x0: 0.9 * x0, eta=eta,
+                              keep_trajectory=True)
+    got = gaussian.ddim_sample_loop(
+        td, _toy_torch, torch.from_numpy(noise), clip_denoised=clip,
+        denoised_fn=lambda x0: 0.9 * x0, eta=eta, keep_trajectory=True,
+        step_noises=_jax_step_noises(key, td.num_timesteps, noise.shape))
+    assert got.trajectory.shape == (12, 2, 16, 6)
+    for a, b in ((got.sample, ref.sample), (got.pred_xstart, ref.pred_xstart),
+                 (got.trajectory, ref.trajectory)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=RTOL)
+    if clip:
+        assert got.pred_xstart.abs().max() <= 0.9 + 1e-6
+    plain = gaussian.ddim_sample_loop(td, _toy_torch, torch.from_numpy(noise))
+    assert plain.trajectory is None
+    assert (np.abs(plain.sample.numpy() - got.sample.numpy()).max() > 1e-3)
+
+
+def test_ddim_eta_draws_from_the_generator():
+    noise = torch.from_numpy(_noise((1, 8, 6), 9))
+    td = create_diffusion("ddim5", **KW)
+    runs = [gaussian.ddim_sample_loop(
+        td, _toy_torch, noise, eta=1.0,
+        generator=torch.Generator().manual_seed(s)).sample for s in (0, 0, 1)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+
+
+def test_calc_bpd_loop_and_prior_bpd_match_jax():
+    """The full bound over a 6-step chain (JAX's q_sample draws fed in),
+    x_start inside (-0.999, 0.999) and away from the t = 0 decoder NLL's
+    saturation (``ROADMAP.md`` queue 3, "Kept on purpose")."""
+    x0 = np.random.default_rng(10).uniform(-0.8, 0.8, (2, 16, 6)).astype("f")
+    key = jax.random.PRNGKey(11)
+    jd, td = jax_diffusion("ddim6", **KW), create_diffusion("ddim6", **KW)
+    ref = jg.calc_bpd_loop(jd, _toy_jax, jnp.asarray(x0), key)
+    got = gaussian.calc_bpd_loop(
+        td, _toy_torch, torch.from_numpy(x0),
+        step_noises=_jax_step_noises(key, td.num_timesteps, x0.shape))
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].shape == ref[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   atol=ATOL, rtol=RTOL, err_msg=k)
+    np.testing.assert_allclose(
+        gaussian.prior_bpd(td, torch.from_numpy(x0)).numpy(),
+        np.asarray(jg.prior_bpd(jd, jnp.asarray(x0))), atol=ATOL, rtol=RTOL)

@@ -121,6 +121,33 @@ def refuse_unported_checkpoints(cfg) -> None:
             f"model.conditioner.encoder_checkpoint_path)")
 
 
+def build_encoders(cfg, device, generator: torch.Generator):
+    """(vae, conditioner) built through the registry from the config's
+    ``model.vae`` and ``model.conditioner`` (each by its ``class_name``),
+    with the checkpoints loaded where the config names them: all that data
+    preparation needs (``cli/prepare_data.py``)."""
+    from .. import registry  # noqa: F401  (fills the factory table)
+    from ..core.config import build
+
+    refuse_unported_checkpoints(cfg)
+    vae = build(cfg.model.vae, device=device, generator=generator).eval()
+    conditioner = build(cfg.model.conditioner, device=device,
+                        generator=generator).eval()
+    if cfg.model.get("vae_checkpoint_path"):
+        vae.load_state_dict(_load_state_dict(cfg.model.vae_checkpoint_path,
+                                             "model_state_dict"))
+    else:
+        logger.warning("no vae_checkpoint_path: VAE runs with random init")
+    encoder = getattr(conditioner, "encoder", None)
+    if encoder is not None and cfg.model.conditioner.get(
+            "encoder_checkpoint_path"):
+        encoder.vit.load_state_dict(
+            _load_state_dict(cfg.model.conditioner.encoder_checkpoint_path))
+    elif encoder is not None:
+        logger.warning("no DINOv2 checkpoint: conditioner runs random init")
+    return vae, conditioner
+
+
 def build_models(cfg, device, generator: torch.Generator):
     """(dit, vae, conditioner) built through the registry from the config's
     ``model.generator``, ``model.vae`` and ``model.conditioner`` (each by
@@ -135,9 +162,7 @@ def build_models(cfg, device, generator: torch.Generator):
     refuse_unported_checkpoints(cfg)
     g = cfg.model.generator
     dit = build(g, device=device, generator=generator, quant=False).eval()
-    vae = build(cfg.model.vae, device=device, generator=generator).eval()
-    conditioner = build(cfg.model.conditioner, device=device,
-                        generator=generator).eval()
+    vae, conditioner = build_encoders(cfg, device, generator)
 
     if cfg.get("checkpoint_path"):
         dit.load_state_dict(_load_state_dict(cfg.checkpoint_path, "ema"))
@@ -151,18 +176,6 @@ def build_models(cfg, device, generator: torch.Generator):
         qdit.load_state_dict(quantize_dit_state_dict(qdit, dit.state_dict()))
         logger.info("quantized the DiT's block matmuls for int8 serving")
         dit = qdit
-    if cfg.model.get("vae_checkpoint_path"):
-        vae.load_state_dict(_load_state_dict(cfg.model.vae_checkpoint_path,
-                                             "model_state_dict"))
-    else:
-        logger.warning("no vae_checkpoint_path: VAE runs with random init")
-    encoder = getattr(conditioner, "encoder", None)
-    if encoder is not None and cfg.model.conditioner.get(
-            "encoder_checkpoint_path"):
-        encoder.vit.load_state_dict(
-            _load_state_dict(cfg.model.conditioner.encoder_checkpoint_path))
-    elif encoder is not None:
-        logger.warning("no DINOv2 checkpoint: conditioner runs random init")
     return dit, vae, conditioner
 
 

@@ -1,8 +1,13 @@
 """Gaussian diffusion (counterpart of ``topiaxl/diffusion/gaussian.py``):
 p_mean_variance; the three sampling chains as Python loops over the
-spaced timesteps (eta = 0 DDIM, ancestral, DPM-Solver++(2M)); q_sample
+spaced timesteps (DDIM with ``eta``, ancestral, DPM-Solver++(2M)); q_sample
 and the training losses (MSE on the eps / x0 / v target plus the
-variational-bound term for a learned variance).
+variational-bound term for a learned variance); the prior term and the
+full variational bound in bits per dim (``prior_bpd``, ``calc_bpd_loop``).
+
+Where a step draws noise (ancestral, DDIM with ``eta > 0``, the bound's
+q_sample), it comes from the caller's generator, one draw a step, or is
+given per step (``step_noises``), so a test can hand in the JAX draws.
 
 ``model_fn`` receives ``(x, t_original)``, where ``t_original`` is the
 spaced index already mapped through ``tables.timestep_map``.
@@ -81,9 +86,11 @@ class PMeanVariance(NamedTuple):
     pred_xstart: torch.Tensor
 
 
-def p_mean_variance(diffusion: Diffusion, model_fn: ModelFn, x,
-                    t) -> PMeanVariance:
-    """p(x_{t-1} | x_t) mean/variance and the x0 prediction (no clipping,
+def p_mean_variance(diffusion: Diffusion, model_fn: ModelFn, x, t,
+                    clip_denoised: bool = False,
+                    denoised_fn=None) -> PMeanVariance:
+    """p(x_{t-1} | x_t) mean/variance and the x0 prediction, which
+    ``denoised_fn`` maps and ``clip_denoised`` clips to [-1, 1] (neither,
     as the serving path calls it)."""
     tables = diffusion.tables
     nd = x.ndim
@@ -115,20 +122,38 @@ def p_mean_variance(diffusion: Diffusion, model_fn: ModelFn, x,
         pred_xstart = predict_xstart_from_v(tables, x, t, model_output)
     else:
         raise NotImplementedError(diffusion.mean_type)
+    if denoised_fn is not None:
+        pred_xstart = denoised_fn(pred_xstart)
+    if clip_denoised:
+        pred_xstart = pred_xstart.clamp(-1.0, 1.0)
     mean, _, _ = q_posterior_mean_variance(tables, pred_xstart, x, t)
     return PMeanVariance(mean, variance, log_variance, pred_xstart)
 
 
-def ddim_sample(diffusion: Diffusion, model_fn: ModelFn, x, t):
-    """One deterministic (eta = 0) DDIM step; returns (sample, pred_xstart)."""
+def ddim_sample(diffusion: Diffusion, model_fn: ModelFn, x, t,
+                clip_denoised: bool = False, denoised_fn=None,
+                eta: float = 0.0, noise=None):
+    """One DDIM step (reference gaussian_diffusion.py:531-578); returns
+    (sample, pred_xstart). With ``eta > 0`` it adds ``sigma * noise``
+    (none at t = 0), where ``noise`` is a standard normal like ``x``; at
+    ``eta = 0`` the step is deterministic and ``noise`` is not read."""
     tables = diffusion.tables
     nd = x.ndim
-    out = p_mean_variance(diffusion, model_fn, x, t)
+    out = p_mean_variance(diffusion, model_fn, x, t, clip_denoised,
+                          denoised_fn)
     eps = predict_eps_from_xstart(tables, x, t, out.pred_xstart)
+    ab = _extract(tables.alphas_cumprod, t, nd)
     ab_prev = _extract(tables.alphas_cumprod_prev, t, nd)
-    sample = (out.pred_xstart * torch.sqrt(ab_prev)
-              + torch.sqrt(1 - ab_prev) * eps)
-    return sample, out.pred_xstart
+    if not eta:
+        sample = (out.pred_xstart * torch.sqrt(ab_prev)
+                  + torch.sqrt(1 - ab_prev) * eps)
+        return sample, out.pred_xstart
+    sigma = (eta * torch.sqrt((1 - ab_prev) / (1 - ab))
+             * torch.sqrt(1 - ab / ab_prev))
+    mean_pred = (out.pred_xstart * torch.sqrt(ab_prev)
+                 + torch.sqrt(1 - ab_prev - sigma ** 2) * eps)
+    nonzero = (t != 0).float().reshape((-1,) + (1,) * (nd - 1))
+    return mean_pred + nonzero * sigma * noise, out.pred_xstart
 
 
 def p_sample(diffusion: Diffusion, model_fn: ModelFn, x, t, noise):
@@ -144,6 +169,15 @@ def p_sample(diffusion: Diffusion, model_fn: ModelFn, x, t, noise):
 class SampleLoopOutput(NamedTuple):
     sample: torch.Tensor
     pred_xstart: torch.Tensor
+    trajectory: torch.Tensor | None = None   # [steps, B, ...] per step
+
+
+def _step_noise(n: int, x: torch.Tensor, generator, step_noises):
+    """Step n's standard-normal noise: given, or drawn from ``generator``."""
+    if step_noises is not None:
+        return step_noises[n]
+    return torch.randn(x.shape, generator=generator, device=x.device,
+                       dtype=x.dtype)
 
 
 def _steps(diffusion: Diffusion, noise: torch.Tensor):
@@ -154,13 +188,26 @@ def _steps(diffusion: Diffusion, noise: torch.Tensor):
 
 
 def ddim_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
-                     noise: torch.Tensor) -> SampleLoopOutput:
-    """The eta = 0 DDIM chain from ``noise`` down to t = 0, one step per
-    spaced timestep."""
+                     noise: torch.Tensor, clip_denoised: bool = False,
+                     denoised_fn=None, eta: float = 0.0,
+                     keep_trajectory: bool = False,
+                     generator: torch.Generator | None = None,
+                     step_noises=None) -> SampleLoopOutput:
+    """The DDIM chain from ``noise`` down to t = 0, one step per spaced
+    timestep (reference gaussian_diffusion.py:651-698). With ``eta > 0``
+    step n adds ``step_noises[n]`` or a draw from ``generator``; at eta 0
+    nothing is drawn. ``keep_trajectory`` also returns every step's
+    sample."""
     x, pred = noise, torch.zeros_like(noise)
-    for t in _steps(diffusion, noise):
-        x, pred = ddim_sample(diffusion, model_fn, x, t)
-    return SampleLoopOutput(x, pred)
+    traj = []
+    for n, t in enumerate(_steps(diffusion, noise)):
+        z = _step_noise(n, x, generator, step_noises) if eta else None
+        x, pred = ddim_sample(diffusion, model_fn, x, t, clip_denoised,
+                              denoised_fn, eta, z)
+        if keep_trajectory:
+            traj.append(x)
+    return SampleLoopOutput(x, pred,
+                            torch.stack(traj) if keep_trajectory else None)
 
 
 def p_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
@@ -173,8 +220,7 @@ def p_sample_loop(diffusion: Diffusion, model_fn: ModelFn,
     JAX loop draws one per key of ``jax.random.split(key, num_steps)``)."""
     x, pred = noise, torch.zeros_like(noise)
     for n, t in enumerate(_steps(diffusion, noise)):
-        z = (step_noises[n] if step_noises is not None else torch.randn(
-            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        z = _step_noise(n, x, generator, step_noises)
         x, pred = p_sample(diffusion, model_fn, x, t, z)
     return SampleLoopOutput(x, pred)
 
@@ -255,12 +301,13 @@ def mean_flat(x):
     return x.reshape(x.shape[0], -1).mean(dim=-1)
 
 
-def vb_terms_bpd(diffusion: Diffusion, model_fn: ModelFn, x_start, x_t, t):
+def vb_terms_bpd(diffusion: Diffusion, model_fn: ModelFn, x_start, x_t, t,
+                 clip_denoised: bool = False):
     """Variational-bound term in bits/dim (reference
     gaussian_diffusion.py:700-731); returns (bpd [B], pred_xstart)."""
     true_mean, _, true_log_var = q_posterior_mean_variance(
         diffusion.tables, x_start, x_t, t)
-    out = p_mean_variance(diffusion, model_fn, x_t, t)
+    out = p_mean_variance(diffusion, model_fn, x_t, t, clip_denoised)
     kl = mean_flat(normal_kl(true_mean, true_log_var, out.mean,
                              out.log_variance)) / math.log(2.0)
     decoder_nll = -discretized_gaussian_log_likelihood(
@@ -311,3 +358,38 @@ def training_losses(diffusion: Diffusion, model_fn: ModelFn, x_start, t,
     terms["loss_mse"] = mean_flat((target - model_output) ** 2)
     terms["loss_total"] = terms["loss_mse"] + terms.get("loss_vb", 0.0)
     return terms
+
+
+def prior_bpd(diffusion: Diffusion, x_start):
+    """Prior KL term in bits/dim (reference gaussian_diffusion.py:808-822)."""
+    t = torch.full((x_start.shape[0],), diffusion.num_timesteps - 1,
+                   dtype=torch.long, device=x_start.device)
+    qt_mean, _, qt_log_var = q_mean_variance(diffusion.tables, x_start, t)
+    zero = torch.zeros((), device=x_start.device)
+    return mean_flat(normal_kl(qt_mean, qt_log_var, zero, zero)) / math.log(2.0)
+
+
+def calc_bpd_loop(diffusion: Diffusion, model_fn: ModelFn, x_start,
+                  generator: torch.Generator | None = None,
+                  clip_denoised: bool = False, step_noises=None) -> dict:
+    """The full variational bound in bits/dim over every timestep
+    (reference gaussian_diffusion.py:824-877): {total_bpd [B], prior_bpd
+    [B], vb [B, T], xstart_mse [B, T], mse [B, T]}, column 0 at t = T - 1
+    as in the reference's reversed loop. Step n's q_sample noise is
+    ``step_noises[n]`` or a draw from ``generator``."""
+    tables = diffusion.tables
+    vb, xstart_mse, mse = [], [], []
+    for n, t in enumerate(_steps(diffusion, x_start)):
+        noise = _step_noise(n, x_start, generator, step_noises)
+        x_t = q_sample(tables, x_start, t, noise)
+        term, pred_xstart = vb_terms_bpd(diffusion, model_fn, x_start, x_t, t,
+                                         clip_denoised)
+        vb.append(term)
+        xstart_mse.append(mean_flat((pred_xstart - x_start) ** 2))
+        eps = predict_eps_from_xstart(tables, x_t, t, pred_xstart)
+        mse.append(mean_flat((eps - noise) ** 2))
+    vb = torch.stack(vb, dim=1)
+    prior = prior_bpd(diffusion, x_start)
+    return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior, "vb": vb,
+            "xstart_mse": torch.stack(xstart_mse, dim=1),
+            "mse": torch.stack(mse, dim=1)}

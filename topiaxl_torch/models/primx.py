@@ -11,6 +11,13 @@ matrix. Trilinear sampling is ``grid_sample(align_corners=True,
 padding_mode="zeros")`` semantics, done as 8 corner gathers from the
 [N * S^3, C] payload rows: volumes are never expanded per point. Payload
 volumes are [z, y, x] against xyz coordinates.
+
+``query(training=True)`` (fitting) skips the fallback; its gradients reach
+``srt`` through the tent weights and the local coordinates and ``feat``
+through ``gather_trilinear``'s element gather, whose backward is a
+scatter-add (not bitwise repeatable on the card). ``PrimXParams`` holds
+the JAX package's ``srt`` [N, 4] and ``feat`` [N, C * S^3] unchanged (the
+same layout: ``torch.from_numpy`` of its arrays).
 """
 
 from __future__ import annotations
@@ -26,6 +33,13 @@ class PrimXParams(NamedTuple):
 
     srt: torch.Tensor
     feat: torch.Tensor
+
+
+def zeros_params(num_prims: int = 2048, dim_feat: int = 6,
+                 prim_shape: int = 8, device=None) -> PrimXParams:
+    return PrimXParams(
+        srt=torch.zeros((num_prims, 4), device=device),
+        feat=torch.zeros((num_prims, dim_feat * prim_shape**3), device=device))
 
 
 def local_grid(prim_shape: int) -> np.ndarray:
@@ -86,10 +100,12 @@ def gather_trilinear(rows: torch.Tensor, idx: torch.Tensor,
 
 
 def query(params: PrimXParams, x: torch.Tensor, dim_feat: int = 6,
-          prim_shape: int = 8, top_k: int = 32, with_fallback: bool = True,
-          outputs: tuple | None = None):
+          prim_shape: int = 8, top_k: int = 32, training: bool = False,
+          with_fallback: bool = True, outputs: tuple | None = None):
     """Field at points x [P, 3] -> dict(sdf [P,1], tex [P,3], mat [P,2],
-    feat [P,C]), restricted to ``outputs`` when given."""
+    feat [P,C]), restricted to ``outputs`` when given. Uncovered points
+    take the nearest-voxel SDF fallback unless ``training`` (or
+    ``with_fallback=False``)."""
     N = params.srt.shape[0]
     S, C = prim_shape, dim_feat
     pos = params.srt[:, 1:4]
@@ -118,7 +134,7 @@ def query(params: PrimXParams, x: torch.Tensor, dim_feat: int = 6,
         feat = blended.new_zeros((x.shape[0], C))
         feat[:, ch0:ch1] = blended
 
-    if with_fallback:
+    if not training and with_fallback:
         covered = wsum[:, 0] > 0
         near = torch.linalg.norm(x[:, None, :] - pos[None], dim=-1).argmin(-1)
         grid = torch.as_tensor(local_grid(S), device=x.device)
@@ -148,3 +164,25 @@ def query_chunked(params: PrimXParams, pts: torch.Tensor, chunk: int = 32768,
     outs = [query(params, pts[i:i + chunk], **kw)
             for i in range(0, pts.shape[0], chunk)]
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
+class PrimX(NamedTuple):
+    """Model descriptor built from a config (``topiaxl.PrimX``); the
+    fitting state lives in ``pipelines/fit.py``."""
+
+    num_prims: int = 2048
+    dim_feat: int = 6
+    prim_shape: int = 8
+    init_scale: float = 0.05
+    sdf2alpha_var: float = 0.005
+    auto_scale_init: bool = True
+    init_sampling: str = "uniform"
+
+    def init_params(self, device=None) -> PrimXParams:
+        return zeros_params(self.num_prims, self.dim_feat, self.prim_shape,
+                            device)
+
+    def query(self, params: PrimXParams, x: torch.Tensor, **kw):
+        kw.setdefault("dim_feat", self.dim_feat)
+        kw.setdefault("prim_shape", self.prim_shape)
+        return query(params, x, **kw)

@@ -9,6 +9,9 @@
 * ``prefetch_to_device``: copies host batches to the device through
   pinned memory on a side stream, ``depth`` batches ahead, so the copy
   overlaps the current step.
+* ``encode_assets``: PrimX params -> normalised DiT tokens through the
+  VAE encoder and the latent statistics (dataset preparation), the
+  inverse of ``pipelines/infer.py:decode_primx``.
 """
 
 from __future__ import annotations
@@ -109,3 +112,36 @@ def prefetch_to_device(it: Iterator[dict], device, depth: int = 2
             yield take()
     while buf:
         yield take()
+
+
+def normalize_payload(payload: torch.Tensor, dim_feat: int = 6
+                      ) -> torch.Tensor:
+    """Payloads [N, C * S^3] (channel-major) -> the VAE's input [N, C, S,
+    S, S]: sdf * 5, the other channels * 2 - 1 (the reference's
+    normalisation; ``decode_primx`` inverts it)."""
+    N = payload.shape[0]
+    S = round((payload.shape[-1] // dim_feat) ** (1 / 3))
+    vol = payload.reshape(N, dim_feat, S, S, S)
+    return torch.cat([vol[:, :1] * 5.0, vol[:, 1:] * 2.0 - 1.0], dim=1)
+
+
+@torch.no_grad()
+def encode_assets(vae, srt, payload, latent_mean, latent_std,
+                  latent_nf: float = 1.0,
+                  generator: torch.Generator | None = None,
+                  dim_feat: int = 6) -> np.ndarray:
+    """PrimX params (srt [N, 4], payload [N, C * S^3], tensors or arrays)
+    -> normalised DiT tokens [N, 4 + L] as numpy: the payload normalised
+    and encoded on the VAE's device, the posterior's mode (or a draw from
+    ``generator``), the latent flattened channels-last as the JAX package
+    flattens it, ``[srt | latent]`` normalised by the latent statistics on
+    the host, as the JAX package does."""
+    dev = next(vae.parameters()).device
+    payload = torch.as_tensor(payload).to(dev, torch.float32)
+    posterior = vae.encode(normalize_payload(payload, dim_feat))
+    z = posterior.mode() if generator is None else posterior.sample(generator)
+    lat = torch.movedim(z, 1, -1).reshape(z.shape[0], -1).float().cpu().numpy()
+    srt = torch.as_tensor(srt).float().cpu().numpy()
+    tokens = np.concatenate([srt, lat], axis=-1)
+    return ((tokens - np.asarray(latent_mean)) / np.asarray(latent_std)
+            * latent_nf)

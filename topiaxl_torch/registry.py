@@ -5,8 +5,8 @@ same names: its ``topiaxl.*`` names and the reference's dotted class
 paths (the names are strings; nothing of the JAX package is imported).
 ``core.config.build(cfg, device=..., generator=...)`` instantiates one;
 ``device`` and ``generator`` reach the models' constructors (the
-generator fills their random init), and the DiT factories also take
-``param_dtype`` (f32 master weights for training).
+generator fills their random init), and the DiT and VAE factories also
+take ``param_dtype`` (f32 master weights for training).
 
 Keys as the JAX factories read them, with the same defaults;
 ``gradient_checkpointing: true`` maps to the DiT's ``remat=True`` and
@@ -73,7 +73,7 @@ def make_dit_additive(device=None, generator=None, param_dtype=None, **kw):
 
 
 @register("topiaxl.VAE3D", "models.vae3d_dib.VAE")
-def make_vae(device=None, generator=None, **kw):
+def make_vae(device=None, generator=None, param_dtype=None, **kw):
     from .models.vae3d import VAE3D
 
     kw.pop("gradient_checkpointing", None)
@@ -84,7 +84,17 @@ def make_vae(device=None, generator=None, **kw):
                  mid_attention=kw.get("mid_attention", True),
                  up_channels=tuple(kw.get("up_channels", (256, 32))),
                  layers_per_block=kw.get("layers_per_block", 2),
-                 dtype=_dtype(kw), device=device, generator=generator)
+                 dtype=_dtype(kw), param_dtype=param_dtype, device=device,
+                 generator=generator)
+
+
+@register("topiaxl.PrimX", "models.primsdf.PrimSDF")
+def make_primx(device=None, generator=None, **kw):
+    from .models.primx import PrimX
+
+    return PrimX(**{k: kw[k] for k in (
+        "num_prims", "dim_feat", "prim_shape", "init_scale", "sdf2alpha_var",
+        "auto_scale_init", "init_sampling") if k in kw})
 
 
 @register("topiaxl.DinoV2Wrapper",
@@ -148,8 +158,6 @@ def _not_ported(names: tuple, item: str) -> None:
     register(*names)(make)
 
 
-_not_ported(("topiaxl.PrimX", "models.primsdf.PrimSDF"),
-            "#7, with pipelines/fit.py")
 _not_ported(("topiaxl.TextConditioner",
              "models.conditioner.text.TextConditioner"), "#8")
 _not_ported(("topiaxl.CLIPImageEncoder",
