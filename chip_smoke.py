@@ -73,6 +73,30 @@ the script exits non-zero without a result line):
     steps on the 2048 fitted payloads of one asset: the loss falls; step
     1 card vs CPU in f32 with a planted fault; ms a step, peak memory.
 
+20. clip: both CLIP towers (``models/conditioner/clip.py``) at the JAX
+    defaults (B/32) and at CLIP ViT-L/14's published widths, random
+    weights, card vs CPU with planted faults, ms per batch of 8; then one
+    image served through ``cli.infer`` on B/32's 50 tokens to a GLB
+    (``CLIPImageEncoder`` with ``tokens``, read from a transformers-layout
+    directory this phase writes; stage 2 at mc 128, decimated to 5000
+    faces, box unwrap),
+    with the chain's exact launches (flash for self-attention only: 50
+    keys take the plain form).
+21. vgg: the masked VGG19 loss at 512², batch 4, card vs CPU with a
+    planted fault, its ms and peak memory.
+22. ring: ring attention over P token blocks emulated in one process
+    (``ops/ring_attention.py``'s ``LocalRing``: the ranks' code with the
+    rotation in memory) at the flagship shape (P = 2, 4; the single-pass
+    backward) and at 8192 prims (P = 2; the two-pass pair), against one
+    flash forward and backward over the whole sequence, with the
+    block's-own-lse fault, its launches of #1 and #4-#6 and its ms.
+23. dp: ``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the
+    one card (``torchrun``; gloo, which NCCL's one-rank-a-card rule
+    leaves) at the flagship DiT (28 blocks, remat), against one process
+    at the same global batch of 8: losses, grad norms, Adam moments,
+    parameters; then the same under two planted faults (no gradient
+    sync; both ranks on the same rows).
+
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
 seconds. After stage 2 come four phases of the renderer, U^2-Net and
@@ -246,6 +270,43 @@ MESH_SDF_ABS_BAR = 1e-5
 VAE_LOSS_BAR = 1e-5
 VAE_GNORM_BAR = 1e-4
 VAE_FALL = 0.7
+# clip: each tower card vs CPU, f32 on both (TF32 off): max |card - cpu| /
+# max |cpu| of pooled and last_hidden_state; the planted faults (the text
+# tower pooling at the last position or attending without its causal mask,
+# the vision tower pooling a patch token or skipping its pre-LayerNorm)
+# must land above it. The widths: the JAX towers' defaults (B/32) and CLIP
+# ViT-L/14's published ones.
+CLIP_REL_BAR = 1e-4
+CLIP_WIDTHS = {
+    "B/32": ({}, {}),
+    "L/14": (dict(hidden_size=768, num_layers=12, num_heads=12, mlp_dim=3072),
+             dict(hidden_size=1024, num_layers=24, num_heads=16, mlp_dim=4096,
+                  patch_size=14)),
+}
+# vgg: the masked VGG19 loss at 512², batch 4, card vs CPU (f32, TF32 off),
+# relative; the loss without its mask (a planted fault) must land above it
+VGG_REL_BAR = 1e-4
+# ring: the ring emulated in one process (LocalRing) against one flash
+# forward and backward over the whole sequence, at the flash kernels' bars
+# (max |ring - one launch| / max |one launch|); the backward against each
+# block's own o and lse (a planted fault) must land above the backward's
+RING_CASES = (("flagship", 2, 2048, (2, 4)), ("8192 prims", 1, 8192, (2,)))
+# dp: cli.train over two ranks on the one card (train.mesh.dp=-1, batch 4 a
+# rank) against one process at batch 8, the flagship DiT with remat, lr
+# from step 0: each step's loss and grad norm, Adam's first moment (norm of
+# the difference over norm), and the parameters' update (norm of the
+# difference over the update's norm: Adam's first step moves each weight by
+# about lr * sign(g), so a gradient entry near 0 whose sign rounding flips
+# moves by 2 lr, and bf16 weight gradients summed per rank round apart).
+# On an H100 sound ranks read 0 / 1.8e-5 / 2.9e-3 / 3.2e-2; ranks without
+# the gradient sync 7.6e-6 / 0.42 / 1.05 / 1.20, ranks on the same rows
+# 9.7e-4 / 7.7e-2 / 0.94 / 1.30. Each bar sits between the sound reading
+# and the faults' (the loss bar below the same-rows fault only), and each
+# fault must cross one
+DP_LOSS_REL = 1e-4
+DP_GNORM_REL = 1e-3
+DP_MU_REL = 2e-2
+DP_UPDATE_REL = 0.2
 
 # the card's peaks for the bounds (H100 SXM data sheet: dense bf16 on the
 # tensor cores, f32 outside them, HBM3)
@@ -2066,6 +2127,439 @@ def phase_train_vae(params) -> None:
         raise AssertionError(f"VAE loss did not fall: {first} -> {last}")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def clip_inputs(kind: str, kw: dict, rng):
+    """A batch of 8: token ids [8, 77] whose rows end at their first EOS
+    (padded with EOS after it, as CLIP's tokenizer pads), the last row
+    without one; or normalised pixels [8, 224, 224, 3]."""
+    import torch
+
+    if kind == "vision":
+        return torch.from_numpy(rng.standard_normal(
+            (8, 224, 224, 3)).astype(np.float32))
+    ids = rng.integers(1, 49406, (8, 77))
+    for b, end in enumerate(rng.integers(4, 77, 7)):
+        ids[b, end:] = 49407
+    return torch.from_numpy(ids)
+
+
+def write_clip_dir(path: str, tower) -> str:
+    """A transformers-layout directory (config.json, pytorch_model.bin
+    under ``vision_model.``) holding ``tower``, as a user's checkpoint
+    would be laid out; nothing of transformers is needed."""
+    import torch
+
+    os.makedirs(path, exist_ok=True)
+    blk = tower.encoder.layers[0]
+    cfg = {"model_type": "clip_vision_model", "hidden_act": "quick_gelu",
+           "hidden_size": blk.mlp.fc1.in_features,
+           "intermediate_size": blk.mlp.fc1.out_features,
+           "num_hidden_layers": len(tower.encoder.layers),
+           "num_attention_heads": blk.self_attn.num_heads,
+           "patch_size": tower.embeddings.patch_embedding.kernel_size[0],
+           "image_size": tower.image_size}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    torch.save({f"vision_model.{k}": v.cpu() for k, v in
+                tower.state_dict().items()},
+               os.path.join(path, "pytorch_model.bin"))
+    return path
+
+
+def phase_clip(tmp: str) -> None:
+    """Both CLIP towers at B/32 and L/14 widths, random weights, card vs
+    CPU with planted faults, ms per batch of 8; then one image served
+    through the CLI on B/32's 50 tokens (``CLIPImageEncoder``, tokens)."""
+    import torch
+
+    from topiaxl_torch.models.conditioner.clip import (
+        CLIPTextTower, CLIPVisionTower, load_clip_tower)
+
+    card_id = card_line()
+    b32_vision = None
+    for tag, (text_kw, vision_kw) in CLIP_WIDTHS.items():
+        for kind, cls, kw in (("text", CLIPTextTower, text_kw),
+                              ("vision", CLIPVisionTower, vision_kw)):
+            cpu = cls(generator=torch.Generator().manual_seed(3), **kw).eval()
+            card = cls(device="cuda", **kw).eval()
+            card.load_state_dict(cpu.state_dict())
+            x = clip_inputs(kind, kw, np.random.default_rng(5))
+            xc = x.cuda()
+            with torch.no_grad():
+                ref = cpu(x)
+                got = {k: v.cpu() for k, v in card(xc).items()}
+                if kind == "text":
+                    f_pool = got["last_hidden_state"][:, -1]
+                    for layer in card.encoder.layers:
+                        layer.self_attn.causal = False
+                    f_lhs = card(xc)["last_hidden_state"].cpu()
+                    for layer in card.encoder.layers:
+                        layer.self_attn.causal = True
+                    names = ("pooling at the last position",
+                             "no causal mask")
+                else:
+                    f_pool = card.post_layernorm(
+                        got["last_hidden_state"][:, 1].cuda()).cpu()
+                    pre, card.pre_layrnorm = (card.pre_layrnorm,
+                                              torch.nn.Identity())
+                    f_lhs = card(xc)["last_hidden_state"].cpu()
+                    card.pre_layrnorm = pre
+                    names = ("pooling patch 1", "no pre-LayerNorm")
+                ms = events_ms(lambda: card(xc), 10)
+            errs = {k: rel_err(got[k], ref[k]) for k in ref}
+            faults = {names[0]: rel_err(f_pool, ref["pooled"]),
+                      names[1]: rel_err(f_lhs, ref["last_hidden_state"])}
+            log(f"  {tag} {kind} tower {tuple(x.shape)}: card vs cpu max rel "
+                f"err pooled {errs['pooled']:.3e}, last_hidden_state "
+                f"{errs['last_hidden_state']:.3e} (bar {CLIP_REL_BAR}); "
+                f"faults {', '.join(f'{k} {v:.3e}' for k, v in faults.items())}"
+                f"; {ms:.3f} ms per batch of 8 ({card_id})")
+            if not max(errs.values()) <= CLIP_REL_BAR:
+                raise AssertionError(f"clip {tag} {kind}: {errs}")
+            if not min(faults.values()) > CLIP_REL_BAR:
+                raise AssertionError(f"clip {tag} {kind}: the bar cannot see "
+                                     f"{faults}")
+            if tag == "B/32" and kind == "vision":
+                b32_vision = cpu
+            del cpu, card
+    path = write_clip_dir(os.path.join(tmp, "clip_b32"), b32_vision)
+    loaded = load_clip_tower(path, "vision")
+    for k, v in b32_vision.state_dict().items():
+        if not torch.equal(loaded.state_dict()[k], v):
+            raise AssertionError(f"load_clip_tower: {k} differs")
+    enc = "model.conditioner.encoder_config"
+    # flash for the 2048-key self-attention only: the cross-attention's 50
+    # keys, and the encoder's, take the plain form (the shape rule)
+    launches = dict(serving_launches(25), flash_attn_fwd=25 * 28)
+    # a random DiT's field is rough (1.4M isosurface faces at mc 128): the
+    # unwrap of 100k of them took 219 s on the card, of 5k it is short
+    _, recs = run_cli(tmp, "clip", 1, [
+        f"{enc}.class_name=topiaxl.CLIPImageEncoder",
+        f"{enc}.model_name_or_path={path}", f"{enc}.tokens=true",
+        "inference.export_glb=true", "inference.mc_resolution=128",
+        "inference.fast_unwrap=true", "inference.decimate=5000"], launches)
+    out = os.path.join(tmp, "runs_clip", "inference", "topiaxl-sview",
+                       "inference_folder", recs[0]["image"])
+    glb = os.path.join(out, "pbr_mesh.glb")
+    if os.path.exists(glb):
+        from topiaxl_torch.extract.glb import read_glb
+
+        glb_msg = f"GLB parses ({len(read_glb(glb)[0]['meshes'])} mesh)"
+    else:
+        glb_msg = "no GLB: the random DiT's field has no isosurface"
+    log(f"  served on B/32's 50 tokens through cli.infer: encode "
+        f"{recs[0]['encode_s']:.3f} s, stage1 {recs[0]['stage1_s']:.3f} s, "
+        f"stage2 {recs[0]['stage2_s']:.3f} s; {glb_msg} ({card_id})")
+
+
+def phase_vgg() -> None:
+    """The masked VGG19 loss at 512², batch 4: card vs CPU with a planted
+    fault, the loss's ms and peak memory."""
+    import torch
+
+    from topiaxl_torch.models.vgg import VGG19Features, vgg_loss_masked
+
+    cpu = VGG19Features(generator=torch.Generator().manual_seed(4)).eval()
+    card = VGG19Features(device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    x, y = (torch.from_numpy(rng.uniform(0, 1, (4, 512, 512, 3)).astype(
+        np.float32)) for _ in "xy")
+    mask = torch.from_numpy((rng.uniform(0, 1, (4, 512, 512, 1)) > 0.3)
+                            .astype(np.float32))
+    xc, yc, mc = x.cuda(), y.cuda(), mask.cuda()
+    with torch.no_grad():
+        ref = vgg_loss_masked(cpu, x, y, mask).item()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = vgg_loss_masked(card, xc, yc, mc).item()
+        peak = torch.cuda.max_memory_allocated() - base
+        fault = vgg_loss_masked(card, xc, yc, torch.ones_like(mc)).item()
+        ms = events_ms(lambda: vgg_loss_masked(card, xc, yc, mc), 5)
+    rel, f_rel = abs(got - ref) / abs(ref), abs(fault - ref) / abs(ref)
+    log(f"  vgg_loss_masked 4x512x512: card {got:.6f}, cpu {ref:.6f}, rel err "
+        f"{rel:.3e} (bar {VGG_REL_BAR}; fault without the mask {f_rel:.3e}); "
+        f"{ms:.3f} ms, peak {peak / 2 ** 30:.2f} GiB above its inputs "
+        f"({card_line()})")
+    if not rel <= VGG_REL_BAR:
+        raise AssertionError(f"vgg loss card vs cpu: {rel}")
+    if not f_rel > VGG_REL_BAR:
+        raise AssertionError(f"vgg: the bar cannot see the unmasked loss "
+                             f"({f_rel})")
+
+
+def phase_ring() -> dict:
+    """The ring over P token blocks emulated in one process (the same
+    ``ring_forward`` / ``ring_backward`` as across ranks, the rotation a
+    list rotation) against one flash forward and backward over the whole
+    sequence, with a planted fault; launches and ms per ring pass."""
+    import torch
+
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.ops import flash_attention as fa
+    from topiaxl_torch.ops.ring_attention import (LocalRing, ring_backward,
+                                                  ring_forward)
+
+    card_id = card_line()
+    g = torch.Generator("cuda").manual_seed(7)
+    scale = 72 ** -0.5
+    launches = {}
+
+    def counted(fn):
+        _cuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in _cuda.launches.items() if v}
+
+    for tag, B, N, parts in RING_CASES:
+        q, k, v, do = (torch.randn((B, N, 16, 72), generator=g, device="cuda")
+                       .bfloat16() for _ in range(4))
+        o_ref, lse_ref = fa._forward(q, k, v, scale, return_lse=True)
+        grads_ref = fa.flash_attention_backward(q, k, v, o_ref, lse_ref, do,
+                                                scale)
+        one_fwd = events_ms(lambda: fa._forward(q, k, v, scale, True), 10)
+        one_bwd = events_ms(lambda: fa.flash_attention_backward(
+            q, k, v, o_ref, lse_ref, do, scale), 10)
+        for P in parts:
+            qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(P, dim=1)]
+                               for t in (q, k, v, do))
+            ring = LocalRing(P)
+            (outs, lses), fwd_n = counted(
+                lambda: ring_forward(ring, qs, ks, vs, scale))
+            grads, bwd_n = counted(lambda: ring_backward(
+                ring, qs, ks, vs, outs, lses, dos, scale))
+            o_err = rel_err(torch.cat(outs, 1), o_ref)
+            lse_err = (torch.cat(lses, 2) - lse_ref).abs().max().item()
+            g_err = max(rel_err(torch.cat(a, 1), b)
+                        for a, b in zip(grads, grads_ref))
+            # planted fault: each block's backward on its own o and lse
+            fq = [torch.zeros_like(t, dtype=torch.float32) for t in qs]
+            fk = [torch.zeros_like(t, dtype=torch.float32) for t in ks]
+            fv = [torch.zeros_like(t, dtype=torch.float32) for t in vs]
+            for i in range(P):
+                for j in range(P):
+                    o_b, l_b = fa._forward(qs[i], ks[j], vs[j], scale, True)
+                    gq, gk, gv = fa.flash_attention_backward(
+                        qs[i], ks[j], vs[j], o_b, l_b, dos[i], scale)
+                    fq[i] += gq.float()
+                    fk[j] += gk.float()
+                    fv[j] += gv.float()
+            fault = max(rel_err(torch.cat(a, 1), b)
+                        for a, b in zip((fq, fk, fv), grads_ref))
+            fwd_ms = events_ms(lambda: ring_forward(ring, qs, ks, vs, scale), 5)
+            bwd_ms = events_ms(lambda: ring_backward(
+                ring, qs, ks, vs, outs, lses, dos, scale), 5)
+            form = fa.bwd_form(N // P)
+            want_fwd = {"flash_attn_fwd": P * P}
+            want_bwd = ({"flash_attn_bwd": P * P} if form == "fused" else
+                        {"flash_attn_bwd_dq": P * P,
+                         "flash_attn_bwd_dkv": P * P})
+            log(f"  ring {tag} {B}x{N}x16x72 bf16 over P={P} ({N // P} keys a "
+                f"block, {form} backward): out max rel err {o_err:.3e} (bar "
+                f"{ATTN_REL_BAR}), lse max abs err {lse_err:.3e}, dq/dk/dv "
+                f"max rel err {g_err:.3e} (bar {ATTN_BWD_REL_BAR}; fault "
+                f"block's own lse {fault:.3e}); launches forward {fwd_n}, "
+                f"backward {bwd_n}; ring forward {fwd_ms:.4f} ms, backward "
+                f"{bwd_ms:.4f} ms (all P ranks in turn) against one launch's "
+                f"{one_fwd:.4f} / {one_bwd:.4f} ms ({card_id})")
+            if fwd_n != want_fwd or bwd_n != want_bwd:
+                raise AssertionError(f"ring launches {fwd_n}, {bwd_n} != "
+                                     f"{want_fwd}, {want_bwd}")
+            if not (o_err <= ATTN_REL_BAR and lse_err <= LSE_ABS_BAR
+                    and g_err <= ATTN_BWD_REL_BAR):
+                raise AssertionError(f"ring {tag} P={P}: {o_err}, {lse_err}, "
+                                     f"{g_err}")
+            if not fault > ATTN_BWD_REL_BAR:
+                raise AssertionError(f"ring {tag} P={P}: the bar cannot see "
+                                     f"the block's own lse ({fault})")
+            launches[f"{tag} P={P}"] = {"forward": fwd_n, "backward": bwd_n}
+    return launches
+
+
+# ranks that run cli.train's main under a planted fault, one fault after
+# the other in one torchrun (the process group made here, so main leaves
+# it standing): argv[1] is the repository, argv[2] a JSON list of
+# [fault, overrides...]
+DP_FAULT_DRIVER = r'''
+import gc, json, sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.parallel
+
+sys.path.insert(0, sys.argv[1])
+from topiaxl_torch.cli.train import main
+from topiaxl_torch.parallel.mesh import init_distributed
+from topiaxl_torch.pipelines import data
+
+
+def same_rows(batches):
+    """Both halves of every global batch are its first half: the two
+    ranks read the same rows."""
+    def patched(batch_size, *a, **k):
+        for b in batches(batch_size, *a, **k):
+            h = batch_size // 2
+            yield {n: np.concatenate([v[:h], v[:h]]) for n, v in b.items()}
+    return patched
+
+
+FAULTS = {
+    # every rank steps on its own gradient
+    "no gradient sync": (torch.nn.parallel, "DistributedDataParallel",
+                         lambda module, **kw: module),
+    "same rows on both ranks": (data, "synthetic_batches",
+                                same_rows(data.synthetic_batches)),
+}
+init_distributed(torch.device("cuda"))
+for fault, *argv in json.loads(sys.argv[2]):
+    owner, name, patch = FAULTS[fault]
+    keep = getattr(owner, name)
+    setattr(owner, name, patch)
+    try:
+        if main(argv) != 0:
+            raise SystemExit(f"{fault}: cli.train failed")
+    finally:
+        setattr(owner, name, keep)
+    gc.collect()
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+'''
+
+
+def phase_dp(tmp: str) -> None:
+    """``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the one
+    card (``torchrun``; the kernels were built by the build phase, so the
+    ranks load them and never build at once) against one process at the
+    same global batch, at the flagship DiT (28 blocks, remat); then the
+    same comparison under each planted fault (``DP_FAULT_DRIVER``)."""
+    import torch
+
+    from topiaxl_torch.cli.train import build_dit, main
+    from topiaxl_torch.core.checkpoint import CheckpointManager
+    from topiaxl_torch.core.config import load_config
+
+    card_id = card_line()
+    common = ["train.synthetic=true", "model.generator.remat=true",
+              "scheduler.warmup_iters=0", "train.max_steps=2",
+              "train.log_every_n_steps=1", "train.ckpt_every_n_steps=1000000",
+              "train.keep_ckpts=1"]
+    ranks = ["train.batch_size=4", "train.mesh.dp=-1"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "2"]
+
+    def overrides(name: str, extra: list) -> list:
+        return [*common, f"root_data_dir={tmp}/dp_{name}", *extra]
+
+    def result(name: str, extra: list) -> tuple[list, dict]:
+        """A run's logged metrics and its last checkpoint's parameters and
+        Adam mu (on the host); the checkpoint is then deleted."""
+        d = os.path.join(load_config(FLAGSHIP, overrides=overrides(
+            name, extra)).output_dir, "train")
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        sd = CheckpointManager(os.path.join(d, "ckpts")).restore()
+        shutil.rmtree(os.path.join(d, "ckpts"))
+        return metrics, {"params": sd["params"], "mu": sd["opt"]["mu"]}
+
+    def launch(cmd: list, what: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        out = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            log(out[-6000:])
+            raise AssertionError(f"torchrun {what} exited {proc.returncode}")
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if main([FLAGSHIP, *overrides("single", ["train.batch_size=8"])]) != 0:
+        raise AssertionError("cli.train (one process) failed")
+    wall_single = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    single = result("single", ["train.batch_size=8"])
+    cfg = load_config(FLAGSHIP, overrides=common)
+    p0 = {n: t.cpu() for n, t in build_dit(
+        cfg.model.generator, torch.device("cuda"), torch.Generator(
+            "cuda").manual_seed(int(cfg.global_seed))).state_dict().items()}
+    torch.cuda.empty_cache()
+
+    def norm_rel(d_a: dict, d_b: dict, base: dict | None = None) -> float:
+        """|a - b| / |b - base| over every tensor, on the card."""
+        num = den = 0.0
+        for n, b in d_b.items():
+            b = b.cuda().float()
+            num += ((d_a[n].cuda().float() - b) ** 2).sum().item()
+            den += ((b if base is None else b - base[n].cuda().float())
+                    ** 2).sum().item()
+        return (num / den) ** 0.5
+
+    def readings(run: tuple) -> dict:
+        (m_a, s_a), (m_b, s_b) = run, single
+        if [m["step"] for m in m_a] != [1, 2]:
+            raise AssertionError(f"two ranks logged {m_a}")
+        return {
+            "loss": max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                        for x, y in zip(m_a, m_b)),
+            "grad norm": max(abs(x["grad_norm"] - y["grad_norm"])
+                             / y["grad_norm"] for x, y in zip(m_a, m_b)),
+            "Adam mu": norm_rel(s_a["mu"], s_b["mu"]),
+            "update": norm_rel(s_a["params"], s_b["params"], p0)}
+
+    out, wall_ranks = launch(
+        [*torchrun, "-m", "topiaxl_torch.cli.train", FLAGSHIP,
+         *overrides("ranks", ranks)], "cli.train")
+    groups = sorted({line.split("process group: ", 1)[1] for line in
+                     out.splitlines() if "process group: " in line})
+    sound_run = result("ranks", ranks)
+    sound = readings(sound_run)
+    metrics = sound_run[0]
+    del sound_run
+    faults = ["no gradient sync", "same rows on both ranks"]
+    driver = os.path.join(tmp, "dp_faults.py")
+    with open(driver, "w") as f:
+        f.write(DP_FAULT_DRIVER)
+    _, wall_faults = launch(
+        [*torchrun, driver, ROOT, json.dumps(
+            [[fault, FLAGSHIP, *overrides(f"fault{i}", ranks)]
+             for i, fault in enumerate(faults)])], "the planted faults")
+    planted = {fault: readings(result(f"fault{i}", ranks))
+               for i, fault in enumerate(faults)}
+    bars = {"loss": DP_LOSS_REL, "grad norm": DP_GNORM_REL,
+            "Adam mu": DP_MU_REL, "update": DP_UPDATE_REL}
+    log(f"  dp=2 on one card ({', '.join(groups)}), flagship DiT with remat, "
+        f"global batch 8: steps " + ", ".join(
+            f"{m['step']}: loss {m['loss']:.5f} grad norm "
+            f"{m['grad_norm']:.5f}" for m in metrics)
+        + "; one process at batch 8: " + ", ".join(
+            f"loss {m['loss']:.5f} grad norm {m['grad_norm']:.5f}"
+            for m in single[0]) + f" ({card_id})")
+    log("  relative to one process (bar | sound | "
+        + " | ".join(faults) + "): " + "; ".join(
+            f"{k} {bars[k]:.1e} | {sound[k]:.3e} | " + " | ".join(
+                f"{planted[f][k]:.3e}" for f in faults) for k in bars))
+    log(f"  step 2: one process {1 / single[0][1]['steps_per_sec']:.3f} s, "
+        f"two ranks {1 / metrics[1]['steps_per_sec']:.3f} s; wall: one"
+        f" process {wall_single:.1f} s (peak {peak / 2 ** 30:.2f} GiB), "
+        f"torchrun with two ranks {wall_ranks:.1f} s, the two faults "
+        f"{wall_faults:.1f} s ({card_id})")
+    if any(sound[k] > bars[k] for k in bars):
+        raise AssertionError(f"dp=2 against one process: {sound}")
+    for fault, got in planted.items():
+        if not any(got[k] > bars[k] for k in bars):
+            raise AssertionError(f"planted fault {fault!r} passes: {got}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "topiaxl_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -2125,6 +2619,16 @@ def main() -> int:
             phase_train_from_shards(tmp, prepared["shards"])
     with Phase("train_vae"):
         phase_train_vae(prepared["params"])
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("clip"):
+            phase_clip(tmp)
+    with Phase("vgg"):
+        phase_vgg()
+    with Phase("ring"):
+        ring_launches = phase_ring()
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("dp"):
+            phase_dp(tmp)
 
     # launches: serving for the forward and LN kernels, the flagship
     # trainer for the single-pass backward, the 4096-prim trainer for the
@@ -2136,6 +2640,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in KERNELS.items()]
+    log(f"ring launches (kernels line: main paths only): {ring_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

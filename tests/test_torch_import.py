@@ -57,6 +57,12 @@ def test_port_imports_without_jax():
         import topiaxl_torch.pipelines.fit
         import topiaxl_torch.extract.mesh_sdf
         import topiaxl_torch.cli.prepare_data
+        import topiaxl_torch.models.conditioner.clip
+        import topiaxl_torch.models.conditioner.text
+        import topiaxl_torch.models.vgg
+        import topiaxl_torch.ops.ring_attention
+        import topiaxl_torch.parallel
+        import topiaxl_torch.parallel.collectives
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
         assert not bad, bad
         print("ok")
@@ -88,3 +94,26 @@ def test_port_sources_do_not_import_the_jax_package():
     for path in paths:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not JAX_PACKAGE_IMPORT.search(line), f"{path}:{n}: {line}"
+
+
+def test_rank_workers_import_without_jax():
+    """The module whose functions the multi-rank tests spawn imports with
+    the JAX packages blocked: a spawned child re-imports it."""
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, "tests")
+        import torch_dist_workers  # noqa: F401
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

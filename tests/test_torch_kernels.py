@@ -22,6 +22,10 @@ exact, bf16 within 1e-3 of max|plain| (f32 sums in another order), with
 planted faults (coefficients +1, one product fewer, a pad of ones) above,
 also where several blocks share an output tile (their partial sums
 reduced in a fixed order, so two launches give the same bits).
+Ring attention (``ops/ring_attention.py``) over P token blocks held in
+one process, against one forward and backward launch over the whole
+sequence at the same bars; the backward on each block's own o and lse
+(a planted fault) must land above the backward's.
 """
 
 import pytest
@@ -151,6 +155,43 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
         assert _rel_err(got, r) <= ATTN_BWD_REL_BAR, name
         if name != "v":   # delta does not enter dv
             assert _rel_err(f, r) > ATTN_BWD_REL_BAR, name
+
+
+@pytest.mark.parametrize("P,N", [(2, 512), (4, 1024), (2, 4400)])
+def test_ring_over_local_blocks_matches_one_launch(dev, P, N):
+    """P blocks of N / P tokens (the last case 2200 keys a block, ragged:
+    the two-pass pair): P * P forward and P * P backward launches."""
+    from topiaxl_torch.ops import flash_attention as fa
+    from topiaxl_torch.ops.ring_attention import (LocalRing, ring_backward,
+                                                  ring_forward)
+
+    q, k, v, do = (_randn(dev, 1, N, 2, 72, seed=40 + i) for i in range(4))
+    scale = 72 ** -0.5
+    o, lse = fa._forward(q, k, v, scale, return_lse=True)
+    ref = flash_attention_backward(q, k, v, o, lse, do, scale)
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(P, dim=1)]
+                       for t in (q, k, v, do))
+    ring = LocalRing(P)
+    before = dict(_cuda.launches)
+    outs, lses = ring_forward(ring, qs, ks, vs, scale)
+    grads = ring_backward(ring, qs, ks, vs, outs, lses, dos, scale)
+    torch.cuda.synchronize()
+    names = (["flash_attn_bwd"] if bwd_form(N // P) == "fused"
+             else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+    assert _cuda.launches["flash_attn_fwd"] == before["flash_attn_fwd"] + P * P
+    for name in names:
+        assert _cuda.launches[name] == before[name] + P * P
+    assert _rel_err(torch.cat(outs, 1), o) <= ATTN_REL_BAR
+    assert (torch.cat(lses, 2) - lse).abs().max().item() <= LSE_ABS_BAR
+    for got, r in zip(grads, ref):
+        assert _rel_err(torch.cat(got, 1), r) <= ATTN_BWD_REL_BAR
+    fault = torch.zeros_like(q, dtype=torch.float32)
+    for i in range(P):
+        for j in range(P):
+            o_b, l_b = fa._forward(qs[i], ks[j], vs[j], scale, True)
+            fault[:, i * (N // P):(i + 1) * (N // P)] += flash_attention_backward(
+                qs[i], ks[j], vs[j], o_b, l_b, dos[i], scale)[0].float()
+    assert _rel_err(fault, ref[0]) > ATTN_BWD_REL_BAR
 
 
 def test_two_pass_backward_repeats_bit_for_bit(dev):

@@ -175,29 +175,88 @@ def test_dummy_conditioner_passes_through():
 
 
 def test_registry_has_the_jax_package_names():
-    """Every name the JAX package registers is registered in the port; the
-    classes the port does not have yet raise, naming them."""
+    """Every name the JAX package registers is registered in the port."""
     import topiaxl.registry  # noqa: F401
     from topiaxl.core import config as jconfig
 
     from topiaxl_torch import registry  # noqa: F401
-    from topiaxl_torch.core.attrdict import AttrDict
-    from topiaxl_torch.core.config import build, registry_names
+    from topiaxl_torch.core.config import registry_names
 
     # (other tests may register their own names in the JAX table)
     jax_names = {n for n in jconfig.registry_names()
                  if n.startswith(("topiaxl.", "models."))}
     assert "topiaxl.DiTAdditivePosEmb" in jax_names
     assert jax_names <= set(registry_names())
-    for name in ("topiaxl.CLIPTextEncoder",
+
+
+TEXT_AND_CLIP = ("topiaxl.CLIPTextEncoder",
                  "models.conditioner.image.CLIPImageEncoder",
                  "models.conditioner.text.TextConditioner",
                  "topiaxl.TextConditioner", "topiaxl.CLIPImageEncoder",
-                 "models.conditioner.text.CLIPTextEncoder"):
-        cls = name.rsplit(".", 1)[1]
-        with pytest.raises(NotImplementedError,
-                           match=f"{cls} is not ported.*queue 1 #8"):
-            build(AttrDict(class_name=name))
+                 "models.conditioner.text.CLIPTextEncoder")
+
+
+@pytest.fixture(scope="module")
+def clip_path(tmp_path_factory):
+    from test_torch_clip import clip_dir
+
+    return clip_dir(tmp_path_factory.mktemp("clip") / "clip")
+
+
+@pytest.mark.parametrize("name", TEXT_AND_CLIP)
+def test_registry_builds_text_and_clip(name, clip_path):
+    """Each text and CLIP name builds under both registries with the same
+    keys (``model_name_or_path``, ``tokens``, ``stub``, ``dim`` default
+    768) and encodes what the JAX package's build encodes (bars of
+    ``test_torch_clip.py``: 1e-5 of the largest entry, images 1e-4,
+    the stub exact); without weights or ``stub`` both refuse alike."""
+    import topiaxl.registry  # noqa: F401
+    from topiaxl.core import config as jconfig
+
+    from topiaxl_torch import registry  # noqa: F401
+    from topiaxl_torch.core.attrdict import AttrDict
+    from topiaxl_torch.core.config import build
+
+    def both(**kw):
+        return (build(AttrDict(class_name=name, **kw)),
+                jconfig.build(AttrDict(class_name=name, **kw)))
+
+    caps = ["a red chair", "lamp"]
+    cls = name.rsplit(".", 1)[1]
+    if cls == "TextConditioner":
+        port, ref = both(stub=True)
+        assert port.dim == ref.dim == 768
+        np.testing.assert_array_equal(port(caps).numpy(), ref(caps))
+        port, ref = both(model_name_or_path=clip_path, dim=32)
+        got = port(caps)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref(caps)),
+                                   rtol=0, atol=1e-5 * got.abs().max().item())
+        for make in (build, jconfig.build):
+            with pytest.raises(ValueError, match="stub=True"):
+                make(AttrDict(class_name=name))
+    elif cls == "CLIPTextEncoder":
+        port, ref = both(model_name_or_path=clip_path)
+        got = port(caps)
+        assert got.shape == (2, 1, 32)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref(caps)),
+                                   rtol=0, atol=1e-5 * got.abs().max().item())
+        for enc in both():
+            with pytest.raises(RuntimeError, match="needs a tokenizer"):
+                enc(caps)
+    else:
+        img = np.random.default_rng(12).uniform(0, 255, (1, 30, 30, 3))
+        img = img.astype(np.float32)
+        for tokens in (False, True):
+            port, ref = both(model_name_or_path=clip_path, tokens=tokens)
+            got = port(torch.from_numpy(img)).detach().numpy()
+            assert got.shape == ((1, 17, 32) if tokens else (1, 1, 32))
+            np.testing.assert_allclose(got, np.asarray(ref(jnp.asarray(img))),
+                                       rtol=0, atol=1e-4)
+        port, ref = both(tokens=True)
+        with pytest.raises(RuntimeError, match="needs local CLIP weights"):
+            port(torch.from_numpy(img))
+        with pytest.raises(RuntimeError, match="needs local CLIP weights"):
+            ref(jnp.asarray(img))
 
 
 def _image_dir(tmp_path):
@@ -308,18 +367,69 @@ def test_cli_serves_dit_additive_pos_emb(tmp_path, quant):
         np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
 
 
+def test_cli_serves_clip_image_tokens(tmp_path, clip_path):
+    """``encoder_config: topiaxl.CLIPImageEncoder`` with ``tokens: true``
+    and a local ``model_name_or_path``: the CLI serves the image on the
+    tower's 17 tokens (1e-4 of JAX's encoder on the same prepared image),
+    and its PrimX is ``generate_primx``'s on those tokens."""
+    from topiaxl.models.conditioner import image as jimage
+    from topiaxl_torch.cli.infer import build_models, main, prepare_image
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.diffusion import create_diffusion
+    from topiaxl_torch.models.conditioner.image import CLIPImageEncoder
+    from topiaxl_torch.models.latent_stats import resolve_latent_stats
+    from topiaxl_torch.pipelines import infer as P
+
+    img_dir = _image_dir(tmp_path)
+    cfg_path = str(_tiny_config(tmp_path, img_dir))
+    enc = "model.conditioner.encoder_config"
+    overrides = ["inference.export_glb=false",
+                 f"{enc}.class_name=topiaxl.CLIPImageEncoder",
+                 f"{enc}.model_name_or_path={clip_path}", f"{enc}.tokens=true"]
+    assert main([cfg_path] + overrides) == 0
+    z = np.load(tmp_path / "runs" / "tiny" / "inference_folder" / "blob"
+                / "denoised.npz")
+
+    cfg = load_config(cfg_path, overrides=overrides)
+    gen = torch.Generator().manual_seed(int(cfg.inference.seed))
+    dit, vae, cond = build_models(cfg, torch.device("cpu"), gen)
+    assert isinstance(cond.encoder, CLIPImageEncoder)
+    image = prepare_image(str(img_dir / "blob.png"))[None]
+    with torch.no_grad():
+        y = cond.encode_image(torch.from_numpy(image))
+    ref = jimage.CLIPImageEncoder(clip_path, tokens=True)(jnp.asarray(image))
+    assert y.shape == (1, 17, 32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+    mean, std = resolve_latent_stats(cfg.model)
+    out = P.generate_primx(
+        dit, vae, create_diffusion("ddim3", noise_schedule="squaredcos_cap_v2",
+                                   parameterization="v", diffusion_steps=50),
+        y, mean, std, cfg_scale=2.0, generator=gen)
+    np.testing.assert_allclose(z["srt"], out.srt.numpy(), atol=1e-6)
+    np.testing.assert_allclose(z["feat"], out.feat.numpy(), atol=1e-6)
+
+
 def test_cli_refuses_what_it_cannot_build(tmp_path):
-    """A registered name whose class is not ported raises naming it; an
+    """Where the JAX CLI cannot serve a config, the port's raises too: a
+    ``TextConditioner`` without weights or ``stub`` (at build, as JAX's
+    registry raises), a generator that is no DiT (JAX fails reading its
+    ``seq_length``), a ``CLIPImageEncoder`` without weights (at encode,
+    as JAX's does) or a DINOv2 ``encoder_checkpoint_path`` beside it; an
     unknown name raises listing the known ones."""
     from topiaxl_torch.cli.infer import main
 
     cfg_path = str(_tiny_config(tmp_path, _image_dir(tmp_path)))
-    for node, name in (("conditioner", "topiaxl.TextConditioner"),
-                       ("generator", "topiaxl.CLIPTextEncoder"),
-                       ("conditioner.encoder_config",
-                        "topiaxl.CLIPImageEncoder")):
-        with pytest.raises(NotImplementedError, match=name.split(".")[1]):
-            main([cfg_path, f"model.{node}.class_name={name}"])
+    clip = "model.conditioner.encoder_config.class_name=topiaxl.CLIPImageEncoder"
+    for overrides, err, match in (
+            (["model.conditioner.class_name=topiaxl.TextConditioner"],
+             ValueError, "stub=True"),
+            (["model.generator.class_name=topiaxl.CLIPTextEncoder"],
+             TypeError, "CLIPTextEncoder, not a DiT"),
+            ([clip], RuntimeError, "needs local CLIP weights"),
+            ([clip, f"model.conditioner.encoder_checkpoint_path={cfg_path}"],
+             ValueError, "names DINOv2 weights")):
+        with pytest.raises(err, match=match):
+            main([cfg_path, *overrides])
     with pytest.raises(KeyError, match="not registered"):
         main([cfg_path, "model.vae.class_name=topiaxl.NoSuchVAE"])
 

@@ -74,8 +74,9 @@ def _slots(int8: bool, ta: bool, tb: bool, coef: bool, n: int,
     shared memory) times the SMs."""
     key = (int8, ta, tb, coef, n, device.index)
     if key not in _SLOTS:
-        per_sm = _cuda.library().topiaxl_mma_probe_occupancy(
-            int(int8), int(ta), int(tb), int(coef), n)
+        with torch.cuda.device(device):
+            per_sm = _cuda.library().topiaxl_mma_probe_occupancy(
+                int(int8), int(ta), int(tb), int(coef), n)
         if per_sm < 1:
             raise RuntimeError(f"probe kernel: no occupancy for {key}")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -125,11 +126,12 @@ def probe_launch(name: str, a: torch.Tensor, b: torch.Tensor,
     splits = pick_splits(tiles, work, slots)
     ws = (torch.empty((splits, *out.shape), device=out.device, dtype=out.dtype)
           if splits > 1 else None)
-    rc = _cuda.library().topiaxl_mma_probe(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), int(int8), int(ta), int(tb),
-        int(coef), M, N, K, int(iters), int(out_t), splits,
-        _cuda.stream_of(a))
+    with _cuda.on_device(a):
+        rc = _cuda.library().topiaxl_mma_probe(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), int(int8), int(ta),
+            int(tb), int(coef), M, N, K, int(iters), int(out_t), splits,
+            _cuda.stream_of(a))
     _cuda.check(rc, name)
     _cuda.count_launch(name)
     plans[name] = {"tiles": tiles, "splits": splits, "blocks": tiles * splits,

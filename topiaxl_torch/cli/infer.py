@@ -5,10 +5,13 @@ of its loader, ``topiaxl_torch.core.config.load_config``), builds the
 generator, VAE and conditioner that ``model.*.class_name`` name through
 the port's registry (``topiaxl_torch/registry.py``: ``topiaxl.DiT`` or
 ``topiaxl.DiTAdditivePosEmb``, ``topiaxl.VAE3D``, ``topiaxl.ImageConditioner``
-over ``topiaxl.DinoV2Wrapper``; a name the port does not build yet
-raises), loads the reference checkpoints (DiT under ``ema``, VAE under
-``model_state_dict``, DINOv2's own state_dict) or warns and keeps the
-seeded random init, and runs image -> PrimX -> GLB for every image in
+over ``topiaxl.DinoV2Wrapper`` or ``topiaxl.CLIPImageEncoder``), loads the
+reference checkpoints (DiT under ``ema``, VAE under ``model_state_dict``,
+DINOv2's own state_dict in ``model.conditioner.encoder_checkpoint_path``;
+a CLIP encoder reads a local transformers-layout directory,
+``encoder_config.model_name_or_path``, and with ``tokens: true`` feeds
+all of B/32's 50 tokens to the 768-wide cross-attention) or warns and
+keeps the seeded random init, and runs image -> PrimX -> GLB for every image in
 ``inference.input_dir``. ``inference.u2net_checkpoint`` (a torch
 ``.pth``) mattes with U^2-Net ahead of GrabCut, as ``inference.matting``
 (auto | u2net | grabcut | threshold) asks; ``model.native_checkpoint_dir``
@@ -138,12 +141,19 @@ def build_encoders(cfg, device, generator: torch.Generator):
                                              "model_state_dict"))
     else:
         logger.warning("no vae_checkpoint_path: VAE runs with random init")
+    # ``encoder_checkpoint_path`` holds DINOv2 weights, as the JAX CLI
+    # reads it; a CLIP encoder loads its own from ``model_name_or_path``
     encoder = getattr(conditioner, "encoder", None)
-    if encoder is not None and cfg.model.conditioner.get(
-            "encoder_checkpoint_path"):
-        encoder.vit.load_state_dict(
-            _load_state_dict(cfg.model.conditioner.encoder_checkpoint_path))
-    elif encoder is not None:
+    vit = getattr(encoder, "vit", None)
+    ckpt = cfg.model.conditioner.get("encoder_checkpoint_path")
+    if ckpt and encoder is not None:
+        if vit is None:
+            raise ValueError(
+                f"model.conditioner.encoder_checkpoint_path={ckpt!r} names "
+                f"DINOv2 weights, but the encoder is "
+                f"{type(encoder).__name__} (give its model_name_or_path)")
+        vit.load_state_dict(_load_state_dict(ckpt))
+    elif vit is not None:
         logger.warning("no DINOv2 checkpoint: conditioner runs random init")
     return vae, conditioner
 
@@ -157,11 +167,14 @@ def build_models(cfg, device, generator: torch.Generator):
     ``topiaxl/cli/infer.py:_maybe_quantize`` does."""
     from .. import registry  # noqa: F401  (fills the factory table)
     from ..core.config import build
-    from ..models.dit import quantize_dit_state_dict
+    from ..models.dit import DiT, quantize_dit_state_dict
 
     refuse_unported_checkpoints(cfg)
     g = cfg.model.generator
     dit = build(g, device=device, generator=generator, quant=False).eval()
+    if not isinstance(dit, DiT):
+        raise TypeError(f"model.generator.class_name={g.class_name!r} builds "
+                        f"{type(dit).__name__}, not a DiT")
     vae, conditioner = build_encoders(cfg, device, generator)
 
     if cfg.get("checkpoint_path"):

@@ -1,11 +1,22 @@
 """Training CLI: ``python -m topiaxl_torch.cli.train config.yml [k=v ...]``.
 
-Runs the reference's DiT training recipe on one device (counterpart of
+Runs the reference's DiT training recipe (counterpart of
 ``topiaxl/cli/train.py``): AdamW + cosine warmup, v-pred MSE + VB,
 cond-drop, EMA, checkpoints with resume. Same config keys (train.* /
 optimizer.* / scheduler.* / model.generator.* / diffusion.*), read
-through ``topiaxl_torch.core.config.load_config``; no mesh
-(``train.mesh`` is ignored).
+through ``topiaxl_torch.core.config.load_config``.
+
+Across ranks: ``torchrun --nproc-per-node N -m topiaxl_torch.cli.train
+config.yml ...`` and ``train.mesh`` (``{dp: -1}`` as shipped: every rank
+on ``dp``; ``{dp: 2, fsdp: 2}``; ``parallel/mesh.py``'s rules). The
+global batch is ``train.batch_size`` x dp, split over every rank of the
+mesh in JAX's order; ``dp`` alone runs the DiT under
+``DistributedDataParallel``, ``fsdp`` shards it, its Adam moments and EMA
+with FSDP2 (``pipelines/train.py:shard_model``). ``tp`` > 1 or a ``pp``
+axis raises: they are not ported. Ranks beyond an explicit smaller mesh
+idle, as JAX's devices do. Rank 0 writes the metrics and checkpoints
+(whole tensors, gathered). Without ``torchrun`` the run is one process
+on one device, every rank on a mesh of one.
 
 The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
 or ``topiaxl.DiTAdditivePosEmb``). ``model.generator.remat=true``, or the
@@ -21,7 +32,8 @@ CPU. ``train.max_steps`` caps the run (default ``scheduler.max_iters``).
 Metrics go to ``<output_dir>/train/metrics.jsonl``, checkpoints to
 ``<output_dir>/train/ckpts`` (``train.keep_ckpts``, default 3); a run
 resumes from the newest checkpoint there. SIGTERM or SIGINT finishes the
-step in flight, checkpoints and exits.
+step in flight (across ranks: the steps up to the next that logs or
+checkpoints), checkpoints and exits.
 """
 
 from __future__ import annotations
@@ -55,16 +67,10 @@ def build_dit(g, device, generator: torch.Generator):
 def main(argv=None, metrics_out: list | None = None) -> int:
     """Run the CLI; ``metrics_out`` (a list) receives each step's metrics
     as floats, with the step and its wall seconds."""
-    import time
-
     from topiaxl_torch.core.config import load_config
 
-    from ..core.checkpoint import CheckpointManager
-    from ..core.profiling import MetricLogger, StepMeter
-    from ..diffusion.schedule import create_diffusion
-    from ..pipelines import data as D
-    from ..pipelines.train import (
-        create_train_state, make_optimizer, make_train_step)
+    from ..parallel import mesh_from_config
+    from ..parallel.mesh import init_distributed, refuse_unported
 
     argv = list(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(level=logging.INFO)
@@ -72,13 +78,47 @@ def main(argv=None, metrics_out: list | None = None) -> int:
         print(__doc__)
         return 1
     cfg = load_config(argv[0], overrides=argv[1:])
-    device = torch.device(cfg.train.get("device", "cuda"))
+    device, joined = init_distributed(
+        torch.device(cfg.train.get("device", "cuda")))
+    try:
+        mesh = mesh_from_config(cfg.train.get("mesh"))
+        refuse_unported(mesh)
+        return _train(cfg, mesh, device, metrics_out)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(cfg, mesh, device, metrics_out) -> int:
+    import time
+
+    from ..core.checkpoint import CheckpointManager
+    from ..core.profiling import MetricLogger, StepMeter
+    from ..diffusion.schedule import create_diffusion
+    from ..pipelines import data as D
+    from ..pipelines.train import (
+        create_train_state, make_optimizer, make_train_step, shard_model)
+
+    fsdp = mesh.shape.get("fsdp", 1) > 1
+    for axis in (None, *mesh.axis_names):   # collective: every rank
+        mesh.group(axis)
+    if fsdp:
+        mesh.device_mesh(device.type, tuple(
+            n for n in ("dp", "fsdp") if n in mesh.shape))
+    if mesh.index is None:
+        logger.info("rank %d is outside the mesh %s: idle", mesh.rank,
+                    mesh.shape)
+        return 0
+    lead = mesh.index == 0
+    logger.info("mesh %s: rank %d on %s", mesh.shape, mesh.rank, device)
     out_dir = os.path.join(cfg.output_dir, "train")
     os.makedirs(out_dir, exist_ok=True)
     seed = int(cfg.global_seed)
 
     dit = build_dit(cfg.model.generator, device,
                     torch.Generator(device=device).manual_seed(seed)).train()
+    if fsdp:
+        shard_model(dit, mesh, device.type)
     diffusion = create_diffusion(
         timestep_respacing=None, noise_schedule=cfg.diffusion.noise_schedule,
         diffusion_steps=cfg.diffusion.diffusion_steps,
@@ -100,30 +140,60 @@ def main(argv=None, metrics_out: list | None = None) -> int:
         state.load_state_dict(ckpt.restore())
         logger.info("resumed from step %d", state.step)
 
-    bs = int(cfg.train.batch_size)
+    global_bs = int(cfg.train.batch_size) * mesh.shape.get("dp", 1)
+    if global_bs % mesh.size:
+        raise ValueError(f"global batch {global_bs} (train.batch_size x dp) "
+                         f"does not split over the mesh's {mesh.size} ranks")
     if cfg.train.get("synthetic") or not cfg.train.get("data_glob"):
         logger.warning("using synthetic data stream")
         stream = D.synthetic_batches(
-            bs, dit.seq_length, dit.in_channels,
+            global_bs, dit.seq_length, dit.in_channels,
             cond_seq=int(cfg.train.get("cond_seq", 1370)),
             cond_ch=dit.condition_channels, seed=seed + state.step)
     else:
-        ds = D.TokenShardDataset(cfg.train.data_glob, bs, shuffle_seed=seed)
+        ds = D.TokenShardDataset(cfg.train.data_glob, global_bs,
+                                 shuffle_seed=seed)
         stream = itertools.chain.from_iterable(
             ds.epoch(e) for e in itertools.count())
-    batches = D.prefetch_to_device(stream, device)
+    # this rank's rows of every global batch (row-major over the mesh)
+    n = global_bs // mesh.size
+    rows = slice(mesh.index * n, (mesh.index + 1) * n)
+    batches = D.prefetch_to_device(
+        ({k: v[rows] for k, v in b.items()} for b in stream), device)
 
     step_fn = make_train_step(
         dit, diffusion, optimizer,
         ema_decay=float(cfg.train.get("ema_decay", 0.9999)),
         timestep_sampler=sampler,
-        grad_accum=int(cfg.train.get("grad_accum", 1)))
+        grad_accum=int(cfg.train.get("grad_accum", 1)),
+        mesh=mesh if mesh.size > 1 else None)
     meter = StepMeter()
     log_every = int(cfg.train.log_every_n_steps)
-    mlog = MetricLogger(os.path.join(out_dir, "metrics.jsonl"),
-                        print_every=log_every)
+    mlog = (MetricLogger(os.path.join(out_dir, "metrics.jsonl"),
+                         print_every=log_every) if lead else None)
     max_steps = int(cfg.train.get("max_steps", cfg.scheduler.max_iters))
     ckpt_every = int(cfg.train.ckpt_every_n_steps)
+    saved = [ckpt.latest_step()]    # every rank decides alike
+
+    def save(step: int) -> None:
+        sd = state.state_dict()    # collective under fsdp
+        if lead:
+            ckpt.save(step, sd)
+        saved[0] = step
+
+    def stop(step: int) -> bool:
+        """A signal on any rank stops every rank. Alone, after the step in
+        flight; across ranks the flags are compared (a collective the host
+        waits for) only after a step that logs or checkpoints."""
+        group = mesh.group()
+        if group is None:
+            return bool(preempted)
+        if step % log_every and step % ckpt_every:
+            return False
+        flag = torch.tensor([float(bool(preempted))], device=device)
+        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        return bool(flag.item())
 
     # preemption: finish the step in flight, checkpoint, exit cleanly so
     # the next run resumes from it
@@ -131,7 +201,7 @@ def main(argv=None, metrics_out: list | None = None) -> int:
     prev = {s: signal.signal(s, lambda sig, frame: preempted.append(sig))
             for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        while state.step < max_steps and not preempted:
+        while state.step < max_steps and not stop(state.step):
             batch = next(batches)
             t0 = time.perf_counter()
             metrics = step_fn(state, batch, seed)
@@ -145,20 +215,21 @@ def main(argv=None, metrics_out: list | None = None) -> int:
                     metrics_out.append(
                         {"step": step, "seconds": time.perf_counter() - t0,
                          **vals})
-                if step % log_every == 0:
+                if step % log_every == 0 and mlog is not None:
                     mlog.log(step, {**vals,
                                     "steps_per_sec": meter.steps_per_sec})
             if step % ckpt_every == 0:
-                ckpt.save(step, state.state_dict())
+                save(step)
         if preempted:
             logger.warning("signal %s: checkpointing at step %d and exiting",
                            preempted[0], state.step)
     finally:
         for s, h in prev.items():
             signal.signal(s, h)
-        mlog.close()
-    if ckpt.latest_step() != state.step:
-        ckpt.save(state.step, state.state_dict())
+        if mlog is not None:
+            mlog.close()
+    if saved[0] != state.step:
+        save(state.step)
     logger.info("training done at step %d", state.step)
     return 0
 

@@ -22,6 +22,12 @@ stacked on a leading depth axis, ``topiaxl/models/dit.py:502-530``) and
 the quantized tree of ``quantize_dit_params`` (``kernel_q`` int8 [in,
 out] and ``kernel_scale`` f32 [out] -> ``weight_q`` [out, in] and
 ``weight_scale``, the buffers of ``ops/int8.py:QuantDense``).
+
+``clip_text_from_jax`` and ``clip_vision_from_jax`` invert
+``convert_clip_text`` / ``convert_clip_vision`` into the port's CLIP
+towers (transformers' names below ``text_model.`` / ``vision_model.``);
+``load_clip_dir`` reads those names from a local transformers-layout
+directory.
 """
 
 from __future__ import annotations
@@ -197,3 +203,81 @@ def dinov2_from_jax(tree: Mapping) -> dict:
         sd[f"{b}.ls2.gamma"] = _t(q["ls2_gamma"])
     _norm(sd, "norm", p["norm"])
     return sd
+
+
+def _clip_layers(sd, p):
+    for i in range(_count(p, "layer")):
+        b, q = f"encoder.layers.{i}", p[f"layer{i}"]
+        _norm(sd, f"{b}.layer_norm1", q["layer_norm1"])
+        _norm(sd, f"{b}.layer_norm2", q["layer_norm2"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{b}.self_attn.{name}", q["self_attn"][name])
+        _linear(sd, f"{b}.mlp.fc1", q["fc1"])
+        _linear(sd, f"{b}.mlp.fc2", q["fc2"])
+
+
+def clip_text_from_jax(tree: Mapping) -> dict:
+    """A ``CLIPTextTower`` tree (``convert_clip_text``'s output) as the
+    port's ``CLIPTextTower`` state_dict (transformers' names without the
+    ``text_model.`` prefix)."""
+    p = _inner(tree)
+    sd = {"embeddings.token_embedding.weight":
+          _t(p["token_embedding"]["embedding"]),
+          "embeddings.position_embedding.weight": _t(p["position_embedding"])}
+    _clip_layers(sd, p)
+    _norm(sd, "final_layer_norm", p["final_layer_norm"])
+    return sd
+
+
+def clip_vision_from_jax(tree: Mapping) -> dict:
+    """A ``CLIPVisionTower`` tree as the port's ``CLIPVisionTower``
+    state_dict (patch kernel [p, p, 3, D] -> conv weight [D, 3, p, p])."""
+    p = _inner(tree)
+    sd = {"embeddings.patch_embedding.weight": _t(
+        np.asarray(p["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1)),
+        "embeddings.class_embedding": _t(p["class_embedding"]),
+        "embeddings.position_embedding.weight": _t(p["position_embedding"])}
+    _norm(sd, "pre_layrnorm", p["pre_layrnorm"])
+    _clip_layers(sd, p)
+    _norm(sd, "post_layernorm", p["post_layernorm"])
+    return sd
+
+
+def load_clip_dir(path: str, tower: str) -> tuple[dict, dict]:
+    """(config, state_dict) of the ``tower`` ("text" or "vision") of a
+    local transformers-layout CLIP directory: ``config.json`` (a
+    ``CLIPConfig``, whose ``text_config`` / ``vision_config`` is taken, or
+    the tower's own config) and ``pytorch_model.bin``, or
+    ``model.safetensors`` where the ``safetensors`` package imports. The
+    state_dict holds the ``text_model.*`` / ``vision_model.*`` entries
+    with that prefix removed (the keys ``convert_clip_text`` and
+    ``convert_clip_vision`` read); nothing of ``transformers`` is
+    imported."""
+    import json
+    import os
+
+    if tower not in ("text", "vision"):
+        raise ValueError(f"tower={tower!r}: expected 'text' or 'vision'")
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    cfg = cfg.get(f"{tower}_config", cfg)
+    bin_path = os.path.join(path, "pytorch_model.bin")
+    st_path = os.path.join(path, "model.safetensors")
+    if os.path.exists(bin_path):
+        sd = torch.load(bin_path, map_location="cpu", weights_only=True)
+    elif os.path.exists(st_path):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise RuntimeError(f"{st_path}: reading it needs the safetensors "
+                               f"package ({e}); give pytorch_model.bin") from e
+        sd = load_file(st_path)
+    else:
+        raise FileNotFoundError(f"{path}: no pytorch_model.bin or "
+                                f"model.safetensors")
+    prefix = f"{tower}_model."
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)
+          and not k.endswith("position_ids")}
+    if not sd:
+        raise KeyError(f"{path}: no {prefix}* weights")
+    return cfg, sd

@@ -1,5 +1,5 @@
 """Importance sampling of training timesteps (counterpart of
-``topiaxl/diffusion/timestep_sampler.py``), on a single device.
+``topiaxl/diffusion/timestep_sampler.py``).
 
 ``uniform_sample`` draws uniform timesteps with unit weights;
 ``LossSecondMomentState`` keeps the last ``history`` losses of every
@@ -7,7 +7,10 @@ timestep, and ``lsm_sample`` draws timesteps in proportion to
 sqrt(E[loss^2]) once every timestep has a full history, with importance
 weights 1 / (T p_t). The state is small ([T, history]) and lives on the
 CPU; ``lsm_update`` folds a batch in sample by sample, in order, as the
-JAX package's scan does.
+JAX package's scan does. Under data parallelism ``lsm_update`` takes the
+process group of the data ranks and first gathers every rank's (t, loss)
+in rank order (``jax.lax.all_gather(..., tiled=True)`` in the JAX
+package), so every rank keeps the same history.
 """
 
 from __future__ import annotations
@@ -62,10 +65,17 @@ def lsm_sample(state: LossSecondMomentState, batch: int,
 
 
 def lsm_update(state: LossSecondMomentState, ts: torch.Tensor,
-               losses: torch.Tensor) -> LossSecondMomentState:
+               losses: torch.Tensor, group=None) -> LossSecondMomentState:
     """Fold (t, loss) pairs into the history, in batch order: append while
     a timestep's history has room, else shift it left and write the newest
-    last. Returns a new state."""
+    last. With ``group`` (every rank passing as many pairs) the pairs of
+    all its ranks, in rank order. Returns a new state."""
+    if group is not None:
+        from ..parallel.collectives import gather
+
+        dev = losses.device
+        ts = gather(ts.to(dev, torch.long), group)
+        losses = gather(losses.detach().float(), group)
     history = state.loss_history.clone()
     counts = state.loss_counts.clone()
     hist = history.shape[1]

@@ -10,6 +10,10 @@
   raymarcher and encodes the picture (``condition_from_primx``).
 * ``ImageMultiViewConditioner``: the tokens of V orbit views, concatenated.
 * ``DummyImageConditioner``: passes precomputed conditioning through.
+* ``CLIPImageEncoder``: the CLIP vision tower (``conditioner/clip.py``)
+  from a local transformers-layout directory, pooled [B, 1, D] or, with
+  ``tokens``, every token [B, 1 + P, D] (the flagship DiT's 768-wide
+  cross-attention takes B/32's tokens).
 """
 
 from __future__ import annotations
@@ -148,3 +152,39 @@ class DummyImageConditioner(torch.nn.Module):
 
     def forward(self, image):
         return image
+
+
+class CLIPImageEncoder(torch.nn.Module):
+    """[B, H, W, 3] in [0, 255] -> /255 -> antialiased bicubic resize to
+    the tower's size -> CLIP-stat normalisation -> the CLIP vision tower
+    (f32) -> pooled [B, 1, D], or ``last_hidden_state`` with ``tokens``.
+    The tower comes from ``model_name_or_path`` (a local directory, no
+    download) or ``tower``; without either, encoding raises, as in the JAX
+    package."""
+
+    def __init__(self, model_name_or_path: str | None = None,
+                 tokens: bool = False, tower: torch.nn.Module | None = None,
+                 device=None):
+        super().__init__()
+        from .clip import load_clip_tower
+
+        self.tokens = tokens
+        if model_name_or_path:
+            tower = load_clip_tower(model_name_or_path, "vision",
+                                    device=device)
+        self.tower = tower
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if self.tower is None:
+            raise RuntimeError(
+                "CLIPImageEncoder needs local CLIP weights "
+                "(model_name_or_path or tower); the released 3DTopia-XL "
+                "pipeline conditions on DINOv2 instead (DinoV2Wrapper).")
+        size = self.tower.image_size
+        x = resize_bicubic(images.float() / 255.0, size, size)
+        mean = torch.tensor(CLIP_MEAN, device=x.device)
+        std = torch.tensor(CLIP_STD, device=x.device)
+        out = self.tower((x - mean) / std)
+        if self.tokens:
+            return out["last_hidden_state"]
+        return out["pooled"][:, None, :]

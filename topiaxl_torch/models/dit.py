@@ -81,10 +81,14 @@ class DiTBlock(nn.Module):
         _, v = self.crossattn.kv(y_null)
         return self.crossattn.uniform_out(v)
 
-    def forward(self, x, kv, t_emb, null_out=None):
-        """x [B, N, D] residual stream in the compute dtype; kv precomputed;
-        t_emb [B, D] f32; ``null_out`` selects the CFG fast path, where x is
-        [cond; uncond] and the uncond half's cross-attention is null_out."""
+    def forward(self, x, kv, t_emb, null_out=None, y=None):
+        """x [B, N, D] residual stream in the compute dtype; kv precomputed,
+        or None to project it here from the conditioning ``y`` (inside the
+        block's call, where FSDP has gathered its weights); t_emb [B, D]
+        f32; ``null_out`` selects the CFG fast path, where x is [cond;
+        uncond] and the uncond half's cross-attention is null_out."""
+        if kv is None:
+            kv = self.cond_kv(y)
         mods = self.adaLN_modulation(t_emb).to(self.dtype)
         (s_mca, sc_mca, g_mca, s_msa, sc_msa, g_msa,
          s_mlp, sc_mlp, g_mlp) = mods.chunk(9, dim=-1)
@@ -155,7 +159,7 @@ class PointEmbed(nn.Module):
 
 
 def _block_with_kv(blk: DiTBlock, h, y, t_emb):
-    return blk(h, blk.cond_kv(y), t_emb)
+    return blk(h, None, t_emb, y=y)
 
 
 class DiT(nn.Module):

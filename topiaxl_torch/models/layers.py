@@ -166,13 +166,15 @@ class Mlp(nn.Module):
 
 class SelfAttention(nn.Module):
     """Fused-QKV self-attention (keys ``qkv``, ``proj``; both W8A8 when
-    ``quant``)."""
+    ``quant``). ``backend`` and ``group`` go to ``multi_head_attention``:
+    ``parallel/context.py`` sets "ring" and the token axis's group."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_bias: bool = True, dtype=torch.bfloat16,
                  param_dtype=None, quant: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.backend, self.group = "auto", None
         dense = _dense(quant)
         self.qkv = dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                          param_dtype=param_dtype)
@@ -184,7 +186,8 @@ class SelfAttention(nn.Module):
         hd = self.dim // self.num_heads
         qkv = self.qkv(x)
         q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).unbind(2)
-        out = multi_head_attention(q, k, v, scale=hd ** -0.5)
+        out = multi_head_attention(q, k, v, scale=hd ** -0.5,
+                                   backend=self.backend, group=self.group)
         return self.proj(out.reshape(B, N, self.dim))
 
 

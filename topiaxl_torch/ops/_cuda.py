@@ -176,3 +176,12 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t):
+    """Context in which a launch runs on ``t``'s card: the kernels launch
+    on the current device, which on a multi-card host need not be the
+    tensors'."""
+    import torch
+
+    return torch.cuda.device(t.device)

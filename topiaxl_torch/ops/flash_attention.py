@@ -193,11 +193,12 @@ def _forward(q, k, v, scale, return_lse):
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    rc = _cuda.library().topiaxl_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        0 if lse is None else lse.data_ptr(),
-        B, H, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *o.stride()[:3], float(scale), _cuda.stream_of(q))
+    with _cuda.on_device(q):
+        rc = _cuda.library().topiaxl_flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            0 if lse is None else lse.data_ptr(), B, H, Sq, Sk, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], float(scale), _cuda.stream_of(q))
     _cuda.check(rc, "flash_attn_fwd")
     _cuda.count_launch("flash_attn_fwd")
     return o, lse
@@ -205,13 +206,14 @@ def _forward(q, k, v, scale, return_lse):
 
 def _bwd_launch(name, q, k, v, o, lse, do, delta, dq, dk, dv, scale):
     B, Sq, H, D = q.shape
-    rc = getattr(_cuda.library(), f"topiaxl_{name}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), *(0 if t is None else t.data_ptr()
-                                         for t in (delta, dq, dk, dv)),
-        B, H, Sq, k.shape[1], D, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], float(scale),
-        _cuda.stream_of(q))
+    with _cuda.on_device(q):
+        rc = getattr(_cuda.library(), f"topiaxl_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), *(0 if t is None else t.data_ptr()
+                                             for t in (delta, dq, dk, dv)),
+            B, H, Sq, k.shape[1], D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *o.stride()[:3], *do.stride()[:3],
+            float(scale), _cuda.stream_of(q))
     _cuda.check(rc, name)
     _cuda.count_launch(name)
 

@@ -93,9 +93,10 @@ def _ln_modulate(x, shift, scale, eps, out_dtype):
     sh_sb = _row_stride("shift", shift, B, D)
     sc_sb = _row_stride("scale", scale, B, D)
     out = torch.empty_like(x)
-    rc = _cuda.library().topiaxl_ln_modulate(
-        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        B * N, N, D, sh_sb, sc_sb, float(eps), _cuda.stream_of(x))
+    with _cuda.on_device(x):
+        rc = _cuda.library().topiaxl_ln_modulate(
+            x.data_ptr(), shift.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            B * N, N, D, sh_sb, sc_sb, float(eps), _cuda.stream_of(x))
     _cuda.check(rc, "ln_modulate")
     _cuda.count_launch("ln_modulate")
     return out
@@ -121,10 +122,11 @@ def _ln_modulate_residual(x, delta, gate, shift, scale, eps, out_dtype):
     sc_sb = _row_stride("scale", scale, B, D)
     x_out = torch.empty_like(x)
     h = torch.empty_like(x)
-    rc = _cuda.library().topiaxl_ln_modulate_residual(
-        x.data_ptr(), delta.data_ptr(), gate.data_ptr(), shift.data_ptr(),
-        scale.data_ptr(), x_out.data_ptr(), h.data_ptr(), B * N, N, D,
-        g_sb, sh_sb, sc_sb, float(eps), _cuda.stream_of(x))
+    with _cuda.on_device(x):
+        rc = _cuda.library().topiaxl_ln_modulate_residual(
+            x.data_ptr(), delta.data_ptr(), gate.data_ptr(), shift.data_ptr(),
+            scale.data_ptr(), x_out.data_ptr(), h.data_ptr(), B * N, N, D,
+            g_sb, sh_sb, sc_sb, float(eps), _cuda.stream_of(x))
     _cuda.check(rc, "ln_modulate_residual")
     _cuda.count_launch("ln_modulate_residual")
     return x_out, h

@@ -12,7 +12,8 @@ package's: isosurface, cleanup, decimation, UV unwrap, rasterisation,
 with their C++ parts in ``topiaxl_torch.native``), the texel bake on the
 device, EDT inpaint and the GLB writer.
 
-``serve_assets`` runs the two stages over many assets as a pipeline.
+``serve_assets`` runs the two stages over many assets as a pipeline;
+``generate_primx_sharded`` splits stage 1's asset batch over ranks.
 """
 
 from __future__ import annotations
@@ -115,6 +116,52 @@ def generate_primx(dit: DiT, vae: VAE3D, diffusion: Diffusion,
     srt, feat = decode_primx(vae, recon, prim_shape, dim_feat)
     params = [PrimXParams(srt[b], feat[b]) for b in range(y.shape[0])]
     return params[0] if len(params) == 1 else params
+
+
+def generate_primx_sharded(dit: DiT, vae: VAE3D, diffusion: Diffusion,
+                           y: torch.Tensor, latent_mean, latent_std, mesh,
+                           latent_nf: float = 1.0, cfg_scale: float = 6.0,
+                           prim_shape: int = 8, dim_feat: int = 6,
+                           noise: torch.Tensor | None = None,
+                           generator: torch.Generator | None = None,
+                           param_rules=None):
+    """``generate_primx`` with the asset batch split over the mesh's
+    ``dp`` axis (its first axis where it has none): every rank passes the
+    whole batch y [B, M, C], the same models, and the initial noise for
+    the whole batch ([B, N, C_in]) or a generator in the same state to
+    draw it from, as ``generate_primx`` draws it; each rank denoises and
+    decodes its B / dp assets on their rows of that noise. The results
+    are gathered over ``dp``, so every rank returns what
+    ``generate_primx`` returns for the batch. ``param_rules``
+    (tensor-parallel weights) raises: not ported."""
+    from ..parallel.collectives import gather
+    from ..parallel.mesh import refuse_unported
+
+    if param_rules is not None:
+        raise NotImplementedError(
+            "generate_primx_sharded(param_rules=...): tensor-parallel weights "
+            "are not ported to topiaxl_torch (ROADMAP queue 1 #9)")
+    refuse_unported(mesh)
+    axis = "dp" if "dp" in mesh.shape else mesh.axis_names[0]
+    parts, r = mesh.shape[axis], mesh.coords[axis]
+    B = y.shape[0]
+    if B % parts:
+        raise ValueError(f"{B} assets do not split over {axis}={parts}")
+    n = B // parts
+    if noise is None:
+        noise = torch.randn((B, dit.seq_length, dit.in_channels),
+                            generator=generator, device=y.device,
+                            dtype=torch.float32)
+    out = generate_primx(dit, vae, diffusion, y[r * n:(r + 1) * n],
+                         latent_mean, latent_std, latent_nf, cfg_scale,
+                         prim_shape, dim_feat,
+                         noise=noise[r * n:(r + 1) * n])
+    out = out if isinstance(out, list) else [out]
+    group = mesh.group(axis)
+    srt = gather(torch.stack([p.srt for p in out]), group)
+    feat = gather(torch.stack([p.feat for p in out]), group)
+    params = [PrimXParams(srt[b], feat[b]) for b in range(B)]
+    return params[0] if B == 1 else params
 
 
 def save_primx(path: str, params: PrimXParams) -> None:

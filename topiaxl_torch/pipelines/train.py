@@ -1,4 +1,4 @@
-"""DiT training on one device (counterpart of
+"""DiT training on one device or across ranks (counterpart of
 ``topiaxl/pipelines/train.py``).
 
 The reference recipe (configs/inference_dit.yml:77-95): AdamW lr 1e-4 wd
@@ -14,7 +14,22 @@ runs in place on the parameters, moments, EMA and gradients, where the
 JAX package returns new trees.
 
 Random draws come from generators seeded with ``(seed, step)``, so a
-resumed run draws what an uninterrupted one would. The cond-drop follows
+resumed run draws what an uninterrupted one would.
+
+Across ranks (``make_train_step(mesh=...)``, ``parallel/mesh.py``) each
+rank holds its slice of the global batch (row-major over the mesh, as
+JAX's ``batch_sharding`` splits it over ``dp``). Timesteps, cond-drop and
+noise are drawn over the global batch on every rank and sliced, so the
+step is the single process's step at the global batch, up to summation
+order. Gradients are averaged over the data ranks by the library: by
+``DistributedDataParallel`` (made by ``make_train_step``, its all-reduce
+overlapping the backward) for a model that is not sharded, by FSDP2's
+reduce-scatter for one that ``shard_model`` sharded (every DiT block and
+the root ``fully_shard``-ed over ``fsdp``, replicated over ``dp``). The
+clip uses the global norm (the squared norms of the local shards summed
+over the ``fsdp`` group); Adam moments and EMA
+shard with their parameters; the loss metrics are averaged over the
+ranks; the LSM history gathers every rank's (t, loss). The cond-drop follows
 the JAX package: the single pass (``grad_accum == 1``) drops inside the
 model's forward, so the null embedding gets the dropped rows' gradient;
 with ``grad_accum > 1`` the dropped rows take the null embedding before
@@ -24,6 +39,7 @@ the null embedding gets none from them.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -39,6 +55,7 @@ from ..diffusion.timestep_sampler import (
     lsm_update,
     uniform_sample,
 )
+from ..parallel.collectives import all_mean, full, local
 
 
 def cosine_warmup_schedule(base_lr: float, warmup_iters: int,
@@ -80,7 +97,8 @@ class AdamState:
 def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
                            ema_params: dict, spec: dict,
                            ema_decay: float = 0.9999,
-                           grad_prescale: float = 1.0) -> torch.Tensor:
+                           grad_prescale: float = 1.0,
+                           norm_group=None) -> torch.Tensor:
     """clip-by-global-norm + AdamW + EMA, in place, with the JAX
     package's math (``topiaxl/pipelines/train.py:77-139``): moments in
     f32; the gradient scaled by ``grad_prescale * min(1, clip / gnorm)``,
@@ -88,13 +106,15 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
     norm, unlike ``clip_grad_norm_``); the learning rate from the
     schedule at the count before this step; the EMA folded in after the
     parameter update. Dicts are keyed alike; ``grads`` is scaled in place.
-    Returns the global norm of the prescaled gradient (a device scalar)."""
+    Returns the global norm of the prescaled gradient (a device scalar).
+    FSDP2 parameters update their local shards; ``norm_group`` (the ranks
+    a shard is split over) sums the squared norms of the shards."""
     names = list(params)
-    p = [params[n].data for n in names]
-    g = [grads[n] for n in names]
-    m = [opt_state.mu[n] for n in names]
-    v = [opt_state.nu[n] for n in names]
-    e = [ema_params[n] for n in names]
+    p = [local(params[n].data) for n in names]
+    g = [local(grads[n]) for n in names]
+    m = [local(opt_state.mu[n]) for n in names]
+    v = [local(opt_state.nu[n]) for n in names]
+    e = [local(ema_params[n]) for n in names]
     b1, b2, eps = spec["b1"], spec["b2"], spec["eps"]
     wd, clip = spec["weight_decay"], spec["grad_clip"]
 
@@ -103,8 +123,13 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
     c1 = float(f32(1.0) - f32(b1) ** cf)
     c2 = float(f32(1.0) - f32(b2) ** cf)
     lr = spec["sched"](opt_state.count)
-    gnorm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(g))) * grad_prescale
+    norms = torch.stack(torch._foreach_norm(g))
+    if norm_group is None:
+        gnorm = torch.linalg.vector_norm(norms) * grad_prescale
+    else:
+        sq = norms.square().sum()
+        torch.distributed.all_reduce(sq, group=norm_group)
+        gnorm = sq.sqrt() * grad_prescale
     if clip:
         gscale = grad_prescale * torch.where(gnorm < clip, 1.0, clip / gnorm)
     else:
@@ -140,33 +165,65 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     def state_dict(self) -> dict:
-        """Everything a resume needs, as tensors and ints."""
+        """Everything a resume needs, as tensors and ints; sharded (FSDP2)
+        tensors gathered whole, which is collective."""
         s = self.sampler_state
-        return {"step": self.step, "params": self.model.state_dict(),
-                "ema": self.ema_params,
+        whole = lambda d: {n: full(t) for n, t in d.items()}  # noqa: E731
+        return {"step": self.step,
+                "params": whole(self.model.state_dict()),
+                "ema": whole(self.ema_params),
                 "opt": {"count": self.opt_state.count,
-                        "mu": self.opt_state.mu, "nu": self.opt_state.nu},
+                        "mu": whole(self.opt_state.mu),
+                        "nu": whole(self.opt_state.nu)},
                 "sampler": None if s is None else {
                     "loss_history": s.loss_history,
                     "loss_counts": s.loss_counts}}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy a ``state_dict`` into this state's tensors, in place."""
+        """Copy a ``state_dict`` (whole tensors) into this state's tensors,
+        in place; a sharded tensor takes its own shard."""
         self.step = int(sd["step"])
-        self.model.load_state_dict(sd["params"])
         self.opt_state.count = int(sd["opt"]["count"])
-        for mine, theirs in ((self.ema_params, sd["ema"]),
+        for mine, theirs in ((self.model.state_dict(), sd["params"]),
+                             (self.ema_params, sd["ema"]),
                              (self.opt_state.mu, sd["opt"]["mu"]),
                              (self.opt_state.nu, sd["opt"]["nu"])):
             if mine.keys() != theirs.keys():
                 raise KeyError("checkpoint parameters differ from the model's")
             for n, t in mine.items():
-                t.copy_(theirs[n])
+                _copy_whole_(t, theirs[n])
         if sd["sampler"] is not None:
             self.sampler_state = LossSecondMomentState(
                 sd["sampler"]["loss_history"].cpu(),
                 sd["sampler"]["loss_counts"].cpu())
+
+
+def _copy_whole_(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src), where a DTensor ``dst`` takes its shard of the whole
+    ``src`` (every rank holds ``src``)."""
+    if not hasattr(dst, "to_local"):
+        dst.copy_(src)
+        return
+    from torch.distributed.tensor import distribute_tensor
+
+    shard = distribute_tensor(src.to(dst.device, dst.dtype), dst.device_mesh,
+                              dst.placements, src_data_rank=None)
+    dst.to_local().copy_(shard.to_local())
+
+
+def shard_model(model: nn.Module, mesh, device_type: str) -> nn.Module:
+    """FSDP2 over ``mesh``'s ``fsdp`` axis (replicated over ``dp``): every
+    block of ``model.blocks`` sharded on its own, then the rest at the
+    root. Parameters keep their dtype (f32 masters)."""
+    from torch.distributed.fsdp import fully_shard
+
+    axes = tuple(n for n in ("dp", "fsdp") if n in mesh.shape)
+    dm = mesh.device_mesh(device_type, axes)
+    for blk in model.blocks:
+        fully_shard(blk, mesh=dm)
+    fully_shard(model, mesh=dm)
+    return model
 
 
 def create_train_state(model: nn.Module,
@@ -190,19 +247,22 @@ def _step_generators(seed: int, step: int, device):
 
 
 def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
-                         noise, drop, grad_accum: int = 1):
+                         noise, drop, grad_accum: int = 1, forward=None):
     """Forward and backward of ``grad_accum`` equal microbatches, the
     gradients summed into the parameters' ``.grad`` (undivided, as the JAX
     package's ``accum_grads`` returns them). ``drop`` ([B] bool or None)
     marks the rows whose conditioning is the null embedding: inside the
     model's forward for the single pass, before the loop and outside the
-    gradient for ``grad_accum > 1``. Returns (the mean of the microbatch
-    losses, the per-row loss terms, detached)."""
+    gradient for ``grad_accum > 1``. ``forward`` (default ``model``) runs
+    the model: a ``DistributedDataParallel`` wrapper syncs the gradients
+    in the last microbatch's backward only. Returns (the mean of the
+    microbatch losses, the per-row loss terms, detached)."""
+    forward = model if forward is None else forward
     B = x.shape[0]
     if B % grad_accum:
         raise ValueError(f"batch {B} not divisible by grad_accum={grad_accum}")
     if grad_accum > 1 and drop is not None:
-        null = model.null_cond_embedding.detach().to(y.dtype)
+        null = full(model.null_cond_embedding.detach()).to(y.dtype)
         y = torch.where(drop[:, None, None], null[None, None, :], y)
         drop = None
     mb = B // grad_accum
@@ -213,12 +273,15 @@ def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
         drop_i = None if drop is None else drop[sl]
 
         def model_fn(x_t, t_orig, y=y[sl], drop=drop_i):
-            return model(x_t, t_orig, y, drop)
+            return forward(x_t, t_orig, y, drop)
 
-        terms = gaussian.training_losses(diffusion, model_fn, x[sl], t[sl],
-                                         noise=noise[sl])
-        loss = (terms["loss_total"] * weights[sl]).mean()
-        loss.backward()
+        last = i == grad_accum - 1
+        with (contextlib.nullcontext() if last or not hasattr(
+                forward, "no_sync") else forward.no_sync()):
+            terms = gaussian.training_losses(diffusion, model_fn, x[sl],
+                                             t[sl], noise=noise[sl])
+            loss = (terms["loss_total"] * weights[sl]).mean()
+            loss.backward()
         loss_sum += loss.detach()
         for k, val in terms.items():
             terms_all.setdefault(k, []).append(val.detach())
@@ -228,43 +291,79 @@ def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
 
 def make_train_step(model, diffusion: Diffusion, optimizer: dict,
                     ema_decay: float = 0.9999,
-                    timestep_sampler: str = "uniform", grad_accum: int = 1):
+                    timestep_sampler: str = "uniform", grad_accum: int = 1,
+                    mesh=None):
     """Returns ``train_step(state, batch, seed) -> metrics``, which
     advances ``state`` in place. ``batch`` is {'x': [B, N, C] clean
-    tokens, 'y': [B, M, Cc] conditioning} on the model's device; metrics
-    are device scalars (loss, loss_mse, grad_norm[, loss_vb])."""
+    tokens, 'y': [B, M, Cc] conditioning} on the model's device: this
+    rank's rows of the global batch when ``mesh`` is given (every rank
+    holding as many). It may carry the uniform sampler's draws for these
+    rows, 't' [B], 'drop' [B] bool and 'noise' [B, N, C] (another
+    framework's, for parity), which replace the step's own. Metrics are
+    device scalars (loss, loss_mse, grad_norm[, loss_vb]), averaged over
+    the ranks. Across ranks a model that ``shard_model`` did not shard is
+    wrapped in ``DistributedDataParallel`` here, which is collective."""
+    data_group = norm_group = None
+    parts, index, forward = 1, 0, model
+    if mesh is not None:
+        parts, index = mesh.size, mesh.index
+        data_group = mesh.group()
+    if data_group is not None:
+        from torch.distributed.fsdp import FSDPModule
+        from torch.nn.parallel import DistributedDataParallel
+
+        if isinstance(model, FSDPModule):
+            # FSDP2 averages the gradients; the norm sums over the shards
+            norm_group = mesh.group("fsdp")
+        else:
+            # the null embedding takes no gradient where nothing drops
+            forward = DistributedDataParallel(
+                model, process_group=data_group, broadcast_buffers=False,
+                find_unused_parameters=(model.cond_drop_prob <= 0
+                                        or grad_accum > 1))
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
         x, y = batch["x"], batch["y"]
         B, device = x.shape[0], x.device
+        rows = slice(index * B, (index + 1) * B)
         gen, cpu_gen = _step_generators(seed, state.step, device)
+        # every draw over the global batch, then this rank's rows
         if timestep_sampler == "lsm" and state.sampler_state is not None:
-            t, weights = lsm_sample(state.sampler_state, B, cpu_gen)
-            t, weights = t.to(device), weights.to(device)
+            t, weights = lsm_sample(state.sampler_state, B * parts, cpu_gen)
+            t, weights = t[rows].to(device), weights[rows].to(device)
         else:
-            t, weights = uniform_sample(diffusion.num_timesteps, B, gen,
-                                        device)
-        drop = model.cond_drop_mask(B, gen, device)
-        noise = torch.randn(x.shape, generator=gen, device=device,
-                            dtype=x.dtype)
+            t, weights = uniform_sample(diffusion.num_timesteps, B * parts,
+                                        gen, device)
+            t, weights = t[rows], weights[rows]
+        drop = model.cond_drop_mask(B * parts, gen, device)
+        drop = None if drop is None else drop[rows]
+        noise = torch.randn((B * parts, *x.shape[1:]), generator=gen,
+                            device=device, dtype=x.dtype)[rows]
+        if "t" in batch:
+            t = batch["t"].to(device)
+            weights = torch.ones_like(weights)
+        drop = batch["drop"].to(device) if "drop" in batch else drop
+        noise = batch["noise"].to(device, x.dtype) if "noise" in batch else noise
         loss, terms = accumulate_gradients(model, diffusion, x, y, t, weights,
-                                           noise, drop, grad_accum)
+                                           noise, drop, grad_accum, forward)
 
         params = state.params()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
         gnorm = fused_adamw_ema_update(
             grads, state.opt_state, params, state.ema_params, optimizer,
-            ema_decay=ema_decay, grad_prescale=1.0 / grad_accum)
+            ema_decay=ema_decay, grad_prescale=1.0 / grad_accum,
+            norm_group=norm_group)
         model.zero_grad(set_to_none=True)
         if timestep_sampler == "lsm" and state.sampler_state is not None:
             state.sampler_state = lsm_update(state.sampler_state, t.cpu(),
-                                             terms["loss_total"])
+                                             terms["loss_total"], data_group)
         state.step += 1
         metrics = {"loss": loss,
                    "loss_mse": terms["loss_mse"].mean(), "grad_norm": gnorm}
         if "loss_vb" in terms:
             metrics["loss_vb"] = terms["loss_vb"].mean()
-        return metrics
+        return {k: (v if k == "grad_norm" else all_mean(v, data_group))
+                for k, v in metrics.items()}
 
     return train_step

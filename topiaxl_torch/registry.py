@@ -10,9 +10,9 @@ take ``param_dtype`` (f32 master weights for training).
 
 Keys as the JAX factories read them, with the same defaults;
 ``gradient_checkpointing: true`` maps to the DiT's ``remat=True`` and
-``precision`` is dropped (``dtype`` sets the compute type). A registered
-name whose class the port does not have yet raises
-``NotImplementedError`` naming it and the ROADMAP item that ports it.
+``precision`` is dropped (``dtype`` sets the compute type). The text and
+CLIP encoders read their weights from a local ``model_name_or_path``
+(no download); ``TextConditioner`` without one needs ``stub: true``.
 """
 
 from __future__ import annotations
@@ -149,18 +149,32 @@ def make_dummy_conditioner(device=None, generator=None, **kw):
     return DummyImageConditioner(**kw)
 
 
-def _not_ported(names: tuple, item: str) -> None:
-    def make(device=None, generator=None, **kw):
-        raise NotImplementedError(
-            f"{names[0]} is not ported to topiaxl_torch yet (ROADMAP queue 1 "
-            f"{item})")
+@register("topiaxl.TextConditioner", "models.conditioner.text.TextConditioner")
+def make_text_conditioner(device=None, generator=None, **kw):
+    from .models.conditioner.text import CLIPTextEncoder, TextConditioner
 
-    register(*names)(make)
+    encoder = None
+    if kw.get("model_name_or_path"):
+        encoder = CLIPTextEncoder(model_name_or_path=kw["model_name_or_path"],
+                                  device=device)
+    return TextConditioner(encoder=encoder, dim=kw.get("dim", 768),
+                           stub=bool(kw.get("stub", False)), device=device)
 
 
-_not_ported(("topiaxl.TextConditioner",
-             "models.conditioner.text.TextConditioner"), "#8")
-_not_ported(("topiaxl.CLIPImageEncoder",
-             "models.conditioner.image.CLIPImageEncoder"), "#8")
-_not_ported(("topiaxl.CLIPTextEncoder",
-             "models.conditioner.text.CLIPTextEncoder"), "#8")
+@register("topiaxl.CLIPImageEncoder",
+          "models.conditioner.image.CLIPImageEncoder")
+def make_clip_image_encoder(device=None, generator=None, **kw):
+    from .models.conditioner.image import CLIPImageEncoder
+
+    return CLIPImageEncoder(model_name_or_path=kw.get("model_name_or_path"),
+                            tokens=bool(kw.get("tokens", False)),
+                            device=device)
+
+
+@register("topiaxl.CLIPTextEncoder",
+          "models.conditioner.text.CLIPTextEncoder")
+def make_clip_text_encoder(device=None, generator=None, **kw):
+    from .models.conditioner.text import CLIPTextEncoder
+
+    return CLIPTextEncoder(model_name_or_path=kw.get("model_name_or_path"),
+                           device=device)
