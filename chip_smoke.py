@@ -92,10 +92,29 @@ the script exits non-zero without a result line):
     block's-own-lse fault, its launches of #1 and #4-#6 and its ms.
 23. dp: ``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the
     one card (``torchrun``; gloo, which NCCL's one-rank-a-card rule
-    leaves) at the flagship DiT (28 blocks, remat), against one process
-    at the same global batch of 8: losses, grad norms, Adam moments,
-    parameters; then the same under two planted faults (no gradient
-    sync; both ranks on the same rows).
+    leaves) at the flagship width (``DP_DEPTH`` blocks, remat), against
+    one process at the same global batch of 8: losses, grad norms, Adam
+    moments, parameters; then the same under two planted faults (no
+    gradient sync; both ranks on the same rows).
+24. tp: two ranks on the one card (``torchrun``, gloo) at dp 1 x tp 2:
+    ``generate_primx_sharded`` with ``dit_param_rules()`` at the full
+    depth of 28 on a 5-step DDIM chain (two assets) and two ``cli.train``
+    steps at ``train.mesh={dp: 1, tp: 2}`` (flagship width at 8 blocks,
+    remat, batch 8, resumed from a step-0 checkpoint whose zero-init
+    layers are filled),
+    each against one process on the same inputs and beside the planted
+    fault (qkv's rows split as one block); per rank the flash forwards by
+    head count (8), the launches, step time and peak memory.
+25. pp: ``make_pp_train_step`` at pp 2 (14 blocks a stage) and pp 4 (7),
+    ``n_micro`` 4, flagship width, batch 8, against one process's
+    ``make_train_step``: loss, grad norm, Adam mu, update; step time, the
+    GPipe bubble and each stage's peak memory and launches.
+26. restore: a tp = 2 ``cli.train`` run's checkpoint (flagship width,
+    depth 4) restores into one process bit for bit (``sharded_restore``),
+    and step 3 resumed there has the loss of step 3 resumed on tp = 2.
+27. app: ``App.run`` (``topiaxl_torch/app.py``) on one synthetic image at
+    the flagship config (stage 2 at mc 128, 5000 faces): a GLB that
+    parses, and the serving launches of one image.
 
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
@@ -119,7 +138,9 @@ their own):
   box unwrap), serially, pipelined and batched two at a time: assets per
   minute each, the exact launches of every chain, every GLB on the sphere.
 
-Phase 3 also holds the forward's output and lse, the three backward
+Phase 3 also runs the flash forward at one tp = 2 rank's 8 heads
+(2x2048x2048 and 2x2048x1370) and the single-pass backward at 8x2048x2048
+with 8 heads. It also holds the forward's output and lse, the three backward
 kernels and the LN kernels against their plain versions at the training
 shapes (batch 8 for the flagship, 4096 prims at batch 2), with planted
 faults that must land above each bar; the two-pass pair must repeat its
@@ -303,6 +324,10 @@ RING_CASES = (("flagship", 2, 2048, (2, 4)), ("8192 prims", 1, 8192, (2,)))
 # 9.7e-4 / 7.7e-2 / 0.94 / 1.30. Each bar sits between the sound reading
 # and the faults' (the loss bar below the same-rows fault only), and each
 # fault must cross one
+# the dp phase's depth: its random init makes every block the identity, so
+# depth does not enter its readings (28 blocks read the same), and each of
+# its three checkpoints is 13.6 GB at 28
+DP_DEPTH = 4
 DP_LOSS_REL = 1e-4
 DP_GNORM_REL = 1e-3
 DP_MU_REL = 2e-2
@@ -525,6 +550,7 @@ def check_flash_backward(results: dict, randn) -> None:
 
     cases = [("dit_self", 8, 2048, 2048, 16, 72, 72 ** -0.5, True),
              ("dit_cross", 8, 2048, 1370, 16, 72, 72 ** -1.0, False),
+             ("dit_self_tp2", 8, 2048, 2048, 8, 72, 72 ** -0.5, True),
              ("long_self", 2, 4096, 4096, 16, 72, 72 ** -0.5, True),
              ("long_cross", 2, 4096, 1370, 16, 72, 72 ** -1.0, False),
              ("ragged_pair", 1, 1000, 2049, 16, 72, 72 ** -0.5, False)]
@@ -710,9 +736,12 @@ def phase_kernels() -> dict:
 
     results = {}
     # (tag, B, Sq, Sk, H, D, scale, q/k/v as strided views of one qkv)
+    # the tp rows: one tensor-parallel rank's 8 of the 16 heads (tp = 2)
     cases = [("dit_self", 2, 2048, 2048, 16, 72, 72 ** -0.5, True),
              ("dit_cross", 1, 2048, 1370, 16, 72, 72 ** -1.0, False),
-             ("dinov2", 1, 1374, 1374, 12, 64, 64 ** -0.5, True)]
+             ("dinov2", 1, 1374, 1374, 12, 64, 64 ** -0.5, True),
+             ("dit_self_tp2", 2, 2048, 2048, 8, 72, 72 ** -0.5, True),
+             ("dit_cross_tp2", 2, 2048, 1370, 8, 72, 72 ** -1.0, False)]
     flash = results.setdefault("flash_attn_fwd",
                                 {"max_abs_err": 0.0, "max_rel_err": 0.0})
     for tag, B, Sq, Sk, H, D, scale, fused in cases:
@@ -2438,8 +2467,9 @@ def phase_dp(tmp: str) -> None:
     """``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the one
     card (``torchrun``; the kernels were built by the build phase, so the
     ranks load them and never build at once) against one process at the
-    same global batch, at the flagship DiT (28 blocks, remat); then the
-    same comparison under each planted fault (``DP_FAULT_DRIVER``)."""
+    same global batch, at the flagship width (``DP_DEPTH`` blocks, remat);
+    then the same comparison under each planted fault
+    (``DP_FAULT_DRIVER``)."""
     import torch
 
     from topiaxl_torch.cli.train import build_dit, main
@@ -2447,10 +2477,12 @@ def phase_dp(tmp: str) -> None:
     from topiaxl_torch.core.config import load_config
 
     card_id = card_line()
+    # depth DP_DEPTH (flagship width): the whole script's time, with the
+    # tp, pp, restore and app phases after this one
     common = ["train.synthetic=true", "model.generator.remat=true",
               "scheduler.warmup_iters=0", "train.max_steps=2",
               "train.log_every_n_steps=1", "train.ckpt_every_n_steps=1000000",
-              "train.keep_ckpts=1"]
+              "train.keep_ckpts=1", f"model.generator.depth={DP_DEPTH}"]
     ranks = ["train.batch_size=4", "train.mesh.dp=-1"]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.environ.get("PYTHONPATH", "")]))
@@ -2537,7 +2569,8 @@ def phase_dp(tmp: str) -> None:
                for i, fault in enumerate(faults)}
     bars = {"loss": DP_LOSS_REL, "grad norm": DP_GNORM_REL,
             "Adam mu": DP_MU_REL, "update": DP_UPDATE_REL}
-    log(f"  dp=2 on one card ({', '.join(groups)}), flagship DiT with remat, "
+    log(f"  dp=2 on one card ({', '.join(groups)}), flagship width, depth "
+        f"{DP_DEPTH}, remat, "
         f"global batch 8: steps " + ", ".join(
             f"{m['step']}: loss {m['loss']:.5f} grad norm "
             f"{m['grad_norm']:.5f}" for m in metrics)
@@ -2558,6 +2591,628 @@ def phase_dp(tmp: str) -> None:
     for fault, got in planted.items():
         if not any(got[k] > bars[k] for k in bars):
             raise AssertionError(f"planted fault {fault!r} passes: {got}")
+
+
+# tp: a tensor-parallel rank pair (dp 1 x tp 2) against one process, bf16
+# on both: generation's PrimX (max |a - b| / max |b| of srt and of feat)
+# after a 5-step DDIM chain over the full-depth DiT, and two cli.train
+# steps' loss, grad norm, Adam mu and update (as in dp). Each rank rounds
+# its partial products to bf16 before the all-reduce, which one process
+# does not. The planted fault (qkv's rows split as one block: rank 0 holds
+# all of q and half of k) must cross a bar. On an H100 sound ranks read
+# srt / feat 2.4e-2 / 4.2e-2 (fault 0.128 / 0.208), and, training 28
+# blocks, loss / grad norm / mu / update 4.1e-4 / 1.1e-3 / 3.6e-3 / 2.1e-2
+# (fault 8.6e-4 / 6.0e-3 / 0.204 / 0.753: the fault moves the moments and
+# the update).
+TP_GEN_REL = 5e-2
+TP_BARS = {"loss": 1e-3, "grad norm": 1e-2, "Adam mu": 5e-2, "update": 0.3}
+# pp: make_pp_train_step against make_train_step at the same batch of 8;
+# microbatching changes only the GEMMs' row counts (on an H100: loss equal,
+# grad norm <= 3.4e-6, mu 1.1e-3, update 7.7e-3)
+PP_BARS = {"loss": 1e-4, "grad norm": 1e-3, "Adam mu": 2e-2, "update": 0.2}
+PP_MICRO = 4
+# restore: the checkpoint of a tp = 2 run at depth 4 (flagship width) loads
+# into one process bit for bit; step 3 resumed there against the same step
+# resumed on tp = 2 (bf16 rounding as above)
+RESTORE_LOSS_REL = 1e-3
+TP_GEN_STEPS = 5
+# the tp trainer's depth (flagship width): at 28 blocks each of the phase's
+# four 13.6 GB checkpoints is written and read through the host, and the
+# phase took 244-561 s on one H100 machine
+TP_TRAIN_DEPTH = 8
+# per step with remat on each tp rank: the trainer's launches at that depth
+# (every block runs on each rank, on half the heads; its forward twice)
+TP_TRAIN_LAUNCHES = dict(
+    TRAIN_REMAT_LAUNCHES, flash_attn_fwd=4 * TP_TRAIN_DEPTH,
+    flash_attn_bwd=2 * TP_TRAIN_DEPTH, ln_modulate=2 * TP_TRAIN_DEPTH + 1,
+    ln_modulate_residual=4 * TP_TRAIN_DEPTH)
+TP_GEN_LAUNCHES = {"flash_attn_fwd": TP_GEN_STEPS * 56, "flash_attn_bwd": 0,
+                   "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+                   "ln_modulate": TP_GEN_STEPS * 29,
+                   "ln_modulate_residual": TP_GEN_STEPS * 56, **NO_PROBES}
+
+
+# the ranks of the tp, pp and restore phases: argv[1] is the repository,
+# argv[2] a JSON list of jobs for chip_smoke.rank_jobs
+RANKS_DRIVER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.rank_jobs(json.loads(sys.argv[2]))
+"""
+
+
+def contiguous_qkv_rules():
+    """The planted tp fault: ``dit_param_rules`` with the fused qkv's rows
+    split as one block (what a contiguous ``P(fs, tp)`` does without
+    GSPMD's reshard)."""
+    from topiaxl_torch.parallel.sharding import Split, dit_param_rules
+
+    return [(pat, tuple(e.axis if isinstance(e, Split) else e for e in spec))
+            for pat, spec in dit_param_rules()]
+
+
+def enliven_(dit, seed: int):
+    """Xavier weights and N(0, 0.02) biases in the layers the DiT's init
+    zeroes (every adaLN and the final projection), from a seeded generator
+    on the DiT's device: the same numbers in every process. Without this
+    each block is the identity, the output zero, and every block gradient
+    zero, which no tp or pp fault could move."""
+    import torch
+
+    from topiaxl_torch.models.layers import xavier_
+
+    dev = next(dit.parameters()).device
+    g = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        for m in [b.adaLN_modulation[1] for b in dit.blocks] + [
+                dit.final_layer.adaLN_modulation[1], dit.final_layer.linear]:
+            xavier_(m.weight, g)
+            m.bias.normal_(0.0, 0.02, generator=g)
+    return dit
+
+
+def tp_generate_inputs(assets: int = 2):
+    """The flagship DiT (bf16, enlivened) and VAE, a DDIM chain of
+    TP_GEN_STEPS, conditioning and initial noise for ``assets`` assets,
+    all from seeds on the card: the same in every process."""
+    import torch
+
+    import topiaxl_torch.registry  # noqa: F401
+    from topiaxl_torch.core.config import build, load_config
+    from topiaxl_torch.diffusion.schedule import create_diffusion
+    from topiaxl_torch.models.latent_stats import resolve_latent_stats
+
+    cfg = load_config(FLAGSHIP)
+    dev = torch.device("cuda")
+    dit = enliven_(build(cfg.model.generator, device=dev, generator=torch.
+                         Generator(dev).manual_seed(3)).eval(), 4)
+    vae = build(cfg.model.vae, device=dev,
+                generator=torch.Generator(dev).manual_seed(5)).eval()
+    g = torch.Generator(dev).manual_seed(6)
+    y = torch.randn((assets, 1370, 768), generator=g, device=dev)
+    noise = torch.randn((assets, 2048, 68), generator=g, device=dev)
+    diffusion = create_diffusion(
+        timestep_respacing=f"ddim{TP_GEN_STEPS}",
+        noise_schedule=cfg.diffusion.noise_schedule,
+        diffusion_steps=cfg.diffusion.diffusion_steps,
+        parameterization=cfg.diffusion.parameterization, device=dev)
+    mean, std = resolve_latent_stats(cfg.model)
+    return dit, vae, diffusion, y, noise, mean, std
+
+
+def pp_inputs(seed: int = 8):
+    """The flagship trainer's DiT (f32 masters, enlivened) and a batch of 8
+    from seeds on the card."""
+    import torch
+
+    from topiaxl_torch.cli.train import build_dit
+    from topiaxl_torch.core.config import load_config
+
+    cfg = load_config(FLAGSHIP)
+    dev = torch.device("cuda")
+    dit = enliven_(build_dit(cfg.model.generator, dev, torch.Generator(
+        dev).manual_seed(seed)).train(), seed + 1)
+    g = torch.Generator(dev).manual_seed(seed + 2)
+    batch = {"x": torch.randn((8, 2048, 68), generator=g, device=dev),
+             "y": torch.randn((8, 1370, 768), generator=g, device=dev)}
+    return cfg, dit, batch
+
+
+def pp_optimizer(cfg):
+    from topiaxl_torch.diffusion.schedule import create_diffusion
+    from topiaxl_torch.pipelines.train import make_optimizer
+
+    diffusion = create_diffusion(
+        noise_schedule=cfg.diffusion.noise_schedule,
+        diffusion_steps=cfg.diffusion.diffusion_steps,
+        parameterization=cfg.diffusion.parameterization, device="cuda")
+    return diffusion, make_optimizer(lr=float(cfg.optimizer.lr),
+                                     warmup_iters=0, max_iters=1000)
+
+
+def rel_readings(steps: list, ref_steps: list, sd: dict, ref: dict,
+                 p0: dict) -> dict:
+    """The largest relative difference of the steps' loss and grad norm
+    from the reference's, and Adam mu and the update (from ``p0``) by norm
+    of the difference over norm (on the card)."""
+    out = {"loss": 0.0, "grad norm": 0.0}
+    for m, r in zip(steps, ref_steps):
+        out["loss"] = max(out["loss"], abs(m["loss"] - r["loss"])
+                          / abs(r["loss"]))
+        out["grad norm"] = max(out["grad norm"], abs(
+            m["grad_norm"] - r["grad_norm"]) / r["grad_norm"])
+    for key, part in (("Adam mu", "mu"), ("update", "params")):
+        num = den = 0.0
+        for n, a in sd[part].items():
+            b = ref[part][n].cuda().float()
+            num += ((a.cuda().float() - b) ** 2).sum().item()
+            base = b if part == "mu" else b - p0[n].cuda().float()
+            den += (base ** 2).sum().item()
+        out[key] = (num / den) ** 0.5
+    return out
+
+
+def rank_jobs(jobs: list) -> None:
+    """A torchrun rank of the tp, pp and restore phases: each job in turn,
+    every rank writing ``<out>.rank<r>.json`` (launches, the heads each
+    flash forward ran on, peak memory, seconds, the job's results)."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    import topiaxl_torch.ops.attention as attention
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.parallel import sharding
+    from topiaxl_torch.parallel.mesh import init_distributed
+
+    init_distributed(torch.device("cuda"))
+    rank = dist.get_rank()
+    heads = collections.Counter()
+    flash = attention.flash_attention
+
+    def counted(q, *a, **k):
+        heads[q.shape[2]] += 1
+        return flash(q, *a, **k)
+
+    attention.flash_attention = counted
+    keep_rules, bad_rules = sharding.dit_param_rules, contiguous_qkv_rules()
+    for job in jobs:
+        if job["kind"] == "copy":
+            if rank == 0:
+                shutil.copytree(job["src"], job["dst"])
+            dist.barrier()
+            continue
+        heads.clear()
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        if job.get("fault"):
+            sharding.dit_param_rules = lambda *a, **k: bad_rules
+        t0 = time.perf_counter()
+        try:
+            res = RANK_JOBS[job["kind"]](job, rank)
+        finally:
+            sharding.dit_param_rules = keep_rules
+        torch.cuda.synchronize()
+        res.update(seconds=time.perf_counter() - t0,
+                   launches={k: v for k, v in _cuda.launches.items()},
+                   heads=dict(heads),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        with open(f"{job['out']}.rank{rank}.json", "w") as f:
+            json.dump(res, f)
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def rank_cli(job: dict, rank: int) -> dict:
+    from topiaxl_torch.cli.train import main
+
+    recs = PerStep()
+    if main(job["argv"], metrics_out=recs) != 0:
+        raise SystemExit("cli.train failed")
+    return {"steps": recs}
+
+
+def rank_generate(job: dict, rank: int) -> dict:
+    import torch
+
+    from topiaxl_torch.parallel import make_mesh, sharding
+    from topiaxl_torch.parallel.sharding import gather_params
+    from topiaxl_torch.pipelines.infer import generate_primx_sharded
+
+    dit, vae, diffusion, y, noise, mean, std = tp_generate_inputs()
+    mesh = make_mesh({"dp": 1, "tp": 2})
+    rules = sharding.dit_param_rules()   # the fault's under "fault"
+    t0 = time.perf_counter()
+    out = generate_primx_sharded(dit, vae, diffusion, y, mean, std, mesh,
+                                 cfg_scale=6.0, noise=noise,
+                                 param_rules=rules)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({"srt": torch.stack([p.srt for p in out]).cpu(),
+                    "feat": torch.stack([p.feat for p in out]).cpu()},
+                   job["out"] + ".pt")
+    # the tp parts of a fresh copy gather back to the weights exactly
+    from copy import deepcopy
+
+    from topiaxl_torch.parallel import shard_params
+
+    local = shard_params(deepcopy(dit), mesh, rules)
+    exact = all(torch.equal(t, dit.state_dict()[n])
+                for n, t in gather_params(local).items())
+    return {"chain_s": chain_s, "gathers_exact": exact}
+
+
+def rank_pp(job: dict, rank: int) -> dict:
+    import torch
+
+    from topiaxl_torch.parallel import (make_mesh, make_pp_train_step,
+                                        shard_pp_params)
+    from topiaxl_torch.pipelines.train import create_train_state
+
+    cfg, dit, batch = pp_inputs()
+    p0 = {n: t.detach().float().cpu() for n, t in dit.state_dict().items()}
+    mesh = make_mesh({"pp": job["pp"]})
+    stage = shard_pp_params(dit, mesh)
+    torch.cuda.empty_cache()
+    state = create_train_state(stage)
+    diffusion, optimizer = pp_optimizer(cfg)
+    step = make_pp_train_step(stage, diffusion, optimizer, mesh,
+                              n_micro=PP_MICRO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = {k: float(v) for k, v in step(state, batch, 0).items()}
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    ref = torch.load(job["ref"], map_location="cpu", weights_only=True,
+                     mmap=True)
+    # this stage's blocks and, on stage 0 only, the replicated tensors
+    mine = {n for n in state.params() if n.startswith("blocks.") or rank == 0}
+    sd = {"params": {n: p.detach() for n, p in state.params().items()
+                     if n in mine},
+          "mu": {n: m for n, m in state.opt_state.mu.items() if n in mine}}
+    parts = {}
+    for part in ("mu", "params"):
+        num = den = 0.0
+        for n, a in sd[part].items():
+            b = ref[part][n].cuda().float()
+            num += ((a.float() - b) ** 2).sum().item()
+            base = b if part == "mu" else b - p0[n].cuda()
+            den += (base ** 2).sum().item()
+        parts[part] = [num, den]
+    sums = torch.tensor([parts["mu"] + parts["params"]], dtype=torch.float64,
+                        device="cuda")
+    torch.distributed.all_reduce(sums)
+    mu_n, mu_d, p_n, p_d = sums[0].tolist()
+    return {"metrics": metrics, "step_s": step_s,
+            "Adam mu": (mu_n / mu_d) ** 0.5, "update": (p_n / p_d) ** 0.5,
+            "blocks": len(stage.blocks)}
+
+
+RANK_JOBS = {"cli": rank_cli, "generate": rank_generate, "pp": rank_pp}
+
+
+def torchrun(tmp: str, nproc: int, jobs: list, what: str) -> float:
+    """``RANKS_DRIVER`` on ``nproc`` ranks of the one card; its wall
+    seconds. Raises with the end of its output if it fails."""
+    driver = os.path.join(tmp, "ranks.py")
+    with open(driver, "w") as f:
+        f.write(RANKS_DRIVER)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), driver, ROOT, json.dumps(jobs)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        log((proc.stdout + proc.stderr)[-6000:])
+        raise AssertionError(f"torchrun {what} exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def read_ranks(out: str, n: int) -> list:
+    res = []
+    for r in range(n):
+        with open(f"{out}.rank{r}.json") as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_tp(tmp: str) -> None:
+    """Tensor parallelism over two ranks on the one card (dp 1 x tp 2,
+    gloo): ``generate_primx_sharded`` with ``dit_param_rules()`` at the
+    full depth on a short DDIM chain, and two ``cli.train`` steps at
+    ``train.mesh={dp: 1, tp: 2}`` (flagship width at ``TP_TRAIN_DEPTH``
+    blocks, remat, batch 8, resumed from an enlivened step-0 checkpoint),
+    each against one process on the same inputs and beside the planted
+    contiguous-qkv fault."""
+    import torch
+
+    from topiaxl_torch.cli.train import build_dit, main
+    from topiaxl_torch.core.checkpoint import CheckpointManager
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.pipelines.infer import generate_primx
+    from topiaxl_torch.pipelines.train import create_train_state
+
+    card_id = card_line()
+    # one process: the chain, and the step-0 checkpoint both trainers resume
+    dit, vae, diffusion, y, noise, mean, std = tp_generate_inputs()
+    t0 = time.perf_counter()
+    ref = generate_primx(dit, vae, diffusion, y, mean, std, cfg_scale=6.0,
+                         noise=noise)
+    torch.cuda.synchronize()
+    one_chain_s = time.perf_counter() - t0
+    ref_srt = torch.stack([p.srt for p in ref]).float()
+    ref_feat = torch.stack([p.feat for p in ref]).float()
+    del dit, vae, ref
+    common = ["train.synthetic=true", "model.generator.remat=true",
+              "scheduler.warmup_iters=0", "train.max_steps=2",
+              "train.log_every_n_steps=1", "train.ckpt_every_n_steps=1000000",
+              "train.keep_ckpts=1", "train.batch_size=8",
+              f"model.generator.depth={TP_TRAIN_DEPTH}"]
+    cfg = load_config(FLAGSHIP, overrides=common)
+    dit = enliven_(build_dit(cfg.model.generator, torch.device("cuda"),
+                             torch.Generator("cuda").manual_seed(
+                                 int(cfg.global_seed))), 9)
+    p0 = {n: t.detach().cpu() for n, t in dit.state_dict().items()}
+    seed_ckpt = os.path.join(tmp, "step0", "step_000000000.pt")
+    CheckpointManager(os.path.dirname(seed_ckpt)).save(
+        0, create_train_state(dit).state_dict())
+    del dit
+    torch.cuda.empty_cache()
+
+    def run_dir(name: str) -> list:
+        over = [*common, f"root_data_dir={tmp}/tp_{name}"]
+        d = os.path.join(load_config(FLAGSHIP, overrides=over).output_dir,
+                         "train", "ckpts")
+        os.makedirs(d)
+        os.link(seed_ckpt, os.path.join(d, os.path.basename(seed_ckpt)))
+        return over
+
+    def final(name: str) -> dict:
+        d = os.path.join(load_config(FLAGSHIP, overrides=[
+            *common, f"root_data_dir={tmp}/tp_{name}"]).output_dir, "train")
+        sd = CheckpointManager(os.path.join(d, "ckpts")).restore()
+        shutil.rmtree(os.path.join(d, "ckpts"))
+        return {"params": sd["params"], "mu": sd["opt"]["mu"]}
+
+    torch.cuda.reset_peak_memory_stats()
+    single = PerStep()
+    t0 = time.perf_counter()
+    if main([FLAGSHIP, *run_dir("single")], metrics_out=single) != 0:
+        raise AssertionError("cli.train (one process) failed")
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one_wall = time.perf_counter() - t0
+    single_sd = final("single")
+    torch.cuda.empty_cache()
+
+    ranks_args = ["train.mesh.dp=1", "train.mesh.tp=2"]
+    out = os.path.join(tmp, "tp")
+    jobs = [{"kind": "generate", "out": f"{out}_gen"},
+            {"kind": "generate", "fault": True, "out": f"{out}_gen_fault"},
+            {"kind": "cli", "argv": [FLAGSHIP, *run_dir("ranks"),
+                                     *ranks_args], "out": f"{out}_train"},
+            {"kind": "cli", "fault": True, "argv": [
+                FLAGSHIP, *run_dir("fault"), *ranks_args],
+             "out": f"{out}_train_fault"}]
+    wall = torchrun(tmp, 2, jobs, "tp")
+
+    def gen_errs(name: str) -> tuple:
+        got = torch.load(f"{out}_{name}.pt", weights_only=True)
+        return tuple(rel_err(got[k].cuda(), r) for k, r in
+                     (("srt", ref_srt), ("feat", ref_feat)))
+
+    sound, fault = gen_errs("gen"), gen_errs("gen_fault")
+    gen_ranks = read_ranks(f"{out}_gen", 2)
+    for r, res in enumerate(gen_ranks):
+        launches = {k: res["launches"].get(k, 0) for k in TP_GEN_LAUNCHES}
+        log(f"  tp generate rank {r}: flash forward launches by heads "
+            f"{res['heads']}, launches {launches}, chain {res['chain_s']:.3f}"
+            f" s (one process {one_chain_s:.3f} s), peak "
+            f"{res['peak_gib']:.2f} GiB, parts gather back exactly: "
+            f"{res['gathers_exact']}")
+        if launches != TP_GEN_LAUNCHES or res["heads"] != {
+                "8": TP_GEN_STEPS * 56} or not res["gathers_exact"]:
+            raise AssertionError(f"tp generate rank {r}: {res}")
+    log(f"  tp generate (2 assets, {TP_GEN_STEPS} DDIM steps, depth 28): srt "
+        f"/ feat max rel err vs one process {sound[0]:.3e} / {sound[1]:.3e} "
+        f"(bar {TP_GEN_REL}); contiguous-qkv fault {fault[0]:.3e} / "
+        f"{fault[1]:.3e} ({card_id})")
+    if max(sound) > TP_GEN_REL or not max(fault) > TP_GEN_REL:
+        raise AssertionError(f"tp generate: sound {sound}, fault {fault}")
+
+    readings = {}
+    for name in ("train", "train_fault"):
+        recs = read_ranks(f"{out}_{name}", 2)
+        sd = final("ranks" if name == "train" else "fault")
+        steps = recs[0]["steps"]
+        readings[name] = rel_readings(steps, single, sd, single_sd, p0)
+        if name == "train":
+            for r, res in enumerate(recs):
+                per = {k: res["launches"].get(k, 0) // 2
+                       for k in TP_TRAIN_LAUNCHES}
+                log(f"  tp train rank {r}: steps " + ", ".join(
+                    f"{m['step']}: {m['seconds']:.3f} s loss {m['loss']:.5f}"
+                    f" grad norm {m['grad_norm']:.5f}" for m in res["steps"])
+                    + f"; launches a step {per}, flash forwards by heads "
+                    f"{res['heads']}, peak {res['peak_gib']:.2f} GiB")
+                if per != TP_TRAIN_LAUNCHES or set(res["heads"]) != {"8"}:
+                    raise AssertionError(f"tp train rank {r}: {per}, "
+                                         f"{res['heads']}")
+    log("  one process: " + ", ".join(
+        f"{m['step']}: {m['seconds']:.3f} s loss {m['loss']:.5f} grad norm "
+        f"{m['grad_norm']:.5f}" for m in single)
+        + f"; peak {one_peak:.2f} GiB, wall {one_wall:.1f} s; torchrun "
+        f"(both chains, both trainers) {wall:.1f} s ({card_id})")
+    log(f"  tp train ({TP_TRAIN_DEPTH} blocks) relative to one process (bar "
+        "| sound | contiguous qkv): "
+        + "; ".join(f"{k} {TP_BARS[k]:.1e} | {readings['train'][k]:.3e} | "
+                    f"{readings['train_fault'][k]:.3e}" for k in TP_BARS))
+    if any(readings["train"][k] > TP_BARS[k] for k in TP_BARS):
+        raise AssertionError(f"tp train: {readings['train']}")
+    if not any(readings["train_fault"][k] > TP_BARS[k] for k in TP_BARS):
+        raise AssertionError(f"tp train fault passes: {readings}")
+
+
+def phase_pp(tmp: str) -> None:
+    """``make_pp_train_step`` at pp 2 (14 blocks a stage) and pp 4 (7),
+    ``n_micro`` 4, the flagship DiT (enlivened) at batch 8, against one
+    process's ``make_train_step`` on the same weights and batch."""
+    import torch
+
+    from topiaxl_torch.pipelines.train import (create_train_state,
+                                               make_train_step)
+
+    card_id = card_line()
+    cfg, dit, batch = pp_inputs()
+    p0 = {n: t.detach().float().cpu() for n, t in dit.state_dict().items()}
+    state = create_train_state(dit)
+    diffusion, optimizer = pp_optimizer(cfg)
+    step = make_train_step(dit, diffusion, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_metrics = {k: float(v) for k, v in step(state, batch, 0).items()}
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref_path = os.path.join(tmp, "pp_ref.pt")
+    torch.save({"params": {n: p.detach().cpu() for n, p in
+                           state.params().items()},
+                "mu": {n: m.cpu() for n, m in state.opt_state.mu.items()}},
+               ref_path)
+    del dit, state, step, batch
+    torch.cuda.empty_cache()
+    log(f"  one process: loss {ref_metrics['loss']:.5f} grad norm "
+        f"{ref_metrics['grad_norm']:.5f}, step {one_s:.3f} s (first), peak "
+        f"{one_peak:.2f} GiB ({card_id})")
+    for pp in (2, 4):
+        out = os.path.join(tmp, f"pp{pp}")
+        wall = torchrun(tmp, pp, [{"kind": "pp", "pp": pp, "ref": ref_path,
+                                   "out": out}], f"pp={pp}")
+        res = read_ranks(out, pp)
+        m = res[0]["metrics"]
+        got = {"loss": abs(m["loss"] - ref_metrics["loss"])
+               / abs(ref_metrics["loss"]),
+               "grad norm": abs(m["grad_norm"] - ref_metrics["grad_norm"])
+               / ref_metrics["grad_norm"],
+               "Adam mu": res[0]["Adam mu"], "update": res[0]["update"]}
+        bubble = (pp - 1) / (PP_MICRO + pp - 1)
+        log(f"  pp={pp}, n_micro {PP_MICRO} (GPipe bubble {bubble:.3f} of "
+            f"each stage's ticks): loss {m['loss']:.5f} grad norm "
+            f"{m['grad_norm']:.5f}; relative to one process (bar | reading) "
+            + "; ".join(f"{k} {PP_BARS[k]:.1e} | {got[k]:.3e}"
+                        for k in PP_BARS)
+            + "; per stage (blocks, step s, peak GiB, launches #1/#4): "
+            + ", ".join(f"{r['blocks']}, {r['step_s']:.3f}, "
+                        f"{r['peak_gib']:.2f}, "
+                        f"{r['launches'].get('flash_attn_fwd', 0)}/"
+                        f"{r['launches'].get('flash_attn_bwd', 0)}"
+                        for r in res)
+            + f"; torchrun {wall:.1f} s ({card_id})")
+        if any(got[k] > PP_BARS[k] for k in PP_BARS):
+            raise AssertionError(f"pp={pp}: {got}")
+        # each stage's blocks, self- and cross-attention, each microbatch
+        per_stage = 2 * (28 // pp) * PP_MICRO
+        for r in res:
+            if (r["launches"].get("flash_attn_fwd", 0) != per_stage
+                    or r["launches"].get("flash_attn_bwd", 0) != per_stage):
+                raise AssertionError(f"pp={pp} launches {r['launches']}")
+
+
+def phase_restore(tmp: str) -> None:
+    """A tp = 2 run's checkpoint (the flagship width at depth 4, two steps)
+    restores into one process bit for bit (``sharded_restore``); step 3
+    resumed in one process against step 3 resumed on tp = 2."""
+    import torch
+
+    from topiaxl_torch.cli.train import build_dit, main
+    from topiaxl_torch.core.checkpoint import (CheckpointManager,
+                                               sharded_restore)
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.pipelines.train import create_train_state
+
+    card_id = card_line()
+    common = ["train.synthetic=true", "model.generator.depth=4",
+              "scheduler.warmup_iters=0", "train.log_every_n_steps=1",
+              "train.ckpt_every_n_steps=1000000", "train.keep_ckpts=2",
+              "train.batch_size=8"]
+    tp = ["train.mesh.dp=1", "train.mesh.tp=2"]
+
+    def root(name):
+        return load_config(FLAGSHIP, overrides=[
+            *common, f"root_data_dir={tmp}/restore_{name}"]).output_dir
+
+    def over(name, steps):
+        return [FLAGSHIP, *common, f"root_data_dir={tmp}/restore_{name}",
+                f"train.max_steps={steps}"]
+
+    ckpts = os.path.join(root("tp"), "train", "ckpts")
+    out = os.path.join(tmp, "restore")
+    torchrun(tmp, 2, [
+        {"kind": "cli", "argv": over("tp", 2) + tp, "out": f"{out}_a"},
+        {"kind": "copy", "src": ckpts,
+         "dst": os.path.join(root("tp_resumed"), "train", "ckpts")},
+        {"kind": "cli", "argv": over("tp_resumed", 3) + tp,
+         "out": f"{out}_b"}], "restore")
+    path = CheckpointManager(ckpts).path(2)
+    written = torch.load(path, map_location="cpu", weights_only=True)
+    cfg = load_config(FLAGSHIP, overrides=common)
+    state = create_train_state(build_dit(cfg.model.generator, torch.device(
+        "cuda"), torch.Generator("cuda").manual_seed(1)))
+    sharded_restore(path, state)
+    back = state.state_dict()
+    same = (back["step"] == written["step"] == 2
+            and back["opt"]["count"] == written["opt"]["count"]
+            and all(torch.equal(back[p][n].cpu(), t)
+                    for p in ("params", "ema") for n, t in written[p].items())
+            and all(torch.equal(back["opt"][p][n].cpu(), t)
+                    for p in ("mu", "nu")
+                    for n, t in written["opt"][p].items()))
+    del state, back
+    torch.cuda.empty_cache()
+    shutil.copytree(ckpts, os.path.join(root("one"), "train", "ckpts"))
+    one: list = []
+    if main(over("one", 3), metrics_out=one) != 0:
+        raise AssertionError("cli.train (one process, resumed) failed")
+    tp_step3 = read_ranks(f"{out}_b", 2)[0]["steps"]
+    if [m["step"] for m in one] != [3] or [m["step"] for m in tp_step3] != [3]:
+        raise AssertionError(f"resumed steps {one}, {tp_step3}")
+    rel = abs(one[0]["loss"] - tp_step3[0]["loss"]) / abs(tp_step3[0]["loss"])
+    log(f"  tp=2 checkpoint at step 2 (depth 4) into one process: bit for "
+        f"bit {same}; step 3 resumed: one process loss {one[0]['loss']:.6f}, "
+        f"tp=2 {tp_step3[0]['loss']:.6f}, rel {rel:.3e} (bar "
+        f"{RESTORE_LOSS_REL}) ({card_id})")
+    if not same or not rel <= RESTORE_LOSS_REL:
+        raise AssertionError(f"restore: bitwise {same}, loss rel {rel}")
+
+
+def phase_app(tmp: str) -> None:
+    """``App.run`` on one synthetic image at the flagship config (random
+    weights; stage 2 at mc 128 decimated to 5000 faces, box unwrap, as the
+    clip phase exports): a GLB that parses."""
+    from topiaxl_torch.app import App
+    from topiaxl_torch.extract.glb import read_glb
+    from topiaxl_torch.ops import _cuda
+
+    img_dir = write_images(os.path.join(tmp, "app_img"), 1)
+    image = os.path.join(img_dir, sorted(os.listdir(img_dir))[0])
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    app = App(FLAGSHIP, workdir=os.path.join(tmp, "app"))
+    built = time.perf_counter() - t0
+    glb = app.run(image, mc_resolution=128, decimate=5000, texture_size=1024)
+    gltf, _ = read_glb(glb)
+    log(f"  App: models built in {built:.1f} s, preprocess + generate + "
+        f"export in {time.perf_counter() - t0 - built:.1f} s; {glb} glTF "
+        f"{gltf['asset']['version']}, {os.path.getsize(glb)} bytes; launches "
+        f"{ {k: v for k, v in _cuda.launches.items() if v} } ({card_line()})")
+    if gltf["asset"]["version"] != "2.0" or dict(_cuda.launches) != {
+            k: EXPECTED_LAUNCHES.get(k, 0) for k in _cuda.launches}:
+        raise AssertionError(f"app: {gltf['asset']}, {_cuda.launches}")
 
 
 def main() -> int:
@@ -2629,6 +3284,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("dp"):
             phase_dp(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("tp"):
+            phase_tp(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("pp"):
+            phase_pp(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("restore"):
+            phase_restore(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("app"):
+            phase_app(tmp)
 
     # launches: serving for the forward and LN kernels, the flagship
     # trainer for the single-pass backward, the 4096-prim trainer for the

@@ -218,25 +218,6 @@ def test_make_mesh_rules_match_jax(axes, n):
     assert mesh_from_config(axes, world_size=n).shape == mesh.shape
 
 
-def test_tp_and_pp_are_refused(tmp_path):
-    """``tp`` > 1 or a ``pp`` axis raises by name, in the trainer's CLI and
-    in sharded generation, as does tensor-parallel ``param_rules``."""
-    from test_torch_train import _tiny_train_config
-    from topiaxl_torch.cli.train import main
-    from topiaxl_torch.parallel import make_mesh
-    from topiaxl_torch.parallel.mesh import refuse_unported
-    from topiaxl_torch.pipelines.infer import generate_primx_sharded
-
-    with pytest.raises(NotImplementedError, match=r"pipeline \(pp\)"):
-        main([_tiny_train_config(tmp_path, 1), "train.mesh.pp=1"])
-    refuse_unported(make_mesh({"dp": 2, "tp": 1}, world_size=2))
-    with pytest.raises(NotImplementedError, match=r"tensor \(tp > 1\)"):
-        refuse_unported(make_mesh({"dp": 1, "tp": 2}, world_size=2))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        generate_primx_sharded(None, None, None, None, None, None,
-                               make_mesh(world_size=1), param_rules=[])
-
-
 def test_ring_attention_single_rank_is_dense():
     """``group=None``: dense attention, as JAX's ``axis_name=None``, and
     its gradient."""

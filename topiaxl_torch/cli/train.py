@@ -12,11 +12,18 @@ on ``dp``; ``{dp: 2, fsdp: 2}``; ``parallel/mesh.py``'s rules). The
 global batch is ``train.batch_size`` x dp, split over every rank of the
 mesh in JAX's order; ``dp`` alone runs the DiT under
 ``DistributedDataParallel``, ``fsdp`` shards it, its Adam moments and EMA
-with FSDP2 (``pipelines/train.py:shard_model``). ``tp`` > 1 or a ``pp``
-axis raises: they are not ported. Ranks beyond an explicit smaller mesh
-idle, as JAX's devices do. Rank 0 writes the metrics and checkpoints
-(whole tensors, gathered). Without ``torchrun`` the run is one process
-on one device, every rank on a mesh of one.
+with FSDP2 (``pipelines/train.py:shard_model``). ``tp`` > 1 splits the
+DiT's heads and MLP units over that many ranks (``dit_param_rules``, as
+JAX's CLI places them; ``parallel/sharding.py``), each ``tp`` rank of a
+data slice on the same rows; with ``fsdp`` each rank's part is then
+sharded over the ``("dp", "fsdp")`` ranks of its ``tp`` coordinate. A
+``pp`` axis replicates, as in JAX's CLI, which never pipelines: every
+``pp`` rank trains on the same rows with the same numbers (pipelining
+is the library's ``parallel/pipeline.py:make_pp_train_step``). Ranks
+beyond an explicit smaller mesh idle, as JAX's devices do. Rank 0 writes
+the metrics and checkpoints (whole tensors, gathered: a checkpoint
+written under one mesh resumes under any other). Without ``torchrun``
+the run is one process on one device, every rank on a mesh of one.
 
 The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
 or ``topiaxl.DiTAdditivePosEmb``). ``model.generator.remat=true``, or the
@@ -70,7 +77,7 @@ def main(argv=None, metrics_out: list | None = None) -> int:
     from topiaxl_torch.core.config import load_config
 
     from ..parallel import mesh_from_config
-    from ..parallel.mesh import init_distributed, refuse_unported
+    from ..parallel.mesh import init_distributed
 
     argv = list(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(level=logging.INFO)
@@ -82,7 +89,6 @@ def main(argv=None, metrics_out: list | None = None) -> int:
         torch.device(cfg.train.get("device", "cuda")))
     try:
         mesh = mesh_from_config(cfg.train.get("mesh"))
-        refuse_unported(mesh)
         return _train(cfg, mesh, device, metrics_out)
     finally:
         if joined:
@@ -96,12 +102,16 @@ def _train(cfg, mesh, device, metrics_out) -> int:
     from ..core.profiling import MetricLogger, StepMeter
     from ..diffusion.schedule import create_diffusion
     from ..pipelines import data as D
+    from ..parallel.sharding import dit_param_rules, shard_params
     from ..pipelines.train import (
-        create_train_state, make_optimizer, make_train_step, shard_model)
+        DATA_AXES, create_train_state, make_optimizer, make_train_step,
+        mesh_groups, shard_model)
 
     fsdp = mesh.shape.get("fsdp", 1) > 1
+    tp = mesh.shape.get("tp", 1) > 1
     for axis in (None, *mesh.axis_names):   # collective: every rank
         mesh.group(axis)
+    mesh_groups(mesh)
     if fsdp:
         mesh.device_mesh(device.type, tuple(
             n for n in ("dp", "fsdp") if n in mesh.shape))
@@ -111,12 +121,18 @@ def _train(cfg, mesh, device, metrics_out) -> int:
         return 0
     lead = mesh.index == 0
     logger.info("mesh %s: rank %d on %s", mesh.shape, mesh.rank, device)
+    if "pp" in mesh.shape:
+        logger.info("mesh axis pp=%d replicates, as JAX's CLI does (it never "
+                    "pipelines): the same rows and numbers on every pp rank",
+                    mesh.shape["pp"])
     out_dir = os.path.join(cfg.output_dir, "train")
     os.makedirs(out_dir, exist_ok=True)
     seed = int(cfg.global_seed)
 
     dit = build_dit(cfg.model.generator, device,
                     torch.Generator(device=device).manual_seed(seed)).train()
+    if tp:
+        shard_params(dit, mesh, dit_param_rules())
     if fsdp:
         shard_model(dit, mesh, device.type)
     diffusion = create_diffusion(
@@ -141,9 +157,10 @@ def _train(cfg, mesh, device, metrics_out) -> int:
         logger.info("resumed from step %d", state.step)
 
     global_bs = int(cfg.train.batch_size) * mesh.shape.get("dp", 1)
-    if global_bs % mesh.size:
+    index, parts = mesh.split(DATA_AXES)
+    if global_bs % parts:
         raise ValueError(f"global batch {global_bs} (train.batch_size x dp) "
-                         f"does not split over the mesh's {mesh.size} ranks")
+                         f"does not split over the mesh's {parts} data ranks")
     if cfg.train.get("synthetic") or not cfg.train.get("data_glob"):
         logger.warning("using synthetic data stream")
         stream = D.synthetic_batches(
@@ -155,9 +172,9 @@ def _train(cfg, mesh, device, metrics_out) -> int:
                                  shuffle_seed=seed)
         stream = itertools.chain.from_iterable(
             ds.epoch(e) for e in itertools.count())
-    # this rank's rows of every global batch (row-major over the mesh)
-    n = global_bs // mesh.size
-    rows = slice(mesh.index * n, (mesh.index + 1) * n)
+    # this rank's rows of every global batch (row-major over dp x fsdp)
+    n = global_bs // parts
+    rows = slice(index * n, (index + 1) * n)
     batches = D.prefetch_to_device(
         ({k: v[rows] for k, v in b.items()} for b in stream), device)
 

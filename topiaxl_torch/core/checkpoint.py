@@ -6,6 +6,12 @@ directories; those are not read here).
 newest ``max_to_keep`` survive, ``latest_step`` finds the newest, and a
 file is written under a temporary name and renamed, so a run killed
 mid-save leaves the previous checkpoint intact.
+
+A checkpoint holds whole tensors whatever mesh wrote it (``TrainState.
+state_dict`` gathers FSDP2 shards and tensor-parallel parts), so it
+restores onto any other mesh (``sharded_restore``, the counterpart of
+JAX's ``sharded_restore_template``): ``{dp: 4}`` into ``{dp: 1, fsdp: 2,
+tp: 2}`` and back, bit for bit.
 """
 
 from __future__ import annotations
@@ -53,3 +59,13 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         return torch.load(self.path(step), map_location=map_location,
                           weights_only=True)
+
+
+def sharded_restore(path: str, state) -> None:
+    """Load the checkpoint file at ``path`` into ``state`` (a
+    ``pipelines/train.py:TrainState``) in place, laid out on the state's
+    own mesh: each tensor-parallel parameter, Adam moment and EMA takes its
+    ``tp`` part and each FSDP2 one its shard of that; step, optimizer count
+    and sampler state as written."""
+    state.load_state_dict(torch.load(path, map_location="cpu",
+                                     weights_only=True))

@@ -30,6 +30,14 @@ reference's ``gradient_checkpointing``) runs each block, its
 cross-attention K/V included, under ``torch.utils.checkpoint``: the
 backward recomputes it instead of keeping its activations.
 
+Tensor parallelism (``parallel/sharding.py:shard_params``) splits each
+block's attention heads and MLP units over the ``tp`` ranks
+(``models/layers.py``): every path above runs on the local heads,
+``precompute_kv`` projects this rank's heads' K/V and the null branch's
+``uniform_out`` is a row-parallel product with its one reduce.
+``embed_t`` and ``apply_final`` are the pipeline's replicated entry and
+exit (``parallel/pipeline.py``).
+
 ``DiTAdditivePosEmb`` adds a Fourier embedding of the prim centres
 (token channels 1:4, ``PointEmbed``) to the token embedding on every
 path (``topiaxl/models/dit.py:162-182,548-560``).
@@ -236,6 +244,15 @@ class DiT(nn.Module):
     def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """[B, N, C_in] tokens -> [B, N, D] in the compute dtype."""
         return self.x_embedder(x.to(self.dtype))
+
+    def embed_t(self, t: torch.Tensor) -> torch.Tensor:
+        """[B] timesteps -> [B, D] f32: the pipeline's replicated entry
+        (``parallel/pipeline.py``) beside ``embed_tokens``."""
+        return self.t_embedder(t)
+
+    def apply_final(self, h: torch.Tensor, t_emb: torch.Tensor):
+        """The final layer: the pipeline's replicated exit."""
+        return self.final_layer(h, t_emb)
 
     def forward_kv(self, x, t, kvs):
         """Denoise step against precomputed per-block K/V; x [B, N, C_in],

@@ -16,6 +16,15 @@ Models are built on the ``meta`` device and materialised by
 ``materialize_``: parameters are filled from an explicit
 ``torch.Generator`` (never the global RNG) or later overwritten by
 ``load_state_dict``.
+
+Tensor parallelism (``parallel/sharding.py:shard_params``): a split
+``SelfAttention``, ``CrossAttention`` or ``Mlp`` holds ``tp_parts``-th of
+its heads or hidden units and the ``tp_group`` they are split over. Its
+input enters through ``copy_to_tp`` (the gradient summed over the group),
+its column-parallel projections (``qkv``, ``to_q``/``to_k``/``to_v``,
+``fc1``) make this rank's heads or units, and its row-parallel one
+(``proj``, ``fc2``) makes a partial product that ``reduce_from_tp`` sums,
+the bias added once after the sum. Attention runs on the local heads.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..ops.int8 import QuantDense
+from ..parallel.collectives import copy_to_tp, reduce_from_tp
 
 META = torch.device("meta")
 
@@ -63,6 +73,16 @@ def _dense(quant: bool):
     def make(in_f, out_f, bias=True, dtype=torch.float32, param_dtype=None):
         return QuantDense(in_f, out_f, bias=bias, dtype=dtype)
     return make
+
+
+def row_parallel(dense: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
+    """``dense(x)`` where ``dense`` holds this rank's input columns: the
+    partial products summed over ``group``, then the bias."""
+    if group is None:
+        return dense(x)
+    dt = dense.compute_dtype
+    out = reduce_from_tp(F.linear(x.to(dt), dense.weight.to(dt)), group)
+    return out if dense.bias is None else out + dense.bias.to(dt)
 
 
 def xavier_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -159,9 +179,12 @@ class Mlp(nn.Module):
         self.fc2 = dense(hidden_features, out_features, dtype=dtype,
                          param_dtype=param_dtype)
         self.approximate = approximate
+        self.tp_group, self.tp_parts = None, 1
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = F.gelu(self.fc1(copy_to_tp(x, self.tp_group)),
+                   approximate=self.approximate)
+        return row_parallel(self.fc2, h, self.tp_group)
 
 
 class SelfAttention(nn.Module):
@@ -175,6 +198,7 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.backend, self.group = "auto", None
+        self.tp_group, self.tp_parts = None, 1
         dense = _dense(quant)
         self.qkv = dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                          param_dtype=param_dtype)
@@ -184,11 +208,13 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
         hd = self.dim // self.num_heads
-        qkv = self.qkv(x)
-        q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).unbind(2)
+        heads = self.num_heads // self.tp_parts
+        qkv = self.qkv(copy_to_tp(x, self.tp_group))
+        q, k, v = qkv.reshape(B, N, 3, heads, hd).unbind(2)
         out = multi_head_attention(q, k, v, scale=hd ** -0.5,
                                    backend=self.backend, group=self.group)
-        return self.proj(out.reshape(B, N, self.dim))
+        return row_parallel(self.proj, out.reshape(B, N, heads * hd),
+                            self.tp_group)
 
 
 class CrossAttention(nn.Module):
@@ -207,6 +233,7 @@ class CrossAttention(nn.Module):
                  dtype=torch.bfloat16, param_dtype=None, quant: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.tp_group, self.tp_parts = None, 1
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         dense = _dense(quant)
         self.to_q = dense(dim, dim, bias=qkv_bias, **kw)
@@ -215,27 +242,33 @@ class CrossAttention(nn.Module):
         self.proj = dense(dim, dim, bias=proj_bias, **kw)
 
     def kv(self, ctx: torch.Tensor):
-        """Per-head K/V [B, M, H, hd] of the conditioning sequence; constant
-        over the denoise chain, so callers compute it once per asset."""
+        """Per-head K/V [B, M, H, hd] of the conditioning sequence (this
+        rank's heads under tp); constant over the denoise chain, so callers
+        compute it once per asset."""
         B, M, _ = ctx.shape
         hd = self.dim // self.num_heads
-        ctx = ctx.to(self.to_k.compute_dtype)
-        k = self.to_k(ctx).reshape(B, M, self.num_heads, hd)
-        v = self.to_v(ctx).reshape(B, M, self.num_heads, hd)
+        heads = self.num_heads // self.tp_parts
+        ctx = copy_to_tp(ctx.to(self.to_k.compute_dtype), self.tp_group)
+        k = self.to_k(ctx).reshape(B, M, heads, hd)
+        v = self.to_v(ctx).reshape(B, M, heads, hd)
         return k, v
 
     def uniform_out(self, v: torch.Tensor) -> torch.Tensor:
         """Output when every kv token is the same (the CFG null branch):
         softmax over equal logits is uniform, so attention returns v for
-        every query and the block reduces to proj(v). [B,1,H,hd] -> [B,1,dim]."""
-        return self.proj(v.reshape(v.shape[0], 1, self.dim))
+        every query and the block reduces to proj(v). [B,1,H,hd] -> [B,1,dim]
+        (under tp a row-parallel product too: one reduce)."""
+        return row_parallel(self.proj, v.reshape(v.shape[0], 1, -1),
+                            self.tp_group)
 
     def attend(self, x, k, v):
         B, N, _ = x.shape
         hd = self.dim // self.num_heads
-        q = self.to_q(x).reshape(B, N, self.num_heads, hd)
+        heads = self.num_heads // self.tp_parts
+        q = self.to_q(copy_to_tp(x, self.tp_group)).reshape(B, N, heads, hd)
         out = multi_head_attention(q, k, v, scale=float(hd) ** -1.0)
-        return self.proj(out.reshape(B, N, self.dim))
+        return row_parallel(self.proj, out.reshape(B, N, heads * hd),
+                            self.tp_group)
 
     def forward(self, x, ctx):
         return self.attend(x, *self.kv(ctx))

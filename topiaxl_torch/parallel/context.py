@@ -16,14 +16,15 @@ import contextlib
 
 import torch
 
-from ..models.layers import SelfAttention
-from .collectives import gather
+from .collectives import gather_grad
 
 
 @contextlib.contextmanager
 def ring_self_attention(model: torch.nn.Module, group):
     """Every ``SelfAttention`` of ``model`` on the ring over ``group`` while
     the context is open."""
+    from ..models.layers import SelfAttention
+
     attns = [m for m in model.modules() if isinstance(m, SelfAttention)]
     for a in attns:
         a.backend, a.group = "ring", group
@@ -35,20 +36,22 @@ def ring_self_attention(model: torch.nn.Module, group):
 
 
 def make_cp_forward(model: torch.nn.Module, mesh, axis: str = "sp"):
-    """``fwd(x, t, y) -> out``: the model's forward (``model(x, t, y)``)
-    with the token dim of x and out sharded over ``axis``. Every rank
-    passes the whole x [B, N, C] and gets the whole output; it computes
-    only its slice of the N / P tokens. N must divide by the axis size."""
-    group = mesh.group(axis)
-    parts, r = mesh.shape[axis], mesh.coords[axis]
+    """``fwd(x, t, y, drop=None) -> out``: the model's forward
+    (``model(x, t, y, drop)``) with the token dim of x and out sharded over
+    ``axis``. Every rank passes the whole x [B, N, C] and gets the whole
+    output; it computes only its slice of the N / P tokens. N must divide
+    by the axis size. Differentiable: where every rank computes the same
+    loss on the whole output, each rank's parameter gradient is P times its
+    tokens' share (the gather's adjoint sums the ranks' gradients), so
+    their mean over the axis is the whole gradient."""
+    from .sharding import sequence_sharding
 
-    def fwd(x, t, y):
-        N = x.shape[1]
-        if N % parts:
-            raise ValueError(f"{N} tokens do not divide over {axis}={parts}")
-        n = N // parts
+    group = mesh.group(axis)
+    tokens = sequence_sharding(mesh, (), axis)
+
+    def fwd(x, t, y, drop=None):
         with ring_self_attention(model, group):
-            out = model(x[:, r * n:(r + 1) * n], t, y)
-        return gather(out, group, dim=1)
+            out = model(tokens(x), t, y, drop)
+        return gather_grad(out, group, dim=1)
 
     return fwd

@@ -6,8 +6,12 @@ JAX package lays devices out on a ``jax.sharding.Mesh``:
 
 * ``dp``   — data parallel (the batch);
 * ``fsdp`` — parameters and optimizer state sharded (FSDP2 ``fully_shard``);
+* ``tp``   — tensor parallel: attention heads and the MLP's hidden width
+  (``parallel/sharding.py``);
 * ``sp``   — tokens sharded, self-attention over the K/V ring
-  (``parallel/context.py``).
+  (``parallel/context.py``);
+* ``pp``   — pipeline stages, each a run of DiT blocks
+  (``parallel/pipeline.py``).
 
 ``make_mesh`` follows JAX's rules: one axis may be -1 (inferred), an
 indivisible rank count raises, an explicit smaller mesh takes the first
@@ -61,49 +65,62 @@ class Mesh:
         return int(np.ravel_multi_index(
             tuple(self.coords[n] for n in self.axis_names), self.ranks.shape))
 
-    def group(self, axis: str | None = None):
-        """The process group of this rank's line along ``axis`` (every rank
-        of the mesh with ``axis=None``); None where no communication is
-        needed (a single process, or an axis of size 1). The first call per
-        axis is collective over the whole default group."""
+    def split(self, axes) -> tuple[int, int]:
+        """(this rank's position, the count of positions) over the named
+        axes that the mesh has, row-major in the mesh's order: its slice of
+        a batch sharded over those axes and replicated over the others."""
+        names = [n for n in self.axis_names if n in axes]
+        if not names or self.coords is None:
+            return 0, 1
+        sizes = [self.shape[n] for n in names]
+        return (int(np.ravel_multi_index([self.coords[n] for n in names],
+                                         sizes)), int(np.prod(sizes)))
+
+    def group(self, axis=None):
+        """The process group of this rank's line along ``axis`` (an axis
+        name, or a tuple of names for the sub-mesh they span; every rank of
+        the mesh with ``axis=None``); None where no communication is needed
+        (a single process, or axes of size 1). The first call per axis is
+        collective over the whole default group."""
         if world()[1] == 1:
             return None
-        key = axis or "*"
-        if key not in self._groups:
-            if axis is None:
+        axes = (None if axis is None else
+                tuple(n for n in self.axis_names
+                      if n in ((axis,) if isinstance(axis, str) else axis)))
+        if axes == ():
+            return None
+        if axes not in self._groups:
+            if axes is None:
                 lines = [self.ranks.reshape(-1)]
             else:
-                moved = np.moveaxis(self.ranks,
-                                    self.axis_names.index(axis), -1)
-                lines = list(moved.reshape(-1, moved.shape[-1]))
+                moved = np.moveaxis(
+                    self.ranks, [self.axis_names.index(n) for n in axes],
+                    range(-len(axes), 0))
+                lines = list(moved.reshape(
+                    -1, int(np.prod([self.shape[n] for n in axes]))))
             mine = None
             for line in lines:    # every rank creates every group
                 g = dist.new_group([int(r) for r in line])
                 if self.rank in line:
                     mine = g
-            self._groups[key] = mine
-        if axis is not None and self.shape[axis] == 1:
+            self._groups[axes] = mine
+        if axes is not None and all(self.shape[n] == 1 for n in axes):
             return None
-        return self._groups[key]
+        return self._groups[axes]
 
     def device_mesh(self, device_type: str, axes: tuple[str, ...]):
-        """A ``torch.distributed.device_mesh.DeviceMesh`` over ``axes`` (the
-        others must have size 1), e.g. ("dp", "fsdp") for FSDP2's hybrid
-        sharding. Collective."""
+        """The ``torch.distributed.device_mesh.DeviceMesh`` over ``axes`` that
+        holds this rank (a slice of one over every axis of the mesh), e.g.
+        ("dp", "fsdp") for FSDP2's hybrid sharding of this rank's
+        tensor-parallel shard. Collective."""
         from torch.distributed.device_mesh import DeviceMesh
 
-        if any(self.shape[n] != 1 for n in self.axis_names if n not in axes):
-            raise ValueError(f"mesh {self.shape}: axes outside {axes} must "
-                             f"have size 1")
-        key = (device_type, axes)
-        if key not in self._device_meshes:
-            ranks = np.transpose(
-                self.ranks, [self.axis_names.index(n) for n in axes]
-                + [i for i, n in enumerate(self.axis_names) if n not in axes])
-            ranks = ranks.reshape([self.shape[n] for n in axes])
-            self._device_meshes[key] = DeviceMesh(
-                device_type, torch.as_tensor(ranks), mesh_dim_names=axes)
-        return self._device_meshes[key]
+        if device_type not in self._device_meshes:
+            self._device_meshes[device_type] = DeviceMesh(
+                device_type, torch.as_tensor(self.ranks),
+                mesh_dim_names=self.axis_names)
+        whole = self._device_meshes[device_type]
+        return whole[tuple(axes) if len(axes) > 1 else axes[0]]
 
 
 def make_mesh(axes: Mapping[str, int] | None = None,
@@ -137,6 +154,30 @@ def mesh_from_config(cfg, world_size: int | None = None) -> Mesh:
     return make_mesh(dict(cfg), world_size=world_size)
 
 
+def make_hybrid_mesh(ici_axes: Mapping[str, int],
+                     dcn_axes: Mapping[str, int],
+                     world_size: int | None = None) -> Mesh:
+    """A mesh over several nodes: ``dcn_axes`` span the nodes (the
+    network between hosts), ``ici_axes`` stay within one (NVLink). The
+    dcn axes are outermost, and ranks are numbered node by node (as
+    ``torchrun`` numbers them), so each dcn coordinate is one node's
+    contiguous block of ranks: per-layer tp and fsdp collectives stay on
+    NVLink, the dp gradient all-reduce crosses the network once a step.
+    Axis names must not repeat across the two; the mesh takes the first
+    ranks, as ``make_mesh`` does."""
+    n = world()[1] if world_size is None else int(world_size)
+    ici = {k: int(v) for k, v in ici_axes.items()}
+    dcn = {k: int(v) for k, v in dcn_axes.items()}
+    overlap = set(ici) & set(dcn)
+    if overlap:
+        raise ValueError(f"axes {sorted(overlap)} appear in both ici and dcn")
+    sizes = [*dcn.values(), *ici.values()]
+    total = int(np.prod(sizes))
+    if total > n:
+        raise ValueError(f"hybrid mesh {dict(**dcn, **ici)} > {n} devices")
+    return Mesh([*dcn, *ici], np.arange(total).reshape(sizes))
+
+
 def init_distributed(device: torch.device) -> tuple[torch.device, bool]:
     """Join the default process group when launched by ``torchrun`` with
     more than one process (``WORLD_SIZE`` > 1 in the environment; its
@@ -165,12 +206,3 @@ def init_distributed(device: torch.device) -> tuple[torch.device, bool]:
         "process group: rank %d of %d, %s, %s", dist.get_rank(),
         dist.get_world_size(), backend, device)
     return device, True
-
-
-def refuse_unported(mesh: Mesh) -> None:
-    """Raise for the axes whose parallelism the port does not have."""
-    if mesh.shape.get("tp", 1) > 1 or "pp" in mesh.shape:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: tensor (tp > 1) and pipeline (pp) "
-            f"parallelism are not ported to topiaxl_torch (ROADMAP queue 1 "
-            f"#9); use dp and fsdp")

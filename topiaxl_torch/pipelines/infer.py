@@ -126,37 +126,38 @@ def generate_primx_sharded(dit: DiT, vae: VAE3D, diffusion: Diffusion,
                            generator: torch.Generator | None = None,
                            param_rules=None):
     """``generate_primx`` with the asset batch split over the mesh's
-    ``dp`` axis (its first axis where it has none): every rank passes the
+    ``dp`` axis (its first other axis where it has none): every rank passes the
     whole batch y [B, M, C], the same models, and the initial noise for
     the whole batch ([B, N, C_in]) or a generator in the same state to
     draw it from, as ``generate_primx`` draws it; each rank denoises and
     decodes its B / dp assets on their rows of that noise. The results
     are gathered over ``dp``, so every rank returns what
-    ``generate_primx`` returns for the batch. ``param_rules``
-    (tensor-parallel weights) raises: not ported."""
+    ``generate_primx`` returns for the batch. ``param_rules`` (e.g.
+    ``parallel.dit_param_rules()``) serves a tensor-parallel copy of the
+    DiT over the mesh's ``tp`` axis (``parallel/sharding.py:shard_params``:
+    each rank holds its heads and MLP units, one all-reduce a sublayer);
+    every ``tp`` rank of a ``dp`` slice denoises the same assets."""
+    import copy
+
     from ..parallel.collectives import gather
-    from ..parallel.mesh import refuse_unported
+    from ..parallel.sharding import batch_sharding, shard_params
 
     if param_rules is not None:
-        raise NotImplementedError(
-            "generate_primx_sharded(param_rules=...): tensor-parallel weights "
-            "are not ported to topiaxl_torch (ROADMAP queue 1 #9)")
-    refuse_unported(mesh)
-    axis = "dp" if "dp" in mesh.shape else mesh.axis_names[0]
-    parts, r = mesh.shape[axis], mesh.coords[axis]
-    B = y.shape[0]
-    if B % parts:
-        raise ValueError(f"{B} assets do not split over {axis}={parts}")
-    n = B // parts
+        dit = shard_params(copy.deepcopy(dit), mesh, param_rules)
+    # the assets split over dp, else the first axis (not tp's, whose ranks
+    # share their assets)
+    axes = [a for a in mesh.axis_names if param_rules is None or a != "tp"]
+    axis = "dp" if "dp" in mesh.shape or not axes else axes[0]
     if noise is None:
-        noise = torch.randn((B, dit.seq_length, dit.in_channels),
+        noise = torch.randn((y.shape[0], dit.seq_length, dit.in_channels),
                             generator=generator, device=y.device,
                             dtype=torch.float32)
-    out = generate_primx(dit, vae, diffusion, y[r * n:(r + 1) * n],
-                         latent_mean, latent_std, latent_nf, cfg_scale,
-                         prim_shape, dim_feat,
-                         noise=noise[r * n:(r + 1) * n])
+    place = batch_sharding(mesh, axis)
+    out = generate_primx(dit, vae, diffusion, place(y), latent_mean,
+                         latent_std, latent_nf, cfg_scale, prim_shape,
+                         dim_feat, noise=place(noise))
     out = out if isinstance(out, list) else [out]
+    B = y.shape[0]
     group = mesh.group(axis)
     srt = gather(torch.stack([p.srt for p in out]), group)
     feat = gather(torch.stack([p.feat for p in out]), group)

@@ -35,6 +35,20 @@ model's forward, so the null embedding gets the dropped rows' gradient;
 with ``grad_accum > 1`` the dropped rows take the null embedding before
 the microbatch loop and outside the gradient (``train.py:210-214``), so
 the null embedding gets none from them.
+
+Tensor parallelism (a model that ``parallel/sharding.py:shard_params``
+split over ``tp``): every ``tp`` rank of a data slice holds the same rows
+and the same draws; the split sublayers sum their partial products over
+the ``tp`` group (``models/layers.py``), so every replicated parameter
+gets the whole gradient on each ``tp`` rank. Data parallelism then runs
+over the ranks of this rank's ``tp`` coordinate (DDP over its
+``("dp", "fsdp")`` group, or FSDP2 over that sub-mesh). The clip's
+global norm sums the squares of the split tensors' shards over ``tp``
+and counts the replicated ones once. Context parallelism (``sp``, the dp
+x sp step): every ``sp`` rank of a data slice holds its rows, the model
+runs through ``parallel/context.py:make_cp_forward`` (its tokens over
+``sp``, self-attention on the ring) and the gradients are averaged over
+dp x sp by DDP (each ``sp`` rank's is P times its tokens' share).
 """
 
 from __future__ import annotations
@@ -56,6 +70,10 @@ from ..diffusion.timestep_sampler import (
     uniform_sample,
 )
 from ..parallel.collectives import all_mean, full, local
+
+# the axes a global batch is split over; the others (tp, sp, pp) hold the
+# same rows
+DATA_AXES = ("dp", "fsdp")
 
 
 def cosine_warmup_schedule(base_lr: float, warmup_iters: int,
@@ -98,7 +116,8 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
                            ema_params: dict, spec: dict,
                            ema_decay: float = 0.9999,
                            grad_prescale: float = 1.0,
-                           norm_group=None) -> torch.Tensor:
+                           norm_group=None, split_group=None,
+                           split_names=frozenset()) -> torch.Tensor:
     """clip-by-global-norm + AdamW + EMA, in place, with the JAX
     package's math (``topiaxl/pipelines/train.py:77-139``): moments in
     f32; the gradient scaled by ``grad_prescale * min(1, clip / gnorm)``,
@@ -108,7 +127,10 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
     parameter update. Dicts are keyed alike; ``grads`` is scaled in place.
     Returns the global norm of the prescaled gradient (a device scalar).
     FSDP2 parameters update their local shards; ``norm_group`` (the ranks
-    a shard is split over) sums the squared norms of the shards."""
+    a shard is split over) sums the squared norms of the shards. Under
+    tensor or pipeline parallelism the squares of the ``split_names``
+    tensors (their ``tp`` parts, a stage's blocks) are summed over
+    ``split_group`` as well; the replicated ones count once."""
     names = list(params)
     p = [local(params[n].data) for n in names]
     g = [local(grads[n]) for n in names]
@@ -124,12 +146,18 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
     c2 = float(f32(1.0) - f32(b2) ** cf)
     lr = spec["sched"](opt_state.count)
     norms = torch.stack(torch._foreach_norm(g))
-    if norm_group is None:
+    if norm_group is None and split_group is None:
         gnorm = torch.linalg.vector_norm(norms) * grad_prescale
     else:
-        sq = norms.square().sum()
-        torch.distributed.all_reduce(sq, group=norm_group)
-        gnorm = sq.sqrt() * grad_prescale
+        split = torch.tensor([n in split_names for n in names],
+                             device=norms.device)
+        sq = norms.square()
+        sq = torch.stack([sq[split].sum(), sq[~split].sum()])
+        if norm_group is not None:
+            torch.distributed.all_reduce(sq, group=norm_group)
+        if split_group is not None:
+            torch.distributed.all_reduce(sq[0:1], group=split_group)
+        gnorm = sq.sum().sqrt() * grad_prescale
     if clip:
         gscale = grad_prescale * torch.where(gnorm < clip, 1.0, clip / gnorm)
     else:
@@ -165,10 +193,17 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     def state_dict(self) -> dict:
-        """Everything a resume needs, as tensors and ints; sharded (FSDP2)
-        tensors gathered whole, which is collective."""
+        """Everything a resume needs, as tensors and ints; sharded (FSDP2,
+        tensor-parallel, pipeline-stage) tensors gathered whole, which is
+        collective: the same dict whatever mesh the state lives on."""
+        from ..parallel.sharding import gather_params
+
         s = self.sampler_state
-        whole = lambda d: {n: full(t) for n, t in d.items()}  # noqa: E731
+
+        def whole(d):
+            return gather_params(self.model,
+                                 {n: full(t) for n, t in d.items()})
+
         return {"step": self.step,
                 "params": whole(self.model.state_dict()),
                 "ema": whole(self.ema_params),
@@ -181,14 +216,19 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy a ``state_dict`` (whole tensors) into this state's tensors,
-        in place; a sharded tensor takes its own shard."""
+        """Copy a ``state_dict`` (whole tensors, written under any mesh)
+        into this state's tensors, in place: a pipeline stage takes its
+        blocks, a tensor-parallel tensor its ``tp`` part, an FSDP2 one its
+        shard of that."""
+        from ..parallel.sharding import scatter_params
+
         self.step = int(sd["step"])
         self.opt_state.count = int(sd["opt"]["count"])
         for mine, theirs in ((self.model.state_dict(), sd["params"]),
                              (self.ema_params, sd["ema"]),
                              (self.opt_state.mu, sd["opt"]["mu"]),
                              (self.opt_state.nu, sd["opt"]["nu"])):
+            theirs = scatter_params(self.model, theirs)
             if mine.keys() != theirs.keys():
                 raise KeyError("checkpoint parameters differ from the model's")
             for n, t in mine.items():
@@ -215,7 +255,9 @@ def _copy_whole_(dst: torch.Tensor, src: torch.Tensor) -> None:
 def shard_model(model: nn.Module, mesh, device_type: str) -> nn.Module:
     """FSDP2 over ``mesh``'s ``fsdp`` axis (replicated over ``dp``): every
     block of ``model.blocks`` sharded on its own, then the rest at the
-    root. Parameters keep their dtype (f32 masters)."""
+    root. Parameters keep their dtype (f32 masters). Under tensor
+    parallelism (``shard_params`` first) each rank's local tensors shard
+    over the ``("dp", "fsdp")`` sub-mesh of its ``tp`` coordinate."""
     from torch.distributed.fsdp import fully_shard
 
     axes = tuple(n for n in ("dp", "fsdp") if n in mesh.shape)
@@ -289,6 +331,16 @@ def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
                                    for k, vs in terms_all.items()}
 
 
+def mesh_groups(mesh) -> dict:
+    """The process groups a train step on ``mesh`` uses, made (collective,
+    every rank in this order) on first call: ``data`` (the ranks whose rows
+    differ: dp x fsdp) and ``sync`` (the ranks that average gradients:
+    dp x fsdp x sp, this rank's ``tp`` and ``pp`` coordinates)."""
+    return {"data": mesh.group(DATA_AXES),
+            "sync": mesh.group(DATA_AXES + ("sp",)),
+            "tp": mesh.group("tp"), "fsdp": mesh.group("fsdp")}
+
+
 def make_train_step(model, diffusion: Diffusion, optimizer: dict,
                     ema_decay: float = 0.9999,
                     timestep_sampler: str = "uniform", grad_accum: int = 1,
@@ -302,25 +354,62 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
     framework's, for parity), which replace the step's own. Metrics are
     device scalars (loss, loss_mse, grad_norm[, loss_vb]), averaged over
     the ranks. Across ranks a model that ``shard_model`` did not shard is
-    wrapped in ``DistributedDataParallel`` here, which is collective."""
-    data_group = norm_group = None
+    wrapped in ``DistributedDataParallel`` here, which is collective. A
+    model that ``shard_params`` split over ``tp`` trains tensor-parallel;
+    a mesh with an ``sp`` axis runs the model through ``make_cp_forward``
+    (not with FSDP2)."""
     parts, index, forward = 1, 0, model
+    data_group = norm_group = tp_group = None
+    layout = getattr(model, "tp_layout", None)
+    if layout is not None and layout.placements:
+        tp_group = layout.group
+    sp = mesh is not None and mesh.shape.get("sp", 1) > 1
     if mesh is not None:
-        parts, index = mesh.size, mesh.index
-        data_group = mesh.group()
-    if data_group is not None:
+        index, parts = mesh.split(DATA_AXES)
+        data_group = mesh_groups(mesh)["data"]
+    sync_group = mesh_groups(mesh)["sync"] if mesh is not None else None
+    if sync_group is not None:
         from torch.distributed.fsdp import FSDPModule
         from torch.nn.parallel import DistributedDataParallel
 
         if isinstance(model, FSDPModule):
+            if sp:
+                raise ValueError("sp with fsdp: FSDP2 would not average the "
+                                 "gradients over sp; use dp x sp")
             # FSDP2 averages the gradients; the norm sums over the shards
             norm_group = mesh.group("fsdp")
         else:
             # the null embedding takes no gradient where nothing drops
             forward = DistributedDataParallel(
-                model, process_group=data_group, broadcast_buffers=False,
+                model, process_group=sync_group, broadcast_buffers=False,
                 find_unused_parameters=(model.cond_drop_prob <= 0
                                         or grad_accum > 1))
+    if sp:
+        from ..parallel.context import make_cp_forward
+
+        forward = make_cp_forward(forward, mesh)
+
+    return build_train_step(
+        model, diffusion, optimizer, forward, (index, parts), data_group,
+        dict(norm_group=norm_group, split_group=tp_group,
+             split_names=frozenset(layout.placements) if layout else ()),
+        ema_decay=ema_decay, timestep_sampler=timestep_sampler,
+        grad_accum=grad_accum)
+
+
+def build_train_step(model, diffusion: Diffusion, optimizer: dict, forward,
+                     split: tuple[int, int], data_group, norm: dict,
+                     ema_decay: float = 0.9999,
+                     timestep_sampler: str = "uniform", grad_accum: int = 1,
+                     sync_grads: Callable | None = None):
+    """The step ``make_train_step`` returns, given how the model runs
+    (``forward(x_t, t, y, drop)``), this rank's (index, count) of the
+    global batch's row blocks, the group whose metrics are averaged, the
+    norm's groups (``fused_adamw_ema_update``'s ``norm_group``,
+    ``split_group``, ``split_names``) and ``sync_grads(params)``, run
+    after the backward where no library syncs the gradients (the
+    pipeline, ``parallel/pipeline.py``)."""
+    index, parts = split
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
         x, y = batch["x"], batch["y"]
@@ -350,10 +439,12 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
         params = state.params()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
+        if sync_grads is not None:
+            sync_grads(grads)
         gnorm = fused_adamw_ema_update(
             grads, state.opt_state, params, state.ema_params, optimizer,
             ema_decay=ema_decay, grad_prescale=1.0 / grad_accum,
-            norm_group=norm_group)
+            **norm)
         model.zero_grad(set_to_none=True)
         if timestep_sampler == "lsm" and state.sampler_state is not None:
             state.sampler_state = lsm_update(state.sampler_state, t.cpu(),
