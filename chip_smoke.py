@@ -52,7 +52,15 @@ the script exits non-zero without a result line):
 14. train_remat: two steps of the same recipe with
     ``model.generator.gradient_checkpointing=true`` (each block recomputed
     in the backward: its launches doubled), step time and peak memory
-    beside the plain trainer's.
+    beside the plain trainer's. Then train_remat_policies: three
+    ``make_train_step`` steps under each remat mode (``remat=True`` twice,
+    plain, ``dots``, ``dots_plus``, ``flash``, ``flash_mlp``) from one set
+    of enlivened weights and draws, with each step's launches (the counts
+    tests/test_torch_remat.py holds on the CPU), step seconds, peak memory
+    and the forward and backward's own peak; each policy's loss and grad
+    norm against ``remat=True``'s at steps 1 and 2, beside a planted fault
+    (the flash output kept without its graph to q, k, v); and one
+    depth-2 ``cli.train`` step with ``model.generator.remat=flash``.
 15. train_long: the same trainer at 4096 prims (depth 2, batch 2): the
     self-attention's 4096 keys take the two-pass backward pair.
 16. train_parity: one full-width, depth-2 training step's loss and
@@ -92,16 +100,17 @@ the script exits non-zero without a result line):
     block's-own-lse fault, its launches of #1 and #4-#6 and its ms.
 23. dp: ``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the
     one card (``torchrun``; gloo, which NCCL's one-rank-a-card rule
-    leaves) at the flagship width (``DP_DEPTH`` blocks, remat), against
-    one process at the same global batch of 8: losses, grad norms, Adam
-    moments, parameters; then the same under two planted faults (no
+    leaves) at the flagship width (``DP_DEPTH`` blocks, remat, every run
+    resumed from one step-0 checkpoint whose zero-init layers are filled),
+    against one process at the same global batch of 8: losses, grad norms,
+    Adam moments, parameters; then the same under two planted faults (no
     gradient sync; both ranks on the same rows).
 24. tp: two ranks on the one card (``torchrun``, gloo) at dp 1 x tp 2:
     ``generate_primx_sharded`` with ``dit_param_rules()`` at the full
     depth of 28 on a 5-step DDIM chain (two assets) and two ``cli.train``
     steps at ``train.mesh={dp: 1, tp: 2}`` (flagship width at 8 blocks,
-    remat, batch 8, resumed from a step-0 checkpoint whose zero-init
-    layers are filled),
+    remat, batch 8, lr 1e-5, resumed from a step-0 checkpoint whose
+    zero-init layers are filled, its gates at 1),
     each against one process on the same inputs and beside the planted
     fault (qkv's rows split as one block); per rank the flash forwards by
     head count (8), the launches, step time and peak memory.
@@ -177,16 +186,28 @@ EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                      "ln_modulate": 25 * 29,
                      "ln_modulate_residual": 25 * 56, **NO_PROBES}
-# per training step at the flagship config (28 blocks): a forward flash
-# and a single-pass backward launch per self- and cross-attention; the LN
-# kernels as in serving, once per block and step (+ the final layer)
-TRAIN_LAUNCHES = {"flash_attn_fwd": 56, "flash_attn_bwd": 56,
-                  "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                  "ln_modulate": 29, "ln_modulate_residual": 56, **NO_PROBES}
-# with remat (gradient_checkpointing) each block's forward runs again in
-# the backward: its two flash forwards and three LN kernels twice
-TRAIN_REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, flash_attn_fwd=2 * 56,
-                            ln_modulate=2 * 28 + 1, ln_modulate_residual=2 * 56)
+
+
+def train_launches(remat=False, depth: int = 28) -> dict:
+    """Kernel launches of one training step (28 blocks: the flagship) by
+    remat mode: a forward flash and a single-pass backward launch per self-
+    and cross-attention, the LN kernels as in serving, once per block and
+    step (+ the final layer). With remat (``True``, gradient_checkpointing)
+    each block's forward runs again in the backward: its two flash forwards
+    and three LN kernels twice. A remat policy keeps the flash outputs
+    (every policy) and the LN outputs (``dots_plus``), whose kernels then
+    run once. ``tests/test_torch_remat.py`` counts the same ops on the CPU
+    at depth 3."""
+    again = 2 if remat is True else 1
+    ln_again = 2 if remat and remat != "dots_plus" else 1
+    return {"flash_attn_fwd": 2 * depth * again,
+            "flash_attn_bwd": 2 * depth, "flash_attn_bwd_dq": 0,
+            "flash_attn_bwd_dkv": 0, "ln_modulate": depth * ln_again + 1,
+            "ln_modulate_residual": 2 * depth * ln_again, **NO_PROBES}
+
+
+TRAIN_LAUNCHES = train_launches()
+TRAIN_REMAT_LAUNCHES = train_launches(True)
 # at 4096 prims and depth 2 the self-attention (4096 keys) takes the
 # two-pass pair, the cross-attention (1370 keys) the single pass
 TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 2,
@@ -212,6 +233,18 @@ TRAIN_GNORM_BAR = 2e-4
 # update the step-2 loss) in its last f32 digits. Recomputing a block
 # with other inputs (a wrong RNG or drop mask) moves them by far more.
 REMAT_REL_BAR = 1e-4
+# train_remat_policies: each remat policy against remat=True on filled
+# weights and the same draws, |policy - remat=True| / |remat=True| of the
+# loss and the grad norm. Step 1 is held at REMAT_REL_BAR (the same
+# forward; the grad norm moves with the single pass's dq order). Step 2
+# at the second bar: Adam's first update moves each weight by about lr *
+# sign(g), so gradient entries near 0 whose sign the dq order flips move
+# step 2. On an H100, over two runs, the policies read a step-1 loss equal
+# to remat=True's and grad norms 2.3e-7 to 4.7e-6 from it, at step 2 up to
+# 1.8e-5 / 9.9e-5 (a second remat=True run up to 3.4e-6, then 2.2e-5 /
+# 1.2e-4; the plain step up to 2.9e-6, then 2.1e-5 / 4.5e-5); the planted
+# fault 1.05e-3 to 1.06e-3 at step 1's grad norm, then 1.5e-2 / 3.2e-3.
+REMAT_STEP_BARS = (REMAT_REL_BAR, 1e-3)
 TRAIN_COS_BAR = 0.999
 # flash: max |kernel - plain| / max |plain| per shape (bf16 output, P
 # rounded to bf16 on both sides; sound kernels read 3e-3 to 5e-3). A
@@ -319,14 +352,18 @@ RING_CASES = (("flagship", 2, 2048, (2, 4)), ("8192 prims", 1, 8192, (2,)))
 # difference over the update's norm: Adam's first step moves each weight by
 # about lr * sign(g), so a gradient entry near 0 whose sign rounding flips
 # moves by 2 lr, and bf16 weight gradients summed per rank round apart).
-# On an H100 sound ranks read 0 / 1.8e-5 / 2.9e-3 / 3.2e-2; ranks without
-# the gradient sync 7.6e-6 / 0.42 / 1.05 / 1.20, ranks on the same rows
-# 9.7e-4 / 7.7e-2 / 0.94 / 1.30. Each bar sits between the sound reading
-# and the faults' (the loss bar below the same-rows fault only), and each
+# On the DiT's random init every block is the identity (its adaLN zero),
+# and on an H100 sound ranks read 0 / 1.8e-5 / 2.9e-3 / 3.2e-2; ranks
+# without the gradient sync 7.6e-6 / 0.42 / 1.05 / 1.20, ranks on the same
+# rows 9.7e-4 / 7.7e-2 / 0.94 / 1.30, at 28, 8 and 4 blocks alike. Every
+# run now resumes one step-0 checkpoint whose zero-init layers are filled
+# (seed_checkpoint): at 4 blocks sound ranks read 2.6e-6 / 1.1e-5 /
+# 1.5e-3 / 2.8e-3, without the sync 1.8e-3 / 8.1e-3 / 8.9e-2 / 0.56, on
+# the same rows 1.3e-3 / 1.6e-3 / 4.4e-2 / 0.27: each fault crosses every
+# bar. Each bar sits between the sound reading and the faults', and each
 # fault must cross one
-# the dp phase's depth: its random init makes every block the identity, so
-# depth does not enter its readings (28 blocks read the same), and each of
-# its three checkpoints is 13.6 GB at 28
+# the dp phase's depth: the whole script's time; each of its checkpoints
+# is 13.6 GB at 28 blocks
 DP_DEPTH = 4
 DP_LOSS_REL = 1e-4
 DP_GNORM_REL = 1e-3
@@ -1739,6 +1776,137 @@ def phase_train_remat(tmp: str, plain: dict) -> dict:
     return {"step_s": recs[1]["seconds"], "peak_gib": peak}
 
 
+# the remat modes of the train_remat_policies phase: remat=True first (the
+# reference each policy is held to), then again (the card's run-to-run
+# spread), the plain step and the four policies
+REMAT_MODES = (("remat=True", True), ("remat=True again", True),
+               ("plain", False), ("dots", "dots"), ("dots_plus", "dots_plus"),
+               ("flash", "flash"), ("flash_mlp", "flash_mlp"))
+
+
+def detached_flash(q, k, v, scale):
+    """The planted remat fault: the flash forward's output kept (the op a
+    policy saves) without its graph to q, k and v, so the projections
+    that make them get no gradient from attention."""
+    from topiaxl_torch.ops import flash_attention as fa
+
+    return fa.flash_fwd(q.detach(), k.detach(), v.detach(), scale)[0]
+
+
+def phase_train_remat_policies(tmp: str) -> None:
+    """The flagship recipe at batch 8 on enlivened weights (the zero-init
+    layers filled, as the pp phase builds them), three ``make_train_step``
+    steps under each remat mode from the same weights and draws: step
+    seconds, peak memory and the launches of each step (which must be
+    ``train_launches(mode)``, the counts tests/test_torch_remat.py holds
+    on the CPU); each policy's loss and grad norm within
+    ``REMAT_STEP_BARS`` of ``remat=True``'s at steps 1 and 2, and the
+    planted fault (``detached_flash`` under ``flash``) beyond one; then,
+    the train state held, one forward and backward of the DiT alone, whose
+    peak leaves out the optimizer's. Then one short ``cli.train`` run with
+    ``model.generator.remat=flash``."""
+    import torch
+
+    import topiaxl_torch.ops.attention as attention
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.pipelines.train import (create_train_state,
+                                               make_train_step)
+
+    card_id = card_line()
+    cfg, dit, batch = pp_inputs(seed=20)
+    p0 = {n: t.detach().cpu() for n, t in dit.state_dict().items()}
+    diffusion, optimizer = pp_optimizer(cfg)
+
+    def run(mode) -> dict:
+        dit.load_state_dict(p0)
+        dit.zero_grad(set_to_none=True)
+        dit.remat = mode
+        state = create_train_state(dit)
+        step = make_train_step(dit, diffusion, optimizer)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for _ in range(3):
+            _cuda.reset_launch_counts()
+            allocs = torch.cuda.memory_stats()["num_device_alloc"]
+            t0 = time.perf_counter()
+            m = {k: float(v) for k, v in step(state, batch, 0).items()}
+            torch.cuda.synchronize()
+            steps.append(dict(m, seconds=time.perf_counter() - t0,
+                              launches=dict(_cuda.launches),
+                              cuda_mallocs=torch.cuda.memory_stats()[
+                                  "num_device_alloc"] - allocs))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the model's own forward and backward, the train state held: the
+        # peak without the optimizer's update, where the kept outputs show
+        dit.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        t = torch.arange(8, device="cuda") * 111
+        dit(batch["x"], t, batch["y"]).square().mean().backward()
+        fwd_bwd = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, step
+        dit.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        return {"steps": steps, "peak_gib": peak, "fwd_bwd_gib": fwd_bwd}
+
+    def rel(got: dict) -> list:
+        """Per held step: {loss, grad_norm} relative to remat=True's."""
+        return [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss",
+                                                            "grad_norm")}
+                for a, b in zip(got["steps"], ref["steps"])][:2]
+
+    def crosses(r: list) -> bool:
+        return any(v > bar for step, bar in zip(r, REMAT_STEP_BARS)
+                   for v in step.values())
+
+    def readings(r: list) -> str:
+        return "; ".join(f"step {i + 1} loss {x['loss']:.3e} grad norm "
+                         f"{x['grad_norm']:.3e} (bar {bar:.0e})"
+                         for i, (x, bar) in enumerate(zip(r, REMAT_STEP_BARS)))
+
+    runs = {label: run(mode) for label, mode in REMAT_MODES}
+    keep = attention.flash_attention
+    attention.flash_attention = detached_flash
+    try:
+        fault = run("flash")
+    finally:
+        attention.flash_attention = keep
+    ref = runs["remat=True"]
+    for label, mode in REMAT_MODES:
+        res = runs[label]
+        want = train_launches(mode)
+        got = [{k: st["launches"][k] for k in KERNELS} for st in res["steps"]]
+        st = res["steps"]
+        log(f"  {label}: steps {st[0]['seconds']:.3f} / {st[1]['seconds']:.3f}"
+            f" / {st[2]['seconds']:.3f} s (cudaMalloc calls "
+            f"{' / '.join(str(x['cuda_mallocs']) for x in st)}), peak "
+            f"{res['peak_gib']:.2f} GiB (forward and backward alone "
+            f"{res['fwd_bwd_gib']:.2f} GiB); launches a step #1 "
+            f"{got[0]['flash_attn_fwd']}, #4 {got[0]['flash_attn_bwd']}, #2 "
+            f"{got[0]['ln_modulate']}, #3 {got[0]['ln_modulate_residual']}; "
+            "loss " + " / ".join(f"{x['loss']:.8f}" for x in st)
+            + ", grad norm " + " / ".join(f"{x['grad_norm']:.8f}" for x in st)
+            + f"; against remat=True: {readings(rel(res))} ({card_id})")
+        if any(g != want for g in got):
+            raise AssertionError(f"{label} launches {got} != {want}")
+        if isinstance(mode, str) and crosses(rel(res)):
+            raise AssertionError(f"{label}: {rel(res)} > {REMAT_STEP_BARS}")
+    log("  planted fault (the flash output kept without its graph to q, k, v)"
+        f" under 'flash', against remat=True: {readings(rel(fault))}")
+    if not crosses(rel(fault)):
+        raise AssertionError(f"the planted remat fault passes: {rel(fault)}")
+    del dit, p0
+    torch.cuda.empty_cache()
+    # the entry point takes a policy by name (two blocks: a short run)
+    args = [FLAGSHIP, "train.synthetic=true", "train.batch_size=8",
+            "train.max_steps=1", "train.log_every_n_steps=1",
+            "train.ckpt_every_n_steps=1000000", "train.keep_ckpts=1",
+            "model.generator.depth=2", "model.generator.remat=flash",
+            f"root_data_dir={tmp}/train_flash"]
+    run_trainer(args, train_launches("flash", 2), [1])
+
+
 def phase_train_long(tmp: str) -> dict:
     args = [FLAGSHIP, "model.num_prims=4096", "model.generator.depth=2",
             "train.synthetic=true", "train.batch_size=2", "train.max_steps=2",
@@ -2467,12 +2635,12 @@ def phase_dp(tmp: str) -> None:
     """``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the one
     card (``torchrun``; the kernels were built by the build phase, so the
     ranks load them and never build at once) against one process at the
-    same global batch, at the flagship width (``DP_DEPTH`` blocks, remat);
-    then the same comparison under each planted fault
-    (``DP_FAULT_DRIVER``)."""
+    same global batch, at the flagship width (``DP_DEPTH`` blocks, remat),
+    every run resumed from one enlivened step-0 checkpoint; then the same
+    comparison under each planted fault (``DP_FAULT_DRIVER``)."""
     import torch
 
-    from topiaxl_torch.cli.train import build_dit, main
+    from topiaxl_torch.cli.train import main
     from topiaxl_torch.core.checkpoint import CheckpointManager
     from topiaxl_torch.core.config import load_config
 
@@ -2489,8 +2657,14 @@ def phase_dp(tmp: str) -> None:
     torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc-per-node", "2"]
 
+    seed_ckpt = os.path.join(tmp, "step0", "step_000000000.pt")
+    p0 = seed_checkpoint(seed_ckpt, common, 11)
+
     def overrides(name: str, extra: list) -> list:
         return [*common, f"root_data_dir={tmp}/dp_{name}", *extra]
+
+    def resumed(name: str, extra: list) -> list:
+        return resume_from(seed_ckpt, overrides(name, extra))
 
     def result(name: str, extra: list) -> tuple[list, dict]:
         """A run's logged metrics and its last checkpoint's parameters and
@@ -2515,15 +2689,11 @@ def phase_dp(tmp: str) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    if main([FLAGSHIP, *overrides("single", ["train.batch_size=8"])]) != 0:
+    if main([FLAGSHIP, *resumed("single", ["train.batch_size=8"])]) != 0:
         raise AssertionError("cli.train (one process) failed")
     wall_single = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     single = result("single", ["train.batch_size=8"])
-    cfg = load_config(FLAGSHIP, overrides=common)
-    p0 = {n: t.cpu() for n, t in build_dit(
-        cfg.model.generator, torch.device("cuda"), torch.Generator(
-            "cuda").manual_seed(int(cfg.global_seed))).state_dict().items()}
     torch.cuda.empty_cache()
 
     def norm_rel(d_a: dict, d_b: dict, base: dict | None = None) -> float:
@@ -2550,7 +2720,7 @@ def phase_dp(tmp: str) -> None:
 
     out, wall_ranks = launch(
         [*torchrun, "-m", "topiaxl_torch.cli.train", FLAGSHIP,
-         *overrides("ranks", ranks)], "cli.train")
+         *resumed("ranks", ranks)], "cli.train")
     groups = sorted({line.split("process group: ", 1)[1] for line in
                      out.splitlines() if "process group: " in line})
     sound_run = result("ranks", ranks)
@@ -2563,14 +2733,14 @@ def phase_dp(tmp: str) -> None:
         f.write(DP_FAULT_DRIVER)
     _, wall_faults = launch(
         [*torchrun, driver, ROOT, json.dumps(
-            [[fault, FLAGSHIP, *overrides(f"fault{i}", ranks)]
+            [[fault, FLAGSHIP, *resumed(f"fault{i}", ranks)]
              for i, fault in enumerate(faults)])], "the planted faults")
     planted = {fault: readings(result(f"fault{i}", ranks))
                for i, fault in enumerate(faults)}
     bars = {"loss": DP_LOSS_REL, "grad norm": DP_GNORM_REL,
             "Adam mu": DP_MU_REL, "update": DP_UPDATE_REL}
     log(f"  dp=2 on one card ({', '.join(groups)}), flagship width, depth "
-        f"{DP_DEPTH}, remat, "
+        f"{DP_DEPTH} (enlivened), remat, "
         f"global batch 8: steps " + ", ".join(
             f"{m['step']}: loss {m['loss']:.5f} grad norm "
             f"{m['grad_norm']:.5f}" for m in metrics)
@@ -2600,12 +2770,20 @@ def phase_dp(tmp: str) -> None:
 # its partial products to bf16 before the all-reduce, which one process
 # does not. The planted fault (qkv's rows split as one block: rank 0 holds
 # all of q and half of k) must cross a bar. On an H100 sound ranks read
-# srt / feat 2.4e-2 / 4.2e-2 (fault 0.128 / 0.208), and, training 28
-# blocks, loss / grad norm / mu / update 4.1e-4 / 1.1e-3 / 3.6e-3 / 2.1e-2
-# (fault 8.6e-4 / 6.0e-3 / 0.204 / 0.753: the fault moves the moments and
-# the update).
+# srt / feat 2.4e-2 / 4.2e-2 (fault 0.128 / 0.208). Training
+# TP_TRAIN_DEPTH = 8 blocks with the filled gates at ~0.03, loss / grad
+# norm / mu / update read 9.7e-6 / 3.8e-5 / 1.37e-3 / 1.52e-2 and the fault
+# 2.1e-4 / 3.2e-4 / 4.8e-2 / 0.743: attention reached the loss so weakly
+# that only the update's bar caught it. So the trainer's gates are filled
+# at TP_TRAIN_GATE, and it steps at TP_TRAIN_LR: at the flagship's 1e-4
+# the first update tripled the loss, and the sound step-2 loss read 4.9e-4
+# at gates of 1 and 1.6e-3 at 0.3. Gates of 1 at 1e-5 read 1.1e-4 /
+# 1.2e-3 / 3.7e-3 / 2.6e-2, the fault 3.3e-2 / 3.9e-2 / 1.29 / 1.28
+# (gates of 0.3: the fault's grad norm 9.3e-3, under its bar).
 TP_GEN_REL = 5e-2
 TP_BARS = {"loss": 1e-3, "grad norm": 1e-2, "Adam mu": 5e-2, "update": 0.3}
+TP_TRAIN_GATE = 1.0
+TP_TRAIN_LR = 1e-5
 # pp: make_pp_train_step against make_train_step at the same batch of 8;
 # microbatching changes only the GEMMs' row counts (on an H100: loss equal,
 # grad norm <= 3.4e-6, mu 1.1e-3, update 7.7e-3)
@@ -2622,10 +2800,7 @@ TP_GEN_STEPS = 5
 TP_TRAIN_DEPTH = 8
 # per step with remat on each tp rank: the trainer's launches at that depth
 # (every block runs on each rank, on half the heads; its forward twice)
-TP_TRAIN_LAUNCHES = dict(
-    TRAIN_REMAT_LAUNCHES, flash_attn_fwd=4 * TP_TRAIN_DEPTH,
-    flash_attn_bwd=2 * TP_TRAIN_DEPTH, ln_modulate=2 * TP_TRAIN_DEPTH + 1,
-    ln_modulate_residual=4 * TP_TRAIN_DEPTH)
+TP_TRAIN_LAUNCHES = train_launches(True, TP_TRAIN_DEPTH)
 TP_GEN_LAUNCHES = {"flash_attn_fwd": TP_GEN_STEPS * 56, "flash_attn_bwd": 0,
                    "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                    "ln_modulate": TP_GEN_STEPS * 29,
@@ -2652,12 +2827,15 @@ def contiguous_qkv_rules():
             for pat, spec in dit_param_rules()]
 
 
-def enliven_(dit, seed: int):
+def enliven_(dit, seed: int, gate: float = 0.0):
     """Xavier weights and N(0, 0.02) biases in the layers the DiT's init
     zeroes (every adaLN and the final projection), from a seeded generator
     on the DiT's device: the same numbers in every process. Without this
     each block is the identity, the output zero, and every block gradient
-    zero, which no tp or pp fault could move."""
+    zero, which no dp, tp or pp fault could move. ``gate`` is added to the
+    bias of each block's three gates (adaLN chunks 2, 5 and 8 of 9): the
+    filled gates are ~0.03 on their own, so attention reaches the loss
+    weakly; at ~1 each sublayer adds at full weight."""
     import torch
 
     from topiaxl_torch.models.layers import xavier_
@@ -2669,7 +2847,47 @@ def enliven_(dit, seed: int):
                 dit.final_layer.adaLN_modulation[1], dit.final_layer.linear]:
             xavier_(m.weight, g)
             m.bias.normal_(0.0, 0.02, generator=g)
+        for b in dit.blocks:
+            b.adaLN_modulation[1].bias.view(9, -1)[2::3] += gate
     return dit
+
+
+def seed_checkpoint(path: str, overrides: list, seed: int,
+                    gate: float = 0.0) -> dict:
+    """Write step 0 of ``cli.train``'s DiT under ``overrides`` (the flagship
+    config), its zero-init layers filled (``enliven_``), as the checkpoint
+    ``path`` (``<dir>/step_000000000.pt``) that runs resume
+    (``resume_from``); returns its parameters on the host."""
+    import torch
+
+    from topiaxl_torch.cli.train import build_dit
+    from topiaxl_torch.core.checkpoint import CheckpointManager
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.pipelines.train import create_train_state
+
+    cfg = load_config(FLAGSHIP, overrides=overrides)
+    dit = enliven_(build_dit(cfg.model.generator, torch.device("cuda"),
+                             torch.Generator("cuda").manual_seed(
+                                 int(cfg.global_seed))), seed, gate)
+    p0 = {n: t.detach().cpu() for n, t in dit.state_dict().items()}
+    CheckpointManager(os.path.dirname(path)).save(
+        0, create_train_state(dit).state_dict())
+    del dit
+    torch.cuda.empty_cache()
+    return p0
+
+
+def resume_from(seed_ckpt: str, overrides: list) -> list:
+    """``overrides`` (a ``cli.train`` run's), after hard-linking
+    ``seed_ckpt`` into the run's checkpoint directory: the run resumes
+    from it."""
+    from topiaxl_torch.core.config import load_config
+
+    d = os.path.join(load_config(FLAGSHIP, overrides=overrides).output_dir,
+                     "train", "ckpts")
+    os.makedirs(d)
+    os.link(seed_ckpt, os.path.join(d, os.path.basename(seed_ckpt)))
+    return overrides
 
 
 def tp_generate_inputs(assets: int = 2):
@@ -2926,16 +3144,16 @@ def phase_tp(tmp: str) -> None:
     gloo): ``generate_primx_sharded`` with ``dit_param_rules()`` at the
     full depth on a short DDIM chain, and two ``cli.train`` steps at
     ``train.mesh={dp: 1, tp: 2}`` (flagship width at ``TP_TRAIN_DEPTH``
-    blocks, remat, batch 8, resumed from an enlivened step-0 checkpoint),
-    each against one process on the same inputs and beside the planted
-    contiguous-qkv fault."""
+    blocks, remat, batch 8, lr ``TP_TRAIN_LR``, resumed from an enlivened
+    step-0 checkpoint whose gates are ``TP_TRAIN_GATE``), each against one
+    process on the same inputs and beside the planted contiguous-qkv
+    fault."""
     import torch
 
-    from topiaxl_torch.cli.train import build_dit, main
+    from topiaxl_torch.cli.train import main
     from topiaxl_torch.core.checkpoint import CheckpointManager
     from topiaxl_torch.core.config import load_config
     from topiaxl_torch.pipelines.infer import generate_primx
-    from topiaxl_torch.pipelines.train import create_train_state
 
     card_id = card_line()
     # one process: the chain, and the step-0 checkpoint both trainers resume
@@ -2952,25 +3170,14 @@ def phase_tp(tmp: str) -> None:
               "scheduler.warmup_iters=0", "train.max_steps=2",
               "train.log_every_n_steps=1", "train.ckpt_every_n_steps=1000000",
               "train.keep_ckpts=1", "train.batch_size=8",
-              f"model.generator.depth={TP_TRAIN_DEPTH}"]
-    cfg = load_config(FLAGSHIP, overrides=common)
-    dit = enliven_(build_dit(cfg.model.generator, torch.device("cuda"),
-                             torch.Generator("cuda").manual_seed(
-                                 int(cfg.global_seed))), 9)
-    p0 = {n: t.detach().cpu() for n, t in dit.state_dict().items()}
+              f"model.generator.depth={TP_TRAIN_DEPTH}",
+              f"optimizer.lr={TP_TRAIN_LR}"]
     seed_ckpt = os.path.join(tmp, "step0", "step_000000000.pt")
-    CheckpointManager(os.path.dirname(seed_ckpt)).save(
-        0, create_train_state(dit).state_dict())
-    del dit
-    torch.cuda.empty_cache()
+    p0 = seed_checkpoint(seed_ckpt, common, 9, gate=TP_TRAIN_GATE)
 
     def run_dir(name: str) -> list:
-        over = [*common, f"root_data_dir={tmp}/tp_{name}"]
-        d = os.path.join(load_config(FLAGSHIP, overrides=over).output_dir,
-                         "train", "ckpts")
-        os.makedirs(d)
-        os.link(seed_ckpt, os.path.join(d, os.path.basename(seed_ckpt)))
-        return over
+        return resume_from(seed_ckpt,
+                           [*common, f"root_data_dir={tmp}/tp_{name}"])
 
     def final(name: str) -> dict:
         d = os.path.join(load_config(FLAGSHIP, overrides=[
@@ -3262,6 +3469,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("train_remat"):
             phase_train_remat(tmp, train)
+        with Phase("train_remat_policies"):
+            phase_train_remat_policies(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("train_long"):
             train_long = phase_train_long(tmp)

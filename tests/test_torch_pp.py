@@ -30,10 +30,10 @@ KW = dict(seq_length=8, in_channels=4, condition_channels=6, hidden_size=16,
 N_MICRO = (1, 2, 4)
 
 
-def _weights():
+def _weights(kw=KW):
     from topiaxl_torch.models.dit import DiT
 
-    sd = randomize_(DiT(dtype=torch.float32, **KW), 21)
+    sd = randomize_(DiT(dtype=torch.float32, **kw), 21)
     return {k: v.numpy() for k, v in sd.items()}
 
 
@@ -146,20 +146,39 @@ def test_pp_dp_train_step_matches_jax(ranks, name):
         _check_state(got, ref, ref)
 
 
-def test_one_stage_pipeline_is_the_plain_forward():
-    """pp = 1 in this process: the schedule runs every block as one stage
-    in ``n_micro`` microbatches; output and gradients are the plain
-    forward's."""
+# both attentions on the flash path (>= 512 keys, head dim 72), so a
+# policy's kept flash outputs enter the pipeline's recompute
+WIDE_KW = dict(KW, seq_length=520, hidden_size=144, depth=2)
+
+
+def _wide_inputs():
+    rng = np.random.default_rng(4)
+    return (rng.standard_normal((2, 520, 4)).astype(np.float32),
+            np.array([3, 17]),
+            rng.standard_normal((2, 530, 6)).astype(np.float32))
+
+
+def _one_stage_vs_plain(kw=KW, inputs=None, remat=False, frozen=False):
+    """pp = 1 in this process against the plain forward (no remat) on the
+    same weights: output within 1e-6, then every gradient of
+    ``out.square().sum()``. ``frozen`` sets every parameter outside the
+    blocks to ``requires_grad_(False)`` on both sides. Returns the number
+    of block parameters that got a gradient."""
     from topiaxl_torch.models.dit import DiT
     from topiaxl_torch.parallel import (make_mesh, make_pp_forward,
                                         shard_pp_params)
 
-    sd = {k: torch.from_numpy(v) for k, v in _weights().items()}
-    x, t, y = (torch.from_numpy(np.asarray(a)) for a in _inputs()[:3])
-    plain = DiT(dtype=torch.float32, **KW)
+    sd = {k: torch.from_numpy(v) for k, v in _weights(kw).items()}
+    x, t, y = (torch.from_numpy(np.asarray(a))
+               for a in (inputs or _inputs()[:3]))
+    plain = DiT(dtype=torch.float32, **kw)
     plain.load_state_dict(sd)
-    stage = DiT(dtype=torch.float32, **KW)
+    stage = DiT(dtype=torch.float32, remat=remat, **kw)
     stage.load_state_dict(sd)
+    if frozen:
+        for model in (plain, stage):
+            for n, p in model.named_parameters():
+                p.requires_grad_(n.startswith("blocks."))
     mesh = make_mesh({"pp": 1}, world_size=1)
     fwd = make_pp_forward(shard_pp_params(stage, mesh), mesh, n_micro=2)
     out, ref = fwd(x, t, y), plain(x, t, y)
@@ -178,12 +197,38 @@ def test_one_stage_pipeline_is_the_plain_forward():
             continue
         bar = 1e-5 * (top if n.endswith("to_k.bias") else g.abs().max())
         torch.testing.assert_close(p.grad, g, atol=bar, rtol=0, msg=n)
+    return sum(p.grad is not None for n, p in stage.named_parameters()
+               if n.startswith("blocks."))
+
+
+def test_one_stage_pipeline_is_the_plain_forward():
+    """pp = 1 in this process: the schedule runs every block as one stage
+    in ``n_micro`` microbatches; output and gradients are the plain
+    forward's."""
+    _one_stage_vs_plain()
+
+
+def test_one_stage_pipeline_trains_blocks_behind_frozen_embedders():
+    """With every parameter outside the blocks frozen, no input of the
+    pipeline needs a gradient, yet every block parameter gets the plain
+    forward's (the stage's parameters are inputs of the pipeline's
+    Function, as JAX's value_and_grad over the stacked blocks gives
+    them theirs)."""
+    n_blocks = sum(1 for n in _weights() if n.startswith("blocks."))
+    assert _one_stage_vs_plain(frozen=True) == n_blocks == 72
+
+
+@pytest.mark.parametrize("remat", ["dots", "flash", "flash_mlp"])
+def test_one_stage_pipeline_under_each_policy_jax_takes(remat):
+    """The remat policies JAX's pipeline takes, on a DiT whose attentions
+    take the flash path: the plain forward's output and gradients."""
+    _one_stage_vs_plain(WIDE_KW, _wide_inputs(), remat=remat)
 
 
 def test_pp_refuses_what_jax_refuses():
-    """depth % pp and B % n_micro raise as in JAX; a remat mode by name
-    raises (the port recomputes whole blocks or none), at build and in
-    ``make_pp_forward``."""
+    """depth % pp and B % n_micro raise as in JAX; ``remat="dots"`` builds,
+    and ``make_pp_forward`` raises for ``dots_plus`` and an unknown name
+    with JAX's message (``topiaxl/parallel/pipeline.py:stage``)."""
     from topiaxl_torch.models.dit import DiT
     from topiaxl_torch.parallel import (make_mesh, make_pp_forward,
                                         shard_pp_params)
@@ -191,16 +236,18 @@ def test_pp_refuses_what_jax_refuses():
     with pytest.raises(ValueError, match="not divisible by pp=3"):
         shard_pp_params(DiT(dtype=torch.float32, **KW),
                         make_mesh({"pp": 3}, world_size=3))
-    with pytest.raises(ValueError, match="remat"):
-        DiT(dtype=torch.float32, remat="dots", **KW)
+    assert DiT(dtype=torch.float32, remat="dots", **KW).remat == "dots"
     mesh = make_mesh({"pp": 1}, world_size=1)
     stage = shard_pp_params(DiT(dtype=torch.float32, **KW), mesh)
     x, t, y = (torch.from_numpy(np.asarray(a)) for a in _inputs()[:3])
     with pytest.raises(ValueError, match="not divisible by n_micro=3"):
         make_pp_forward(stage, mesh, n_micro=3)(x, t, y)
-    stage.remat = "everything"
-    with pytest.raises(ValueError, match="remat"):
-        make_pp_forward(stage, mesh, n_micro=2)
+    for remat in ("dots_plus", "everything"):
+        stage.remat = remat
+        with pytest.raises(ValueError, match=(
+                f"remat='{remat}': expected False, True, 'dots', 'flash', "
+                "or 'flash_mlp'")):
+            make_pp_forward(stage, mesh, n_micro=2)
 
 
 def test_stack_unstack_roundtrip():

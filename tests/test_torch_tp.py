@@ -14,7 +14,9 @@ block) must miss the loss bar. A restored state equals the written one
 bit for bit (``tests/test_train.py:279``) and its next loss agrees at
 2e-5. ``generate_primx_sharded`` with tp rules within 5e-5 of JAX's,
 fed JAX's noise (``test_torch_parallel.py``'s bar). The CLI on tp and pp
-meshes: each step's metrics within 1e-5 of one process's.
+meshes: each step's metrics within 1e-5 of one process's. The remat
+policies under tp = 2 and FSDP2: ``remat=True``'s step on the same mesh
+within 1e-6.
 """
 
 import logging
@@ -44,12 +46,40 @@ TRAIN_MESHES = {  # name: (world, mesh, rules)
 }
 # three heads do not split over tp = 2: the attention sublayers replicate
 HEADS3_KW = dict(TRAIN_KW, hidden_size=24, num_heads=3)
+# the remat policies over ranks, each against remat=True on the same mesh,
+# on a DiT whose attentions take the flash path (520 tokens, 530 condition
+# tokens, head dim 72; two heads a tp rank)
+POLICY_KW = dict(seq_length=520, in_channels=4, condition_channels=8,
+                 hidden_size=288, depth=2, num_heads=4, cond_drop_prob=0.5)
+POLICY_MESHES = {"tp": ({"tp": 2}, ("flash", "dots")),
+                 "fsdp": ({"fsdp": 2}, ("flash",))}
 CLI_MESHES = {
     "dp_tp": ["train.mesh.dp=2", "train.mesh.tp=2", "train.batch_size=1"],
     "fsdp_tp": ["train.mesh.dp=1", "train.mesh.fsdp=2", "train.mesh.tp=2",
                 "train.batch_size=2"],
     "dp_pp": ["train.mesh.dp=2", "train.mesh.pp=2", "train.batch_size=1"],
 }
+
+
+def _policy_inputs(mesh, remat):
+    """One step of the flash-path DiT under ``remat`` on ``mesh`` (tp
+    under ``dit_param_rules``), its weights and a global batch of 2 with
+    the step's draws from numpy."""
+    from test_torch_models import randomize_
+    from topiaxl_torch.models.dit import DiT
+
+    spec, _ = POLICY_MESHES[mesh]
+    sd = randomize_(DiT(dtype=torch.float32, **POLICY_KW), 13)
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 520, 4)).astype(np.float32)
+    batch = dict(x=x, y=rng.standard_normal((2, 530, 8)).astype(np.float32),
+                 t=np.array([4, 15]), drop=np.array([False, True]),
+                 noise=rng.standard_normal(x.shape).astype(np.float32))
+    return dict(kw=dict(POLICY_KW, remat=remat),
+                sd={k: v.numpy() for k, v in sd.items()}, mesh=spec,
+                diffusion=DIFFUSION, optimizer=OPTIMIZER, ema_decay=EMA,
+                batch=batch, grad_accum=1,
+                **({"rules": "dit"} if "tp" in spec else {}))
 
 
 def _restore_inputs(tmp):
@@ -81,6 +111,9 @@ def ranks(tmp_path_factory):
             job["generate:fault"] = dict(_generate_inputs(),
                                          rules="contiguous",
                                          mesh={"dp": 1, "tp": 2})
+            job.update({f"train:{mesh}_{remat}": _policy_inputs(mesh, remat)
+                        for mesh, (_, policies) in POLICY_MESHES.items()
+                        for remat in (True, *policies)})
         else:
             job["generate:dp2_tp2"] = dict(_generate_inputs(), rules="dit",
                                            mesh={"dp": 2, "tp": 2})
@@ -219,6 +252,26 @@ def test_indivisible_heads_replicate_loudly(ranks, caplog):
             np.testing.assert_allclose(got["metrics"][k], single_metrics[k],
                                        rtol=1e-5)
         _check_state(got, single, single)
+
+
+@pytest.mark.parametrize("mesh,remat", [
+    (mesh, remat) for mesh, (_, policies) in POLICY_MESHES.items()
+    for remat in policies])
+def test_policy_step_over_ranks_is_remats(ranks, mesh, remat):
+    """A remat policy under tp = 2 (the f / g all-reduces inside the
+    checkpointed block: the policy sees them and recomputes them, as
+    ``remat=True`` does) and under FSDP2 over two ranks: the step's loss,
+    grad norm and updated parameters are ``remat=True``'s on the same
+    mesh (1e-6, ``test_torch_remat.py``'s bar)."""
+    for r in ranks[2]:
+        got, ref = r[f"train:{mesh}_{remat}"], r[f"train:{mesh}_True"]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
+                                       rtol=1e-6, err_msg=k)
+        assert got["params"].keys() == ref["params"].keys()
+        for n, p in got["params"].items():
+            torch.testing.assert_close(p, ref["params"][n], rtol=0,
+                                       atol=1e-6, msg=n)
 
 
 def test_fit_spec_indivisible_warns_as_jax(caplog):

@@ -220,14 +220,15 @@ def test_lsm_sampler_state_matches_jax():
 
 def _tiny_pair(seq=520, cond_seq=530, depth=2, seed=0, remat=False):
     """A randomised port DiT (f32, cond-drop 0.1) and the same weights in
-    the JAX DiT; both attentions take the flash path (>= 512 keys)."""
+    the JAX DiT, both under the remat mode ``remat``; both attentions take
+    the flash path (>= 512 keys)."""
     from topiaxl.models import DiT as JaxDiT
     from topiaxl_torch.models.dit import DiT
 
     kw = dict(seq_length=seq, in_channels=68, condition_channels=32,
-              hidden_size=144, depth=depth, num_heads=2)
+              hidden_size=144, depth=depth, num_heads=2, remat=remat)
     dit = DiT(cond_drop_prob=0.1, dtype=torch.float32,
-              param_dtype=torch.float32, remat=remat, **kw)
+              param_dtype=torch.float32, **kw)
     sd = randomize_(dit, seed)
     jd = JaxDiT(cond_drop_prob=0.1, attn_proj_bias=True, dtype=jnp.float32,
                 **kw)
@@ -278,8 +279,9 @@ def test_gradient_checkpointing_reaches_remat(tmp_path, monkeypatch):
                  dtype="fp32", precision="bf16")
     assert build(AttrDict(small, gradient_checkpointing=True)).remat is True
     assert build(AttrDict(small)).remat is False
+    assert build(AttrDict(small, remat="dots")).remat == "dots"
     with pytest.raises(ValueError, match="'dots'"):
-        build(AttrDict(small, remat="dots"))
+        build(AttrDict(small, remat="everything"))
 
     calls = []
     real = dit_module.checkpoint
@@ -297,9 +299,10 @@ def test_gradient_checkpointing_reaches_remat(tmp_path, monkeypatch):
     np.testing.assert_allclose(runs["remat"], runs["plain"], rtol=1e-6)
 
 
-def _train_step_vs_jax(grad_accum: int, remat: bool):
-    """One step of the tiny DiT, port against JAX (the test above);
-    returns the port's loss and gradients."""
+def _train_step_vs_jax(grad_accum: int, remat: bool | str):
+    """One step of the tiny DiT, port against JAX (the test above), both
+    under the remat mode ``remat``; returns the port's loss and
+    gradients."""
     from topiaxl.diffusion import gaussian as jg
     from topiaxl_torch.ops import flash_attention as fa
     from topiaxl_torch.pipelines.train import accumulate_gradients
@@ -356,7 +359,8 @@ def _train_step_vs_jax(grad_accum: int, remat: bool):
     finally:
         fa._FlashAttention.apply = real
     # self + cross in each of the two blocks, per microbatch; remat runs
-    # them again in the backward
+    # them again in the backward (a policy that keeps the flash outputs
+    # enters the Function again but not its kernel, test_torch_remat.py)
     assert len(calls) == 4 * grad_accum * (2 if remat else 1)
     np.testing.assert_allclose(loss.item(), float(jl), rtol=TOL)
     ref = weights.dit_from_jax(jax.tree.map(np.asarray, jgrads))
@@ -382,7 +386,9 @@ def _train_step_vs_jax(grad_accum: int, remat: bool):
 
 def test_dit_from_jax_takes_scan_layout_and_moment_trees():
     """dit_from_jax maps the scan_blocks layout as the unrolled one, and
-    an optax Adam moment tree the same way as the parameters."""
+    an optax Adam moment tree the same way as the parameters; a stacked
+    checkpoint loads into the port's ``scan_blocks`` DiT and gives JAX's
+    scanned forward."""
     import optax
 
     from topiaxl.models import DiT as JaxDiT
@@ -406,6 +412,30 @@ def test_dit_from_jax_takes_scan_layout_and_moment_trees():
     mapped = weights.dit_from_jax(jax.tree.map(np.asarray, mu))
     assert sorted(mapped) == sorted(flat)
     assert all(v.shape == flat[k].shape for k, v in mapped.items())
+    # the stacked checkpoint loads, strictly, into the DiT that the
+    # registry builds for scan_blocks: true, which computes JAX's scanned
+    # forward: within 1e-5 of the largest output (these N(0, 1)-perturbed
+    # weights give outputs in the hundreds, so f32 summation order moves
+    # single entries by ~1e-5 relative)
+    from topiaxl_torch import registry  # noqa: F401
+    from topiaxl_torch.core.attrdict import AttrDict
+    from topiaxl_torch.core.config import build
+
+    dit = build(AttrDict(class_name="topiaxl.DiT", seq_length=8,
+                         in_channels=4, condition_channels=6, hidden_size=16,
+                         depth=3, num_heads=2, attn_proj_bias=True,
+                         dtype="fp32", scan_blocks=True)).eval()
+    dit.load_state_dict(stacked)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 8, 4)).astype(np.float32)
+    y = rng.standard_normal((2, 3, 6)).astype(np.float32)
+    t = np.array([3, 7])
+    ref = jd.clone(scan_blocks=True).apply(stack_block_params(params), x, t, y)
+    with torch.no_grad():
+        out = dit(*map(torch.from_numpy, (x, t, y)))
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def _tiny_fit_setup(cond_drop_prob=0.1):
@@ -588,16 +618,36 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """``quant`` is inference-only, as in JAX's CLI; remat policies and
+    ``scan_blocks`` train (``test_cli_takes_remat_policies_and_scan_blocks``)."""
     from topiaxl_torch.cli.train import main
 
     cfg = _tiny_train_config(tmp_path, 1)
-    # remat=true trains (test_remat_step_matches_plain_and_jax); a remat
-    # policy by name does not
-    for flag, value in (("quant", "true"), ("remat", "dots"),
-                        ("scan_blocks", "true")):
-        with pytest.raises(ValueError, match=flag):
-            main([cfg, f"model.generator.{flag}={value}"])
+    with pytest.raises(ValueError, match="quant"):
+        main([cfg, "model.generator.quant=true"])
     assert main([]) == 1
+
+
+def test_cli_takes_remat_policies_and_scan_blocks(tmp_path):
+    """``model.generator.remat=<policy>`` and ``scan_blocks=true`` train,
+    two steps each, with the plain run's losses and grad norms
+    (``scan_blocks`` builds the unrolled blocks: the same math)."""
+    from topiaxl_torch.cli.train import main
+
+    runs = {}
+    for tag, extra in (("plain", []),
+                       ("flash", ["model.generator.remat=flash"]),
+                       ("dots_plus", ["model.generator.remat=dots_plus"]),
+                       ("scan", ["model.generator.scan_blocks=true"])):
+        recs: list = []
+        os.makedirs(tmp_path / tag)
+        assert main([_tiny_train_config(tmp_path / tag, 2), *extra],
+                    metrics_out=recs) == 0
+        runs[tag] = [(r["loss"], r["grad_norm"]) for r in recs]
+    assert len(runs["plain"]) == 2
+    for tag in ("flash", "dots_plus", "scan"):
+        np.testing.assert_allclose(runs[tag], runs["plain"], rtol=1e-6,
+                                   err_msg=tag)
 
 
 def test_cli_checkpoints_and_exits_on_sigterm(tmp_path):

@@ -20,8 +20,9 @@ and measures, on synthetic inputs (``pipelines/synthetic.py``):
   with the box and the LSCM unwrap in turn, twice each, so that the
   second pair shows the warm times;
 - ``train_step``: one training step of ``topiaxl_torch.cli.train`` (the
-  config's ``model.generator`` with f32 master weights, a synthetic batch
-  of ``train.batch_size``: forward, backward, fused AdamW + EMA).
+  config's ``model.generator`` with f32 master weights, its remat mode
+  included, e.g. ``model.generator.remat=flash``; a synthetic batch of
+  ``train.batch_size``: forward, backward, fused AdamW + EMA).
 
 For each device region: wall ms per call (perf_counter around
 synchronised calls, no profiler attached), device ms per call (the sum

@@ -29,8 +29,11 @@ The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
 or ``topiaxl.DiTAdditivePosEmb``). ``model.generator.remat=true``, or the
 reference's ``gradient_checkpointing: true``, recomputes each block in
 the backward instead of keeping its activations (less memory, a slower
-step); a remat policy by name (``dots``, ``flash``, ...), ``scan_blocks``
-and ``quant`` are refused.
+step); a remat policy by name keeps some of them: ``flash`` the flash
+forwards' outputs, ``flash_mlp`` those and fc1's pre-activation, ``dots``
+those and every matmul's output, ``dots_plus`` those and the LN streams
+(``models/dit.py:REMAT_POLICIES``). ``scan_blocks: true`` trains the
+unrolled blocks (the same math). ``quant`` is refused, as in JAX's CLI.
 
 Data: ``train.data_glob`` pointing at token shards (pipelines/data), or
 ``train.synthetic=true`` for smoke runs and measurement. ``train.device``
@@ -59,8 +62,8 @@ logger = logging.getLogger("topiaxl_torch.train")
 def build_dit(g, device, generator: torch.Generator):
     """The trainable DiT that ``model.generator`` names (its
     ``class_name``, through ``topiaxl_torch/registry.py``): f32 master
-    weights, compute in ``g.dtype`` (default bf16), ``remat`` or
-    ``gradient_checkpointing`` honoured."""
+    weights, compute in ``g.dtype`` (default bf16), ``remat`` (a bool or
+    a policy by name) or ``gradient_checkpointing`` honoured."""
     from .. import registry  # noqa: F401  (fills the factory table)
     from ..core.config import build
 

@@ -28,7 +28,12 @@ Train with ``param_dtype=torch.float32`` (f32 master weights, bf16
 compute). ``remat=True`` (the JAX package's ``remat=True``, the
 reference's ``gradient_checkpointing``) runs each block, its
 cross-attention K/V included, under ``torch.utils.checkpoint``: the
-backward recomputes it instead of keeping its activations.
+backward recomputes it instead of keeping its activations. A remat
+policy by name (``REMAT_POLICIES``: ``dots``, ``dots_plus``, ``flash``,
+``flash_mlp``, ``topiaxl/models/dit.py:_remat_policy``) checkpoints the
+same blocks selectively: the outputs of the ops it names are kept from
+the forward, and the backward's recompute takes them instead of running
+those ops again (``remat_context``).
 
 Tensor parallelism (``parallel/sharding.py:shard_params``) splits each
 block's attention heads and MLP units over the ``tp`` ranks
@@ -45,11 +50,16 @@ path (``topiaxl/models/dit.py:162-182,548-560``).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..ops.fused_ln import ln_modulate, ln_modulate_residual
 from ..ops.int8 import quantize_state_dict_like
@@ -62,6 +72,42 @@ from .layers import (
     linear,
     materialize_,
 )
+
+_OPS = torch.ops.topiaxl_torch
+_FLASH = (_OPS.flash_fwd.default,)
+# every product without batch dimensions (``dots_with_no_batch_dims_
+# saveable``): the linear layers' mm / addmm, and fc1's, which runs inside
+# its op; not bmm
+_DOTS = (*_FLASH, _OPS.mlp_fc1.default, torch.ops.aten.mm.default,
+         torch.ops.aten.addmm.default)
+# the ops a policy keeps the outputs of: the JAX policies' names
+# (flash_out, flash_lse, mlp_fc1, ln_h, resid) as the ops that make them
+REMAT_POLICIES = {
+    "dots": _DOTS,
+    "dots_plus": (*_DOTS, _OPS.ln_modulate.default,
+                  _OPS.ln_modulate_residual.default),
+    "flash": _FLASH,
+    "flash_mlp": (*_FLASH, _OPS.mlp_fc1.default),
+}
+
+
+def check_remat(remat, policies=tuple(REMAT_POLICIES)) -> None:
+    """Raise unless ``remat`` is a bool or one of ``policies``, naming the
+    accepted modes as the JAX package does."""
+    if not isinstance(remat, bool) and remat not in policies:
+        raise ValueError(f"remat={remat!r}: expected False, True, "
+                         + ", ".join(repr(p) for p in policies[:-1])
+                         + f", or {policies[-1]!r}")
+
+
+def remat_context(remat):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a remat mode:
+    ``True`` recomputes every op of the block; a policy by name keeps the
+    outputs of its ops (``MUST_SAVE``) and recomputes the rest."""
+    if remat is True:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             list(REMAT_POLICIES[remat]))
 
 
 class DiTBlock(nn.Module):
@@ -178,14 +224,13 @@ class DiT(nn.Module):
                  depth: int = 28, num_heads: int = 16, mlp_ratio: float = 4.0,
                  cond_drop_prob: float = 0.0, attn_proj_bias: bool = True,
                  learn_sigma: bool = True, dtype=torch.bfloat16,
-                 param_dtype=None, quant: bool = False, remat: bool = False,
-                 device=None, generator: torch.Generator | None = None):
+                 param_dtype=None, quant: bool = False,
+                 remat: bool | str = False, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if quant and param_dtype not in (None, dtype):
             raise ValueError("quant serves W8A8: no master weights")
-        if not isinstance(remat, bool):
-            raise ValueError(f"remat={remat!r} is not ported: the port "
-                             f"recomputes whole blocks (remat=True) or none")
+        check_remat(remat)
         self.quant = quant
         self.remat = remat
         self.seq_length = seq_length
@@ -284,7 +329,8 @@ class DiT(nn.Module):
         t_emb = self.t_embedder(t)
         for blk in self.blocks:
             h = (checkpoint(_block_with_kv, blk, h, y, t_emb,
-                            use_reentrant=False)
+                            use_reentrant=False,
+                            context_fn=remat_context(self.remat))
                  if remat else _block_with_kv(blk, h, y, t_emb))
         return self.final_layer(h, t_emb)
 

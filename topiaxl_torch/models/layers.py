@@ -53,10 +53,41 @@ class Dense(nn.Linear):
                          dtype=param_dtype or dtype)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def operands(self, x: torch.Tensor):
+        """(x, weight, bias) cast to the compute dtype."""
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return x.to(dt), self.weight.to(dt), bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*self.operands(x))
+
+
+@torch.library.custom_op("topiaxl_torch::mlp_fc1", mutates_args=())
+def mlp_fc1(x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor | None) -> torch.Tensor:
+    """The MLP's fc1 pre-activation ``F.linear(x, weight, bias)`` as a
+    registered op: the name the ``flash_mlp`` and ``dots`` remat policies
+    keep (``models/dit.py``), the counterpart of the JAX MLP's
+    ``checkpoint_name(x, "mlp_fc1")``. The product is PyTorch's own, as in
+    JAX, where it runs outside Pallas."""
+    return F.linear(x, weight, bias)
+
+
+def _mlp_fc1_setup(ctx, inputs, output):
+    x, weight, bias = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.has_bias = bias is not None
+
+
+def _mlp_fc1_backward(ctx, g):
+    x, weight = ctx.saved_tensors
+    g2 = g.reshape(-1, g.shape[-1])
+    return (g @ weight, g2.t() @ x.reshape(-1, x.shape[-1]),
+            g2.sum(0) if ctx.has_bias else None)
+
+
+mlp_fc1.register_autograd(_mlp_fc1_backward, setup_context=_mlp_fc1_setup)
 
 
 def linear(in_f: int, out_f: int, bias: bool = True, dtype=torch.float32,
@@ -166,7 +197,8 @@ class TimestepEmbedder(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> GELU(tanh) -> fc2 in the compute dtype (both W8A8 when
-    ``quant``)."""
+    ``quant``). Under autograd fc1 runs as the op ``mlp_fc1``; without a
+    gradient, as the layer itself."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, dtype=torch.bfloat16,
@@ -182,9 +214,14 @@ class Mlp(nn.Module):
         self.tp_group, self.tp_parts = None, 1
 
     def forward(self, x):
-        h = F.gelu(self.fc1(copy_to_tp(x, self.tp_group)),
-                   approximate=self.approximate)
-        return row_parallel(self.fc2, h, self.tp_group)
+        x = copy_to_tp(x, self.tp_group)
+        if isinstance(self.fc1, Dense) and torch.is_grad_enabled() and (
+                x.requires_grad or self.fc1.weight.requires_grad):
+            h = mlp_fc1(*self.fc1.operands(x))
+        else:
+            h = self.fc1(x)
+        return row_parallel(self.fc2, F.gelu(h, approximate=self.approximate),
+                            self.tp_group)
 
 
 class SelfAttention(nn.Module):

@@ -259,13 +259,24 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float):
     return dq, dk, dv
 
 
+@torch.library.custom_op("topiaxl_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the differentiable forward as a registered op, so that a
+    selective-checkpoint policy can name it and keep its outputs (the
+    counterpart of ``checkpoint_name(out, "flash_out")`` and ``"flash_lse"``
+    in ``topiaxl/ops/flash_attention.py:_fwd``). CPU tensors take the plain
+    version, CUDA tensors launch the kernel or raise (``_forward``)."""
+    return _forward(q, k, v, scale, return_lse=True)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward saves (q, k, v, o, lse), as ``topiaxl``'s ``_fwd`` does;
     backward runs ``flash_attention_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        o, lse = _forward(q, k, v, scale, return_lse=True)
+        o, lse = flash_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         return o
@@ -285,7 +296,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (bf16, head_dim 64 or 72, any strides with a contiguous last dim) or
     raise. Under autograd with an input that needs a gradient the forward
-    also writes the lse and the backward runs the backward kernels."""
+    (the op ``flash_fwd``) also writes the lse and the backward runs the
+    backward kernels; without one the kernel is launched directly, without
+    the op's dispatch."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale)

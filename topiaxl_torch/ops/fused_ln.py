@@ -14,7 +14,9 @@ the unrounded f32 ``x + gate * delta``.
 
 Gradients: under autograd with an input that needs one, both functions
 run through ``torch.autograd.Function``s whose forward is the kernel (or
-the plain version on the CPU) and whose backward is the analytic VJP of
+the plain version on the CPU), called through a registered op
+(``topiaxl_torch::ln_modulate`` / ``::ln_modulate_residual``, which the
+``dots_plus`` remat policy keeps), and whose backward is the analytic VJP of
 ``topiaxl/ops/fused_ln.py:_bwd`` / ``:_res_bwd`` in plain PyTorch (f32,
 one cast per gradient). On the TPU that backward is plain XLA too.
 """
@@ -147,12 +149,34 @@ def _ln_bwd(xn32, g_h, scale, eps):
     return dxn, d_shift, d_scale
 
 
+# the differentiable forwards as registered ops, so that a
+# selective-checkpoint policy can name them and keep their outputs (the
+# counterparts of the JAX block's ``checkpoint_name(h, "ln_h")`` and
+# ``"resid"``, ``topiaxl/models/dit.py``); CPU tensors take the plain
+# versions, CUDA tensors launch the kernels or raise
+
+
+@torch.library.custom_op("topiaxl_torch::ln_modulate", mutates_args=())
+def ln_modulate_op(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                   eps: float, out_dtype: torch.dtype | None) -> torch.Tensor:
+    return _ln_modulate(x, shift, scale, eps, out_dtype)
+
+
+@torch.library.custom_op("topiaxl_torch::ln_modulate_residual",
+                         mutates_args=())
+def ln_modulate_residual_op(
+        x: torch.Tensor, delta: torch.Tensor, gate: torch.Tensor,
+        shift: torch.Tensor, scale: torch.Tensor, eps: float,
+        out_dtype: torch.dtype | None) -> tuple[torch.Tensor, torch.Tensor]:
+    return _ln_modulate_residual(x, delta, gate, shift, scale, eps, out_dtype)
+
+
 class _LnModulate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shift, scale, eps, out_dtype):
         ctx.save_for_backward(x, shift, scale)
         ctx.eps = eps
-        return _ln_modulate(x, shift, scale, eps, out_dtype)
+        return ln_modulate_op(x, shift, scale, eps, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -167,8 +191,8 @@ class _LnModulateResidual(torch.autograd.Function):
     def forward(ctx, x, delta, gate, shift, scale, eps, out_dtype):
         ctx.save_for_backward(x, delta, gate, shift, scale)
         ctx.eps = eps
-        return _ln_modulate_residual(x, delta, gate, shift, scale, eps,
-                                     out_dtype)
+        return ln_modulate_residual_op(x, delta, gate, shift, scale, eps,
+                                       out_dtype)
 
     @staticmethod
     def backward(ctx, g_xn, g_h):

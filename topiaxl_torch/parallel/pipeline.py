@@ -28,7 +28,10 @@ P2P under NCCL and through host memory under gloo with CUDA tensors (the
 two ranks on one card), one [mb, N, D] activation (or its gradient) per
 stage and tick. Each stage keeps every microbatch's activations for the
 backward (GPipe's memory), or, with ``remat``, only each block's input
-(``torch.utils.checkpoint``, as ``DiT.forward`` does).
+(``torch.utils.checkpoint``, as ``DiT.forward`` does), and under the
+policies JAX's pipeline takes (``dots``, ``flash``, ``flash_mlp``) the
+outputs of the ops the policy names as well (``models/dit.py:
+remat_context``); ``dots_plus`` raises, as in JAX.
 
 This composes with ``dp``: each dp slice runs its own pipeline on its
 rows; ``make_pp_train_step`` averages the gradients over ``dp``.
@@ -42,6 +45,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .collectives import rank as group_rank, shift, size as group_size
+
+# the remat policies JAX's pipeline takes (topiaxl/parallel/pipeline.py:
+# stage), beside False and True
+PP_REMAT_POLICIES = ("dots", "flash", "flash_mlp")
 
 
 # --------------------------------------------------------------------------
@@ -139,15 +146,20 @@ def shard_pp_params(model, mesh, pp_axis: str = "pp"):
 
 class _Schedule:
     """One pipeline's constants: the stage's blocks and group, the
-    microbatch count, and whether blocks are recomputed in the backward."""
+    microbatch count, and how blocks are recomputed in the backward (the
+    model's remat mode, False outside training)."""
 
     def __init__(self, model, n_micro: int):
         self.blocks = list(model.blocks)
         self.stage = model.pp_layout
         self.group = self.stage.group
         self.n_micro = n_micro
-        self.remat = model.remat and model.training
+        self.remat = model.remat if model.training else False
         self.ticks = n_micro + self.stage.stages - 1
+        if self.remat:
+            from ..models.dit import remat_context
+
+            self.context_fn = remat_context(self.remat)
 
     def active(self, tick: int) -> int | None:
         """The microbatch this stage works on at ``tick``, or None."""
@@ -156,7 +168,8 @@ class _Schedule:
 
     def run(self, h, t_emb, y):
         for blk in self.blocks:
-            h = (checkpoint(_block, blk, h, y, t_emb, use_reentrant=False)
+            h = (checkpoint(_block, blk, h, y, t_emb, use_reentrant=False,
+                            context_fn=self.context_fn)
                  if self.remat and torch.is_grad_enabled()
                  else _block(blk, h, y, t_emb))
         return h
@@ -169,10 +182,13 @@ def _block(blk, h, y, t_emb):
 class _Pipeline(torch.autograd.Function):
     """h [B, N, D], t_emb [B, D], y [B, M, C] -> the stages' output [B, N,
     D] on every pp rank. The forward keeps each microbatch's graph (on
-    detached inputs); the backward replays the schedule in reverse."""
+    detached inputs); the backward replays the schedule in reverse. The
+    stage's block parameters come in as inputs too, so the output needs a
+    gradient whenever they do, whatever h's, t_emb's and y's need; their
+    gradients accumulate in their ``.grad`` as the schedule replays."""
 
     @staticmethod
-    def forward(ctx, sched, h, t_emb, y):
+    def forward(ctx, sched, h, t_emb, y, *block_params):
         n, last = sched.n_micro, sched.stage.stages - 1
         s = sched.stage.index
         hs, ts, ys = h.chunk(n), t_emb.chunk(n), y.chunk(n)
@@ -189,7 +205,7 @@ class _Pipeline(torch.autograd.Function):
                 if grad:
                     # a later stage's input carries its blocks' gradient
                     # upstream whatever h's own need
-                    needs = list(ctx.needs_input_grad[1:])
+                    needs = list(ctx.needs_input_grad[1:4])
                     needs[0] = needs[0] or s > 0
                     ins = [a.detach().requires_grad_(need)
                            for a, need in zip(ins, needs)]
@@ -249,7 +265,7 @@ class _Pipeline(torch.autograd.Function):
             if sched.group is not None:
                 dist.all_reduce(t, group=sched.group)
             out.append(t)
-        return tuple(out)
+        return (*out, *(None for _ in ctx.needs_input_grad[4:]))
 
 
 def make_pp_forward(model, mesh, n_micro: int):
@@ -260,9 +276,9 @@ def make_pp_forward(model, mesh, n_micro: int):
     dp slice's rows; every pp rank passes the same and gets the output.
     ``mesh`` is the one the stage was cut on (``depth % pp`` raised there).
     """
-    if not isinstance(model.remat, bool):
-        raise ValueError(f"remat={model.remat!r} is not ported: the port "
-                         f"recomputes whole blocks (remat=True) or none")
+    from ..models.dit import check_remat
+
+    check_remat(model.remat, PP_REMAT_POLICIES)
     if getattr(model, "pp_layout", None) is None:
         raise ValueError("make_pp_forward takes a stage: shard_pp_params "
                          "first")
@@ -276,7 +292,9 @@ def make_pp_forward(model, mesh, n_micro: int):
             y = torch.where(drop.to(y.device)[:, None, None], null, y)
         h = model.embed_tokens(x)
         t_emb = model.embed_t(t)
-        h = _Pipeline.apply(_Schedule(model, n_micro), h, t_emb, y)
+        sched = _Schedule(model, n_micro)
+        h = _Pipeline.apply(sched, h, t_emb, y, *(
+            p for blk in sched.blocks for p in blk.parameters()))
         return model.apply_final(h, t_emb)
 
     return forward

@@ -9,8 +9,13 @@ generator fills their random init), and the DiT and VAE factories also
 take ``param_dtype`` (f32 master weights for training).
 
 Keys as the JAX factories read them, with the same defaults;
-``gradient_checkpointing: true`` maps to the DiT's ``remat=True`` and
-``precision`` is dropped (``dtype`` sets the compute type). The text and
+``gradient_checkpointing: true`` maps to the DiT's ``remat=True``, a
+remat policy by name (``remat: flash``, ...) passes through, and
+``precision`` is dropped (``dtype`` sets the compute type).
+``scan_blocks: true`` builds the unrolled DiT: JAX's scan over the blocks
+is the same math in a layout that compiles faster on the TPU, and the
+port has no stacked layout (``core/weights.py`` reads JAX's stacked
+trees into the unrolled names). The text and
 CLIP encoders read their weights from a local ``model_name_or_path``
 (no download); ``TextConditioner`` without one needs ``stub: true``.
 """
@@ -39,9 +44,6 @@ def _dit_kwargs(kw: dict) -> dict:
     if kw.pop("gradient_checkpointing", False):
         kw.setdefault("remat", True)
     kw.pop("precision", None)
-    if kw.get("scan_blocks", False):
-        raise ValueError("model.generator.scan_blocks is not ported: the port "
-                         "runs the unrolled blocks")
     remat = kw.get("remat", False)
     return dict(seq_length=kw.get("seq_length", 2048),
                 in_channels=kw.get("in_channels", 68),
