@@ -114,8 +114,9 @@ the script exits non-zero without a result line):
     each against one process on the same inputs and beside the planted
     fault (qkv's rows split as one block); per rank the flash forwards by
     head count (8), the launches, step time and peak memory.
-25. pp: ``make_pp_train_step`` at pp 2 (14 blocks a stage) and pp 4 (7),
-    ``n_micro`` 4, flagship width, batch 8, against one process's
+25. pp: ``make_pp_train_step`` at pp 2 and pp 4 over ``PP_DEPTH`` = 8
+    blocks (4 and 2 a stage), ``n_micro`` 4, flagship width, batch 8,
+    against one process's
     ``make_train_step``: loss, grad norm, Adam mu, update; step time, the
     GPipe bubble and each stage's peak memory and launches.
 26. restore: a tp = 2 ``cli.train`` run's checkpoint (flagship width,
@@ -124,6 +125,20 @@ the script exits non-zero without a result line):
 27. app: ``App.run`` (``topiaxl_torch/app.py``) on one synthetic image at
     the flagship config (stage 2 at mc 128, 5000 faces): a GLB that
     parses, and the serving launches of one image.
+28. bench: ``python -m topiaxl_torch.bench --fast`` in its own process
+    (every section of the port's benchmark, one warm image -> GLB run and
+    four pipelined assets): exit 0, a last line with every key
+    (``BENCH_KEYS``), an MFU in (0, 1), an albedo PSNR above 30 dB, the
+    flash parity passed; its last line and seconds printed.
+
+After the kernels phase, flash_head_dims runs the flash forward (#1), the
+single-pass backward (#4) and the pair (#5, #6) at head dims 80, 96 and
+128 (their own instances) and 36 and 88 (zero-padded by the launchers to
+64 and 96) on the flagship's 2 x 2048 x {2048, 1370} x 16, each against
+its plain version at the kernels phase's bars, with a scale computed from
+the padded head dim as a planted fault, ms beside the bound and SDPA's;
+and the ring over two blocks at head dims 36 and 80. Its rows go into
+each kernel's entry of the kernels line under ``head_dims``.
 
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
@@ -869,6 +884,191 @@ def phase_kernels() -> dict:
     return results
 
 
+# flash_head_dims: the head dims of the instances past 72 and two that the
+# launchers zero-pad (36 -> 64, 88 -> 96), at the flagship token counts
+HEAD_DIM_CASES = (80, 96, 128, 36, 88)
+HEAD_DIM_SHAPES = (("self", 2, 2048, 2048, 16), ("cross", 2, 2048, 1370, 16))
+
+
+def padded_bwd_launch(form: str, q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) of one backward form launched on q, k, v, o, dO
+    zero-padded in D to their instance, sliced back: ``fused`` (#4) or
+    ``pair`` (#5 then #6), whatever the shape rule would take; and a
+    callable that launches the same kernels again on the padded inputs
+    (for timing: the pad is not in it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from topiaxl_torch.ops import flash_attention as fa
+
+    B, Sq, H, D = q.shape
+    inst = fa.kernel_head_dim(D)
+    qp, kp, vp, op, dop = (F.pad(t, (0, inst - D)) if inst != D else t
+                           for t in (q, k, v, o, do))
+    dk = torch.empty_like(kp)
+    dv = torch.empty_like(vp)
+    if form == "fused":
+        dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+
+        def launch():
+            fa._bwd_launch("flash_attn_bwd", qp, kp, vp, op, lse, dop, None,
+                           dq, dk, dv, scale)
+    else:
+        dq = torch.empty_like(qp)
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+
+        def launch():
+            fa._bwd_launch("flash_attn_bwd_dq", qp, kp, vp, op, lse, dop,
+                           delta, dq, None, None, scale)
+            fa._bwd_launch("flash_attn_bwd_dkv", qp, kp, vp, op, lse, dop,
+                           delta, None, dk, dv, scale)
+    launch()
+    return (dq[..., :D].to(q.dtype), dk[..., :D], dv[..., :D]), launch
+
+
+def phase_flash_head_dims() -> dict:
+    """Flash #1, #4 and the #5/#6 pair at every head dim in HEAD_DIM_CASES
+    on the flagship's token counts (16 heads, batch 2): each against its
+    plain version at the kernels phase's bars, a planted fault (the scale
+    computed from the padded head dim) above them, ms beside the bound
+    (counted at the true head dim) and SDPA's; then the ring over two
+    blocks at a padded head dim. Returns the rows for the kernels line."""
+    import torch
+
+    from topiaxl_torch.ops import flash_attention as fa
+    from topiaxl_torch.ops.ring_attention import (LocalRing, ring_backward,
+                                                  ring_forward)
+
+    card_id = card_line()
+    g = torch.Generator("cuda").manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    rows = {"flash_attn_fwd": [], "flash_attn_bwd": [],
+            "flash_attn_bwd_dq": [], "flash_attn_bwd_dkv": []}
+    for D in HEAD_DIM_CASES:
+        inst = fa.kernel_head_dim(D)
+        for tag, B, Sq, Sk, H in HEAD_DIM_SHAPES:
+            scale = D ** -0.5 if tag == "self" else 1.0 / D
+            if tag == "self":
+                q, k, v = randn(B, Sq, 3, H, D).unbind(2)
+            else:
+                q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
+            do = randn(B, Sq, H, D)
+            shape = f"{B}x{Sq}x{Sk}x{H}x{D}"
+            o, lse = fa._forward(q, k, v, scale, return_lse=True)
+            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale,
+                                                      return_lse=True)
+            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            o_rel, lse_err = rel_err(o, o_ref), (lse - lse_ref).abs().max().item()
+            o_abs = (o.float() - o_ref.float()).abs().max().item()
+            # the planted fault: a launcher that recomputed the scale from
+            # the padded head dim (only a padded D can have it)
+            fault = bwd_fault = None
+            if inst != D:
+                fault = rel_err(fa.flash_attention_plain(q, k, v, inst ** -0.5),
+                                o_ref)
+                bwd_fault = max(rel_err(a, b) for a, b in zip(
+                    fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                 inst ** -0.5), ref))
+            qp, kp, vp = (torch.nn.functional.pad(t, (0, inst - D))
+                          for t in (q, k, v))
+            fwd_ms = cuda_ms(lambda: fa._forward(qp, kp, vp, scale, False), 20)
+            fwd_bound = bound(4 * B * H * Sq * Sk * D,
+                              2 * (2 * B * Sq + 2 * B * Sk) * H * D)
+            sdpa_ms, sdpa_how = sdpa_forward_ms(q, k, v, scale, 20)
+            forms = {}
+            for form in ("fused", "pair"):
+                got, launch = padded_bwd_launch(form, q, k, v, o, lse, do,
+                                                scale)
+                torch.cuda.synchronize()
+                rels = [rel_err(a, b) for a, b in zip(got, ref)]
+                errs = [(a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, ref)]
+                forms[form] = (rels, max(errs), cuda_ms(launch, 5))
+            plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, scale), 3)
+            plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, scale), 2)
+            lib_bwd, lib_how = sdpa_backward_ms(q, k, v, do, scale, 5)
+            n_q, n_k, n_r = B * Sq * H * D, B * Sk * H * D, B * H * Sq
+            bounds = {
+                "fused": bound(10 * B * H * Sq * Sk * D,
+                               2 * (3 * n_q + 2 * n_k) + 4 * n_r + 4 * n_q
+                               + 4 * n_k),
+                "dq": bound(6 * B * H * Sq * Sk * D,
+                            2 * (3 * n_q + 2 * n_k) + 8 * n_r + 2 * n_q),
+                "dkv": bound(8 * B * H * Sq * Sk * D,
+                             2 * (2 * n_q + 2 * n_k) + 8 * n_r + 4 * n_k)}
+            pair_bound = bounds["dq"][0] + bounds["dkv"][0]
+            fault_msg = (f"; padded-scale fault o {fault:.3e}, grads "
+                         f"{bwd_fault:.3e}" if fault is not None
+                         else "; own instance")
+            lib_f = (f"sdpa {sdpa_ms:.4f} ms" if sdpa_ms
+                     else f"sdpa: {sdpa_how[:60]}")
+            lib_b = (f"PyTorch flash backward {lib_bwd:.4f} ms" if lib_bwd
+                     else f"PyTorch flash backward: {lib_how[:60]}")
+            log(f"  head dim {D} (instance {inst}) {tag} {shape}: forward o "
+                f"max rel err {o_rel:.3e} (bar {ATTN_REL_BAR}), lse "
+                f"{lse_err:.3e}; {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f} ms, "
+                f"{fwd_bound[1]}), plain {plain_fwd:.4f} ms, {lib_f}; single "
+                f"pass dq/dk/dv {'/'.join(f'{r:.3e}' for r in forms['fused'][0])}"
+                f" {forms['fused'][2]:.4f} ms (bound {bounds['fused'][0]:.4f}); "
+                f"pair {'/'.join(f'{r:.3e}' for r in forms['pair'][0])} "
+                f"{forms['pair'][2]:.4f} ms (bound {pair_bound:.4f}); plain "
+                f"backward {plain_bwd:.4f} ms, {lib_b} (bar "
+                f"{ATTN_BWD_REL_BAR}{fault_msg}) ({card_id})")
+            if not (o_rel <= ATTN_REL_BAR and lse_err <= LSE_ABS_BAR):
+                raise AssertionError(f"head dim {D} {tag}: forward {o_rel}, "
+                                     f"lse {lse_err}")
+            for form, (rels, _, _) in forms.items():
+                if not max(rels) <= ATTN_BWD_REL_BAR:
+                    raise AssertionError(f"head dim {D} {tag} {form}: {rels}")
+            if fault is not None and not (fault > ATTN_REL_BAR
+                                          and bwd_fault > ATTN_BWD_REL_BAR):
+                raise AssertionError(f"head dim {D} {tag}: the bars cannot see "
+                                     f"a padded scale ({fault}, {bwd_fault})")
+            at = dict(at=shape, instance=inst)
+            rows["flash_attn_fwd"].append(dict(
+                at, ms=fwd_ms, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                plain_ms=plain_fwd, library_ms=sdpa_ms, max_abs_err=o_abs,
+                max_rel_err=o_rel))
+            rows["flash_attn_bwd"].append(dict(
+                at, ms=forms["fused"][2], bound_ms=bounds["fused"][0],
+                bound_by=bounds["fused"][1], plain_ms=plain_bwd,
+                library_ms=lib_bwd, max_abs_err=forms["fused"][1],
+                max_rel_err=max(forms["fused"][0])))
+            for name, key in (("flash_attn_bwd_dq", "dq"),
+                              ("flash_attn_bwd_dkv", "dkv")):
+                rows[name].append(dict(
+                    at, pair_ms=forms["pair"][2], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], plain_ms=plain_bwd,
+                    library_ms=lib_bwd, max_abs_err=forms["pair"][1],
+                    max_rel_err=max(forms["pair"][0])))
+            del q, k, v, do, o, lse, o_ref, lse_ref, ref, qp, kp, vp
+            torch.cuda.empty_cache()
+    # the ring's per-block launches at a padded and a new head dim
+    for D in (36, 80):
+        q, k, v, do = (randn(1, 2200, 4, D) for _ in range(4))
+        scale = D ** -0.5
+        o, lse = fa._forward(q, k, v, scale, return_lse=True)
+        ref = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
+        parts = [[c.contiguous() for c in t.chunk(2, dim=1)]
+                 for t in (q, k, v, do)]
+        outs, lses = ring_forward(LocalRing(2), *parts[:3], scale)
+        grads = ring_backward(LocalRing(2), *parts[:3], outs, lses, parts[3],
+                              scale)
+        o_err = rel_err(torch.cat(outs, 1), o)
+        g_err = max(rel_err(torch.cat(a, 1), b) for a, b in zip(grads, ref))
+        log(f"  ring P=2 at head dim {D} (1x2200x4): out max rel err "
+            f"{o_err:.3e}, dq/dk/dv {g_err:.3e} against one launch")
+        if not (o_err <= ATTN_REL_BAR and g_err <= ATTN_BWD_REL_BAR):
+            raise AssertionError(f"ring at head dim {D}: {o_err}, {g_err}")
+    return rows
+
+
 def library_ms(fn, calls: int) -> float:
     """ms of ``calls`` back-to-back PyTorch calls in one CUDA graph."""
     return cuda_ms(fn, calls) * calls
@@ -1382,35 +1582,16 @@ def phase_render(tmp: str) -> None:
         f"(rgb, prim and mat renders), written as {branches}")
 
 
-def randomized_u2net(arch: str, seed: int):
-    """A U^2-Net with every parameter and BatchNorm statistic from a numpy
-    seed (weights N(0, 0.1), running variances in [0.5, 1.5]), eval mode."""
-    import torch
-
-    from topiaxl_torch.models.matting_u2net import U2Net
-
-    model = U2Net(arch)
-    rng = np.random.default_rng(seed)
-    with torch.no_grad():
-        for name, t in model.state_dict().items():
-            if name.endswith("num_batches_tracked"):
-                continue
-            r = rng.standard_normal(tuple(t.shape)).astype(np.float32) * 0.1
-            if name.endswith("running_var"):
-                r = rng.uniform(0.5, 1.5, t.shape).astype(np.float32)
-            t.copy_(torch.from_numpy(r))
-    return model.eval()
-
-
 def phase_matting(tmp: str) -> None:
     """The CLI mattes with a U^2-Net ``.pth`` (full ``u2net``, random), with
     serving's launches; the network on the card against the CPU at 320²."""
     import torch
     import torch.nn.functional as F
 
+    from topiaxl_torch.bench import random_u2net
     from topiaxl_torch.models import matting_u2net
 
-    model = randomized_u2net("u2net", seed=12)
+    model = random_u2net("u2net", 12, "cpu")
     pth = os.path.join(tmp, "u2net.pth")
     torch.save(model.state_dict(), pth)
     run_cli(tmp, "u2net", 1, ["inference.matting=u2net",
@@ -1419,7 +1600,7 @@ def phase_matting(tmp: str) -> None:
 
     x = torch.from_numpy(np.random.default_rng(13).standard_normal(
         (1, 3, 320, 320)).astype(np.float32))
-    card = randomized_u2net("u2net", seed=12).cuda()
+    card = random_u2net("u2net", 12, "cuda")
     xc = x.cuda()
     with torch.inference_mode():
         ref = model(x)
@@ -2789,6 +2970,10 @@ TP_TRAIN_LR = 1e-5
 # grad norm <= 3.4e-6, mu 1.1e-3, update 7.7e-3)
 PP_BARS = {"loss": 1e-4, "grad norm": 1e-3, "Adam mu": 2e-2, "update": 0.2}
 PP_MICRO = 4
+# the pp phase's depth at the flagship width: the script's time (at 28
+# blocks its two torchruns took 47.5 and 63.3 s, a pp = 4 step 28.2 s
+# through gloo); 8 divides over 2 and 4 stages
+PP_DEPTH = 8
 # restore: the checkpoint of a tp = 2 run at depth 4 (flagship width) loads
 # into one process bit for bit; step 3 resumed there against the same step
 # resumed on tp = 2 (bf16 rounding as above)
@@ -2919,15 +3104,15 @@ def tp_generate_inputs(assets: int = 2):
     return dit, vae, diffusion, y, noise, mean, std
 
 
-def pp_inputs(seed: int = 8):
-    """The flagship trainer's DiT (f32 masters, enlivened) and a batch of 8
-    from seeds on the card."""
+def pp_inputs(seed: int = 8, depth: int = 28):
+    """The flagship trainer's DiT (f32 masters, enlivened) at ``depth``
+    blocks and a batch of 8 from seeds on the card."""
     import torch
 
     from topiaxl_torch.cli.train import build_dit
     from topiaxl_torch.core.config import load_config
 
-    cfg = load_config(FLAGSHIP)
+    cfg = load_config(FLAGSHIP, overrides=[f"model.generator.depth={depth}"])
     dev = torch.device("cuda")
     dit = enliven_(build_dit(cfg.model.generator, dev, torch.Generator(
         dev).manual_seed(seed)).train(), seed + 1)
@@ -3070,7 +3255,7 @@ def rank_pp(job: dict, rank: int) -> dict:
                                         shard_pp_params)
     from topiaxl_torch.pipelines.train import create_train_state
 
-    cfg, dit, batch = pp_inputs()
+    cfg, dit, batch = pp_inputs(depth=PP_DEPTH)
     p0 = {n: t.detach().float().cpu() for n, t in dit.state_dict().items()}
     mesh = make_mesh({"pp": job["pp"]})
     stage = shard_pp_params(dit, mesh)
@@ -3265,16 +3450,17 @@ def phase_tp(tmp: str) -> None:
 
 
 def phase_pp(tmp: str) -> None:
-    """``make_pp_train_step`` at pp 2 (14 blocks a stage) and pp 4 (7),
-    ``n_micro`` 4, the flagship DiT (enlivened) at batch 8, against one
-    process's ``make_train_step`` on the same weights and batch."""
+    """``make_pp_train_step`` at pp 2 and pp 4 (``PP_DEPTH`` / pp blocks a
+    stage), ``n_micro`` 4, the flagship DiT's width (enlivened) at batch 8,
+    against one process's ``make_train_step`` on the same weights and
+    batch."""
     import torch
 
     from topiaxl_torch.pipelines.train import (create_train_state,
                                                make_train_step)
 
     card_id = card_line()
-    cfg, dit, batch = pp_inputs()
+    cfg, dit, batch = pp_inputs(depth=PP_DEPTH)
     p0 = {n: t.detach().float().cpu() for n, t in dit.state_dict().items()}
     state = create_train_state(dit)
     diffusion, optimizer = pp_optimizer(cfg)
@@ -3323,7 +3509,7 @@ def phase_pp(tmp: str) -> None:
         if any(got[k] > PP_BARS[k] for k in PP_BARS):
             raise AssertionError(f"pp={pp}: {got}")
         # each stage's blocks, self- and cross-attention, each microbatch
-        per_stage = 2 * (28 // pp) * PP_MICRO
+        per_stage = 2 * (PP_DEPTH // pp) * PP_MICRO
         for r in res:
             if (r["launches"].get("flash_attn_fwd", 0) != per_stage
                     or r["launches"].get("flash_attn_bwd", 0) != per_stage):
@@ -3422,6 +3608,61 @@ def phase_app(tmp: str) -> None:
         raise AssertionError(f"app: {gltf['asset']}, {_cuda.launches}")
 
 
+# bench: the keys of python -m topiaxl_torch.bench's last line (bench.py's,
+# less the four the port leaves out; tests/test_torch_bench.py holds the
+# set equal to bench.py's on the CPU)
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "mfu", "image_to_glb_seconds",
+    "matting_s", "encode_s", "stage1_denoise_decode_s", "stage2_extract_s",
+    "stage2_breakdown_s", "e2e_runs_s", "e2e_runs_stages_s",
+    "assets_per_min_serial", "albedo_psnr_db", "geometry_p99_dev",
+    "uv_stretch_l2_box", "uv_stretch_l2_lscm", "uv_stretch_linf_box",
+    "uv_stretch_linf_lscm", "uv_coverage_box", "uv_coverage_lscm",
+    "uv_charts_box", "uv_charts_lscm", "assets_per_min_pipelined",
+    "dpm_albedo_psnr_db", "dpm_geometry_p99_dev", "dpm12_vs_ode_psnr_db",
+    "ddim25_vs_ode_psnr_db", "flash_parity_on_card",
+    "dit_denoise_steps_per_sec_int8", "train_steps_per_sec",
+    "train_steps_per_sec_bs8")
+BENCH_TIMEOUT_S = 480
+
+
+def phase_bench() -> None:
+    """``python -m topiaxl_torch.bench --fast`` as a user runs it, in its
+    own process (every section, one warm image -> GLB run, four pipelined
+    assets): exit 0, a last line with every key, an MFU in (0, 1), an
+    albedo PSNR above 30 dB and the flash kernels within their parity bar.
+    Prints the last line and the run's seconds."""
+    import torch
+
+    torch.cuda.empty_cache()     # the bench trains at batch 8 in its process
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "topiaxl_torch.bench",
+                           "--fast"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in proc.stderr.strip().splitlines()[-12:]:
+        log(f"  bench stderr: {line}")
+    log(f"  bench: exit {proc.returncode} in {secs:.1f} s; first line "
+        f"{lines[0] if lines else None}")
+    log(f"  bench last line: {lines[-1] if lines else None}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench exited {proc.returncode}")
+    last = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in last]
+    errors = {k: v for k, v in last.items() if k.endswith("_error")}
+    if missing or errors:
+        raise AssertionError(f"bench: missing {missing}, errors {errors}")
+    if not 0.0 < last["mfu"] < 1.0:
+        raise AssertionError(f"bench: mfu {last['mfu']} outside (0, 1)")
+    if not last["albedo_psnr_db"] > 30.0:
+        raise AssertionError(f"bench: albedo PSNR {last['albedo_psnr_db']}")
+    if last["flash_parity_on_card"] is not True:
+        raise AssertionError("bench: the flash kernels failed their parity")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "topiaxl_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3436,6 +3677,9 @@ def main() -> int:
         phase_build()
     with Phase("kernels"):
         results = phase_kernels()
+    with Phase("flash_head_dims"):
+        for name, rows in phase_flash_head_dims().items():
+            results[name]["head_dims"] = rows
     with Phase("probes"):
         results.update(phase_probes())
     with Phase("probe_path"):
@@ -3505,6 +3749,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("app"):
             phase_app(tmp)
+    with Phase("bench"):
+        phase_bench()
 
     # launches: serving for the forward and LN kernels, the flagship
     # trainer for the single-pass backward, the 4096-prim trainer for the

@@ -63,6 +63,7 @@ def test_port_imports_without_jax():
         import topiaxl_torch.ops.ring_attention
         import topiaxl_torch.parallel
         import topiaxl_torch.parallel.collectives
+        import topiaxl_torch.bench
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
         assert not bad, bad
         print("ok")

@@ -22,6 +22,9 @@ exact, bf16 within 1e-3 of max|plain| (f32 sums in another order), with
 planted faults (coefficients +1, one product fewer, a pad of ones) above,
 also where several blocks share an output tile (their partial sums
 reduced in a fixed order, so two launches give the same bits).
+Every head dim up to 128 (80, 96 and 128 on their own instances, the
+others zero-padded by the launchers) at the same bars, with a scale
+computed from the padded head dim (a planted fault) above the forward's.
 Ring attention (``ops/ring_attention.py``) over P token blocks held in
 one process, against one forward and backward launch over the whole
 sequence at the same bars; the backward on each block's own o and lse
@@ -157,6 +160,69 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
             assert _rel_err(f, r) > ATTN_BWD_REL_BAR, name
 
 
+@pytest.mark.parametrize("Sk", [700, 2100])      # single pass; the pair
+@pytest.mark.parametrize("D", [16, 36, 80, 88, 96, 120, 128])
+def test_flash_head_dims_match_plain(dev, D, Sk):
+    """Every head dim up to 128: 80, 96 and 128 on their own instances, the
+    others zero-padded to the next one by the launchers, with the caller's
+    scale; one launch of each kernel as at 72. A scale recomputed from the
+    padded head dim (a planted fault) lands above the forward's bar."""
+    from topiaxl_torch.ops.flash_attention import kernel_head_dim
+
+    q = _randn(dev, 1, 300, 3, 2, D, seed=51)[:, :, 0].requires_grad_()
+    k, v = (t.requires_grad_() for t in _randn(
+        dev, 1, Sk, 2, 2, D, seed=52).unbind(2))
+    do = _randn(dev, 1, 300, 2, D, seed=53)
+    scale = D ** -0.5
+    before = dict(_cuda.launches)
+    o = flash_attention(q, k, v, scale)
+    lse = o.grad_fn.saved_tensors[4]
+    o.backward(do)
+    names = (["flash_attn_bwd"] if bwd_form(Sk) == "fused"
+             else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_dq",
+                 "flash_attn_bwd_dkv"):
+        assert _cuda.launches[name] == before[name] + (
+            name == "flash_attn_fwd" or name in names), name
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o_ref, lse_ref = flash_attention_plain(qd, kd, vd, scale, return_lse=True)
+    ref = flash_attention_bwd_plain(qd, kd, vd, o.detach(), lse, do, scale)
+    torch.cuda.synchronize()
+    assert o.shape == o_ref.shape and o.is_contiguous()
+    assert _rel_err(o, o_ref) <= ATTN_REL_BAR
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_BAR
+    for got, r, name in zip((q.grad, k.grad, v.grad), ref, "qkv"):
+        assert got.shape == r.shape and got.dtype == torch.bfloat16
+        assert _rel_err(got, r) <= ATTN_BWD_REL_BAR, name
+    inst = kernel_head_dim(D)
+    if inst != D:
+        fault = flash_attention_plain(qd, kd, vd, inst ** -0.5)
+        assert _rel_err(fault, o_ref) > ATTN_REL_BAR
+
+
+@pytest.mark.parametrize("D", [36, 80, 128])
+def test_ring_takes_every_head_dim(dev, D):
+    """The ring's per-block forward and backward launches take the head
+    dims the launchers take: P = 2 blocks of 1100 keys against one launch."""
+    from topiaxl_torch.ops import flash_attention as fa
+    from topiaxl_torch.ops.ring_attention import (LocalRing, ring_backward,
+                                                  ring_forward)
+
+    q, k, v, do = (_randn(dev, 1, 2200, 2, D, seed=60 + i) for i in range(4))
+    scale = D ** -0.5
+    o, lse = fa._forward(q, k, v, scale, return_lse=True)
+    ref = flash_attention_backward(q, k, v, o, lse, do, scale)
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(2, dim=1)]
+                       for t in (q, k, v, do))
+    outs, lses = ring_forward(LocalRing(2), qs, ks, vs, scale)
+    grads = ring_backward(LocalRing(2), qs, ks, vs, outs, lses, dos, scale)
+    torch.cuda.synchronize()
+    assert _rel_err(torch.cat(outs, 1), o) <= ATTN_REL_BAR
+    assert (torch.cat(lses, 2) - lse).abs().max().item() <= LSE_ABS_BAR
+    for got, r in zip(grads, ref):
+        assert _rel_err(torch.cat(got, 1), r) <= ATTN_BWD_REL_BAR
+
+
 @pytest.mark.parametrize("P,N", [(2, 512), (4, 1024), (2, 4400)])
 def test_ring_over_local_blocks_matches_one_launch(dev, P, N):
     """P blocks of N / P tokens (the last case 2200 keys a block, ragged:
@@ -290,8 +356,8 @@ def test_flash_refuses_what_it_cannot_run(dev):
     q = _randn(dev, 1, 8, 2, 72)
     with pytest.raises(TypeError):
         flash_attention(q.float(), q.float(), q.float(), 0.1)
-    w = _randn(dev, 1, 8, 2, 80)
-    with pytest.raises(ValueError, match="head_dim"):
+    w = _randn(dev, 1, 8, 2, 136)    # above the widest instance, 128
+    with pytest.raises(ValueError, match="head_dim 136"):
         flash_attention(w, w, w, 0.1)
     odd = _randn(dev, 1, 8, 2, 76)[..., :72]     # strides not multiples of 8
     with pytest.raises(ValueError, match="strides"):

@@ -142,6 +142,32 @@ def test_dinov2_tiny_matches_jax(size):
                                    atol=1e-4, rtol=0, err_msg=k)
 
 
+@pytest.mark.parametrize("size", [224, pytest.param(518, marks=pytest.mark.slow)])
+def test_dinov2_vitb14_reg_matches_jax(size):
+    """DINOv2 ViT-B/14-reg at its published width (768, 12 blocks of 12
+    heads of 64, four registers, a 37² pos-embed grid) on shared random
+    weights: at 224² the pos-embed is interpolated bicubically to 16²; at
+    518² (slow tier) its 1374 tokens take the flash route in the port (the
+    plain version on the CPU). Within 1e-4 of the largest token value."""
+    from topiaxl.models.conditioner.dinov2 import DinoViT as JaxViT
+    from topiaxl_torch.models.conditioner.dinov2 import DinoViT, dinov2_config
+
+    cfg = dinov2_config("dinov2_vitb14_reg")
+    vit = DinoViT(dtype=torch.float32, **cfg)
+    sd = randomize_(vit, 9)
+    params = tree(convert.convert_dinov2(sd, depth=cfg["depth"]))
+    img = np.random.default_rng(10).standard_normal(
+        (1, size, size, 3)).astype(np.float32)
+    ref = JaxViT(dtype=jnp.float32, **cfg).apply(params, jnp.asarray(img))
+    with torch.no_grad():
+        got = vit(torch.from_numpy(img))
+    assert got["x_norm_patchtokens"].shape == (1, (size // 14) ** 2, 768)
+    for k in ("x_norm_clstoken", "x_norm_patchtokens"):
+        r = np.asarray(ref[k])
+        err = np.abs(got[k].numpy() - r).max()
+        assert err <= 1e-4 * np.abs(r).max(), (k, err, np.abs(r).max())
+
+
 def test_resize_matches_jax():
     """F.interpolate(bicubic, antialias) against the JAX package's matrix
     emulation of it, at the bar the JAX package holds that emulation to."""

@@ -1,11 +1,62 @@
-"""Step meter and metric log for training loops (the ``StepMeter`` and
-``MetricLogger`` of ``topiaxl/core/profiling.py``)."""
+"""Tracing, timing, a step meter and a metric log (the counterparts of
+``topiaxl/core/profiling.py``): ``trace`` writes a ``torch.profiler``
+Chrome trace of a block, ``timeit`` times a callable between two
+synchronisations of the card, ``StepMeter`` and ``MetricLogger`` serve
+the training loops."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace the block with ``torch.profiler`` (host and, where a card is
+    present, device activity) and write it as a Chrome trace,
+    ``<log_dir>/trace.json`` (viewable in Perfetto), also when the block
+    raises. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def timeit(fn: Callable, *args, iters: int = 10, warmup: int = 2,
+           **kwargs) -> dict:
+    """Wall seconds per call of ``fn(*args, **kwargs)``: ``warmup`` calls,
+    then ``iters`` timed ones, the card synchronised before the clock
+    starts and before it stops. Returns ``mean_s``, ``per_sec``, ``iters``
+    and the last call's ``out``."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args, **kwargs)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args, **kwargs)
+    _sync()
+    dt = (time.perf_counter() - t0) / iters
+    return {"mean_s": dt, "per_sec": 1.0 / dt, "iters": iters, "out": out}
 
 
 class StepMeter:

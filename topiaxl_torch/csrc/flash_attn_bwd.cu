@@ -29,11 +29,13 @@
 //   * each consumer thread computes lse (log2 units) and delta of its two
 //     rows once, from the o and dO tiles in shared memory (the quad's four
 //     threads split the chunks), and writes delta to the scratch;
-//   * per K/V tile, S = Q K^T and dP = dO V^T run on wgmma m64n128k16
+//   * per K/V tile (128 keys up to head dim 80, 64 above: dq_block_n),
+//     S = Q K^T and dP = dO V^T run on wgmma m64n{128,64}k16
 //     with both operands in shared memory, K-major over D; dS = p (dP -
 //     delta) is formed in the accumulator registers and packed to bf16 A
 //     fragments; dQ += dS K runs on wgmma m64n{72,64}k16 with dS from
-//     registers and K read MN-major from the same tile;
+//     registers and K read MN-major from the same tile (m64nDk16, one
+//     instance per head dim 64, 72, 80, 96 and 128);
 //   * overlap: in its turn a warpgroup issues S and dP of tile j with dQ
 //     of tile j - 1, and two named barriers hand the turns back and forth
 //     (ping-pong), so one warpgroup's exponentials overlap the other's
@@ -56,13 +58,20 @@ namespace {
 using namespace sm90;
 
 constexpr int kBlockM = 128;   // q rows per block, 64 per consumer warpgroup
-constexpr int kBlockN = 128;   // keys per K/V tile
 constexpr int kStages = 3;     // K/V ring depth
 constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr float kLog2e = 1.4426950408889634f;
 
+// keys per K/V tile: 128 up to head dim 80; 64 above, where S, dP, dQ and
+// the dS fragments of a 128-key tile (64 + 64 + D / 2 + 32 registers a
+// thread) would not fit the consumers' 240 registers without spilling
+__host__ __device__ constexpr int dq_block_n(int D) {
+  return D <= 80 ? 128 : 64;
+}
+
 template <int D>
 struct Dq {
+  static constexpr int kBlockN = dq_block_n(D);
   static constexpr int kChunks = D / 8;            // 8-column chunks of D
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps over D
   static constexpr int kChunksP = 2 * kSteps;      // chunks with padding
@@ -86,9 +95,10 @@ struct DqArgs {
 // dQ += dS K for the K tile Kt: dS from registers, K MN-major B (8 keys
 // per core matrix along the contraction, the chunks along N)
 template <int D>
-__device__ __forceinline__ void issue_dq(float (&dq)[D / 2],
-                                         const uint32_t (&ds)[kBlockN / 16][4],
-                                         const __nv_bfloat16* Kt) {
+__device__ __forceinline__ void issue_dq(
+    float (&dq)[D / 2], const uint32_t (&ds)[Dq<D>::kBlockN / 16][4],
+    const __nv_bfloat16* Kt) {
+  constexpr int kBlockN = Dq<D>::kBlockN;
   const uint64_t k_desc = make_desc(Kt, 128, kBlockN * 16);
 #pragma unroll
   for (int kk = 0; kk < kBlockN / 16; ++kk) {
@@ -106,6 +116,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap omap,
                     const DqArgs a) {
   using T = Dq<D>;
+  constexpr int kBlockN = T::kBlockN;
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* dOs = Qs + T::kQElems;
@@ -213,7 +224,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       if (tg == 0 && row < a.Sq) a.delta[row_base + row] = acc;
     }
 
-    float s[kBlockN / 2];          // S tile: 16 column tiles x 4
+    float s[kBlockN / 2];          // S tile: kBlockN / 8 column tiles x 4
     float dp[kBlockN / 2];         // dP, then dS (f32)
     float dq[D / 2];               // dQ: D / 8 column tiles x 4
     uint32_t ds[kBlockN / 16][4];  // dS (bf16) as A fragments, per k16 step
@@ -318,7 +329,8 @@ int launch(const CUtensorMap (&maps)[5], const DqArgs& a, int B,
 
 // q, o, dout [B, Sq, H, D], k/v [B, Sk, H, D]: bf16, strides in elements,
 // last dim contiguous, strides multiples of 8 and bases 16-byte aligned
-// (TMA); lse f32 [B, H, Sq] contiguous; D 64 or 72. Writes bf16 dq
+// (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96 or 128 (the
+// wrapper zero-pads any other D up to the next). Writes bf16 dq
 // [B, Sq, H, D] (contiguous) and delta, f32 [B, H, Sq] (contiguous); dk,
 // dv are unused (the signature is that of every backward entry). Returns
 // the CUDA error code of the tensor map encoding or of the launch (0 on
@@ -333,18 +345,20 @@ extern "C" int topiaxl_flash_attn_bwd_dq(
     long long doss, long long dosh, float scale, void* stream) {
   (void)dk;
   (void)dv;
-  if (D != 64 && D != 72) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // q, k, v, dout, o (bf16 chunks)
   CUtensorMap maps[5];
   int err = encode_bshd(&maps[0], q, false, B, Sq, H, D, qsb, qss, qsh, 8,
                         kBlockM);
   if (err == 0) {
     err = encode_bshd(&maps[1], k, false, B, Sk, H, D, ksb, kss, ksh, 8,
-                      kBlockN);
+                      dq_block_n(D));
   }
   if (err == 0) {
     err = encode_bshd(&maps[2], v, false, B, Sk, H, D, vsb, vss, vsh, 8,
-                      kBlockN);
+                      dq_block_n(D));
   }
   if (err == 0) {
     err = encode_bshd(&maps[3], dout, false, B, Sq, H, D, dosb, doss, dosh,
@@ -365,6 +379,11 @@ extern "C" int topiaxl_flash_attn_bwd_dq(
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 72) return launch<72>(maps, a, B, st);
-  return launch<64>(maps, a, B, st);
+  switch (D) {
+    case 64: return launch<64>(maps, a, B, st);
+    case 72: return launch<72>(maps, a, B, st);
+    case 80: return launch<80>(maps, a, B, st);
+    case 96: return launch<96>(maps, a, B, st);
+    default: return launch<128>(maps, a, B, st);
+  }
 }

@@ -54,6 +54,11 @@
 //     staging tile in shared memory, in place of an atomic per element.
 //     The order of the additions varies from run to run, so the single
 //     pass's dq rounding does too (the dk/dv pass is deterministic);
+//   * one instance per head dim 64, 72, 80, 96 and 128; above 72 the dk/dv
+//     pass keeps K and V in shared memory and waits for each tile's
+//     products before the next (kKvRegs false: dK and dV alone take D
+//     registers a thread), the single pass splits dQ's columns in halves,
+//     and at 128 its consumers take 240 registers and the producer 24;
 //   * tiles use the no-swizzle core-matrix layout of sm90.cuh, so head
 //     dim 72 needs no swizzle span; the contraction over D runs to 80,
 //     with the 10th chunk of K, V, Q and dO zeroed once and never loaded;
@@ -78,13 +83,25 @@ constexpr int kStatThreads = 64;   // producer threads writing lse, delta
 constexpr float kLog2e = 1.4426950408889634f;
 
 // dQ columns of warpgroup 0 in the single pass; warpgroup 1 takes the rest
+// (each a multiple of 8, a wgmma width)
 __host__ __device__ constexpr int dq_cols0(int D) {
-  return D == 72 ? 40 : 32;
+  return D == 72 ? 40 : D / 2;
 }
 
 template <int D, bool kWithDq>
 struct Bwd {
   static constexpr int kStages = kWithDq ? 2 : 4;   // Q / dO ring depth
+  // the dk/dv pass holds K and V as A fragments and overlaps q tiles up to
+  // head dim 72; above, dK and dV alone take D registers a thread and that
+  // form spills (32 bytes at 80), so it reads K and V from shared memory
+  // and runs the single pass's loop
+  static constexpr bool kKvRegs = !kWithDq && D <= 72;
+  // registers a thread, producer warpgroup and consumers (setmaxnreg): the
+  // single pass's producer computes delta from o and dO, with 56 up to head
+  // dim 96; at 128 its consumers need all 240 (224 spilled 20 bytes) and
+  // the producer takes 24, as in the dk/dv pass
+  static constexpr int kProducerRegs = kWithDq && D <= 96 ? 56 : 24;
+  static constexpr int kConsumerRegs = kWithDq && D <= 96 ? 224 : 240;
   static constexpr int kChunks = D / 8;
   static constexpr int kSteps = (D + 15) / 16;    // k16 steps over D
   static constexpr int kChunksP = 2 * kSteps;
@@ -315,7 +332,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
 
   const int wg = tid / 128;
   if (wg == 2) {
-    setmaxnreg_dec<kWithDq ? 56 : 24>();
+    setmaxnreg_dec<T::kProducerRegs>();
     const int t = tid - 256;
     if (t == 0) {
       // TMA: K and V once, then Q, dO (and o) per q tile
@@ -377,7 +394,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     }
   } else {
     // consumer warpgroup wg: keys [n0 + 64 wg, n0 + 64 wg + 64)
-    setmaxnreg_inc<kWithDq ? 224 : 240>();
+    setmaxnreg_inc<T::kConsumerRegs>();
     const int warp = (tid & 127) >> 5;
     const int lane = tid & 31;
     const int g = lane >> 2;
@@ -390,7 +407,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     mbar_wait(kv_full, 0);
-    if constexpr (kWithDq) {
+    if constexpr (!T::kKvRegs) {
       // K, V: K-major A, this warpgroup's 64 rows; chunk stride along D
       const uint64_t k_desc = make_desc(Ks + wg * 64 * 8, kBlockN * 16, 128);
       const uint64_t v_desc = make_desc(Vs + wg * 64 * 8, kBlockN * 16, 128);
@@ -418,29 +435,37 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
         issue_dv_dk<D>(dk, dv, pa, da, Qt, dOt);
         wgmma_commit();
 
-        // dS^T (bf16) into shared memory, chunked by q: both warpgroups
-        // are done with the previous tile's dQ products first, and both
-        // have written before either reads
-        named_sync(1, 256);
+        if constexpr (kWithDq) {
+          // dS^T (bf16) into shared memory, chunked by q: both warpgroups
+          // are done with the previous tile's dQ products first, and both
+          // have written before either reads
+          named_sync(1, 256);
 #pragma unroll
-        for (int nt = 0; nt < kBlockM / 8; ++nt) {
-          __nv_bfloat16* dst = dSs + nt * kBlockN * 8 + kr * 8 + tg * 2;
-          *reinterpret_cast<uint32_t*>(dst) = da[nt >> 1][(nt & 1) * 2];
-          *reinterpret_cast<uint32_t*>(dst + 64) =
-              da[nt >> 1][(nt & 1) * 2 + 1];
-        }
-        fence_proxy_async();
-        named_sync(1, 256);
+          for (int nt = 0; nt < kBlockM / 8; ++nt) {
+            __nv_bfloat16* dst = dSs + nt * kBlockN * 8 + kr * 8 + tg * 2;
+            *reinterpret_cast<uint32_t*>(dst) = da[nt >> 1][(nt & 1) * 2];
+            *reinterpret_cast<uint32_t*>(dst + 64) =
+                da[nt >> 1][(nt & 1) * 2 + 1];
+          }
+          fence_proxy_async();
+          named_sync(1, 256);
 
-        // dQ of this q tile; the wait inside also completes dV and dK, so
-        // the stage is released there
-        if (wg == 0) {
-          dq_part<dq_cols0(D), 0>(dSs, Ks, dq_s, &dq0_map, a.scale, b, h,
-                              i * kBlockM, wg, warp, lane, &q_empty[st]);
+          // dQ of this q tile; the wait inside also completes dV and dK,
+          // so the stage is released there
+          if (wg == 0) {
+            dq_part<dq_cols0(D), 0>(dSs, Ks, dq_s, &dq0_map, a.scale, b, h,
+                                    i * kBlockM, wg, warp, lane,
+                                    &q_empty[st]);
+          } else {
+            dq_part<D - dq_cols0(D), dq_cols0(D)>(
+                dSs, Ks, dq_s + kBlockM * dq_cols0(D), &dq1_map, a.scale, b,
+                h, i * kBlockM, wg, warp, lane, &q_empty[st]);
+          }
         } else {
-          dq_part<D - dq_cols0(D), dq_cols0(D)>(
-              dSs, Ks, dq_s + kBlockM * dq_cols0(D), &dq1_map, a.scale, b, h,
-              i * kBlockM, wg, warp, lane, &q_empty[st]);
+          // the dk/dv pass above head dim 72: dV and dK of this tile are
+          // done with its stage
+          wgmma_wait<0>();
+          if (lane == 0) mbar_arrive(&q_empty[st]);
         }
         fence_regs(dk);
         fence_regs(dv);
@@ -449,7 +474,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
       }
       // the last reduce-adds are done before the block (and its shared
       // memory) goes
-      if ((tid & 127) == 0) bulk_wait<0, false>();
+      if (kWithDq && (tid & 127) == 0) bulk_wait<0, false>();
     } else {
       // S^T and dP^T of q tile i + 1 go with dV and dK of tile i; one
       // wait per tile completes both, then tile i's stage is released.
@@ -546,6 +571,24 @@ int launch(const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the head dims with an instance (the wrapper zero-pads any other D up to
+// the next one: ops/flash_attention.py:kernel_head_dim)
+bool head_dim_ok(int D) {
+  return D == 64 || D == 72 || D == 80 || D == 96 || D == 128;
+}
+
+template <bool kWithDq>
+int launch_d(int D, const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
+             cudaStream_t st) {
+  switch (D) {
+    case 64: return launch<64, kWithDq>(maps, a, B, st);
+    case 72: return launch<72, kWithDq>(maps, a, B, st);
+    case 80: return launch<80, kWithDq>(maps, a, B, st);
+    case 96: return launch<96, kWithDq>(maps, a, B, st);
+    default: return launch<128, kWithDq>(maps, a, B, st);
+  }
+}
+
 // the tensor maps of k, v, q and dout (bf16 chunks), then, with o, those
 // of o and of dq's two column blocks (f32); the maps a variant does not
 // read are copies of the first
@@ -593,7 +636,8 @@ int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
 
 // q, o, dout [B, Sq, H, D], k/v [B, Sk, H, D]: bf16, strides in elements,
 // last dim contiguous, strides multiples of 8 and bases 16-byte aligned
-// (TMA); lse f32 [B, H, Sq] contiguous; D 64 or 72. Both write bf16 dk, dv
+// (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96 or 128. Both
+// write bf16 dk, dv
 // [B, Sk, H, D] (contiguous). flash_attn_bwd adds dq into a zeroed f32
 // [B, Sq, H, D] buffer (delta unused); flash_attn_bwd_dkv reads delta,
 // f32 [B, H, Sq] contiguous, as the dq pass wrote it (o and dq unused).
@@ -608,7 +652,7 @@ extern "C" int topiaxl_flash_attn_bwd(
     long long osb, long long oss, long long osh, long long dosb,
     long long doss, long long dosh, float scale, void* stream) {
   (void)delta;
-  if (D != 64 && D != 72) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[7];
   const int err = encode_maps(maps, q, k, v, o, dout, dq, B, H, Sq, Sk, D,
                               qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
@@ -625,8 +669,7 @@ extern "C" int topiaxl_flash_attn_bwd(
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 72) return launch<72, true>(maps, a, B, st);
-  return launch<64, true>(maps, a, B, st);
+  return launch_d<true>(D, maps, a, B, st);
 }
 
 extern "C" int topiaxl_flash_attn_bwd_dkv(
@@ -639,7 +682,7 @@ extern "C" int topiaxl_flash_attn_bwd_dkv(
     long long doss, long long dosh, float scale, void* stream) {
   (void)o;
   (void)dq;
-  if (D != 64 && D != 72) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[7];
   const int err = encode_maps(maps, q, k, v, nullptr, dout, nullptr, B, H,
                               Sq, Sk, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
@@ -656,6 +699,5 @@ extern "C" int topiaxl_flash_attn_bwd_dkv(
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 72) return launch<72, false>(maps, a, B, st);
-  return launch<64, false>(maps, a, B, st);
+  return launch_d<false>(D, maps, a, B, st);
 }

@@ -36,6 +36,10 @@
 //     layout (sm90.cuh), loaded by TMA one 8-column chunk at a time, so
 //     head dim 72 (9 chunks) needs no swizzle span; Q K^T contracts over
 //     80, with the 10th chunk of Q and K zeroed once and never loaded;
+//   * one instance per head dim 64, 72, 80, 96 and 128 (P V on wgmma
+//     m64nDk16); at 128 the S, O and P registers (64 + 64 + 32 a thread)
+//     still fit the consumers' 240, and shared memory holds Q and two
+//     K/V stages in 160 KiB;
 //   * the [B, S, H, D] strides go into the tensor maps (encoded on the
 //     host per launch), so the DiT's qkv.unbind(2) views are read
 //     without a copy; rows past Sq or Sk arrive as zeros from TMA and
@@ -305,7 +309,9 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 
 // q [B, Sq, H, D], k/v [B, Sk, H, D], o [B, Sq, H, D]: bf16, strides in
 // elements, last dim contiguous, every stride a multiple of 8 and the
-// bases 16-byte aligned (TMA). D must be 64 or 72. lse is null or an f32
+// bases 16-byte aligned (TMA). D must be one of the instances, 64, 72,
+// 80, 96 or 128 (the wrapper zero-pads any other D up to the next one:
+// ops/flash_attention.py:kernel_head_dim). lse is null or an f32
 // [B, H, Sq] contiguous buffer. Returns the CUDA error code of the tensor
 // map encoding or of the launch (0 on success).
 extern "C" int topiaxl_flash_attn_fwd(
@@ -315,7 +321,9 @@ extern "C" int topiaxl_flash_attn_fwd(
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
     long long osh, float scale, void* stream) {
-  if (D != 64 && D != 72) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap qm, km, vm;
   int err = encode_bshd(&qm, q, false, B, Sq, H, D, qsb, qss, qsh, 8, kBlockM);
   if (err == 0) {
@@ -329,10 +337,21 @@ extern "C" int topiaxl_flash_attn_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
-  if (D == 72) {
-    return launch<72>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
-                      scale_log2, st);
+  switch (D) {
+    case 64:
+      return launch<64>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+                        scale_log2, st);
+    case 72:
+      return launch<72>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+                        scale_log2, st);
+    case 80:
+      return launch<80>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+                        scale_log2, st);
+    case 96:
+      return launch<96>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+                        scale_log2, st);
+    default:
+      return launch<128>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+                         scale_log2, st);
   }
-  return launch<64>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
-                    scale_log2, st);
 }

@@ -4,8 +4,9 @@ Counterpart of ``topiaxl/ops/attention.py``. The dispatch is a shape
 rule, as in the JAX package: the flash kernel when the key sequence is
 long enough for the logits to matter (``Sk >= 512``) and the head is
 wide enough (``D >= 64``): the DiT's self- and cross-attention and
-DINOv2's. Otherwise (the VAE's 64-voxel volume attention) the einsum
-form, which never used a kernel on the TPU either.
+DINOv2's, at any head dim the kernels take (up to 128). Otherwise (the
+VAE's 64-voxel volume attention) the einsum form, which never used a
+kernel on the TPU either.
 
 ``backend="ring"`` runs ``ops/ring_attention.ring_attention`` over the
 ranks of ``group``: the tokens are sharded over them (context
@@ -20,11 +21,16 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (flash_attention, flash_attention_plain,
+                              kernel_head_dim)
 
 
 def use_flash(sk: int, head_dim: int) -> bool:
-    return sk >= 512 and head_dim >= 64
+    """The JAX package's rule (``Sk >= 512`` and ``D >= 64``), restricted to
+    the head dims the kernel launchers take (up to 128, zero-padded to an
+    instance: ``flash_attention.kernel_head_dim``); a wider head takes the
+    einsum form, as a narrower one does."""
+    return sk >= 512 and head_dim >= 64 and kernel_head_dim(head_dim) is not None
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

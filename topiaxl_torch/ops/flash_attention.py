@@ -39,6 +39,14 @@ Which backward runs is a shape rule, as in the JAX package
 (``_select_fused_chunk``): the single-pass kernel when the whole KV is
 one block of at most ``FUSED_BWD_MAX_KEYS`` keys (the DiT's self- and
 cross-attention), the two-pass dq + dk/dv pair otherwise.
+
+Head dims: each kernel has an instance for every D in ``HEAD_DIMS``. The
+launchers take any D from 1 to 128: they zero-pad q, k, v (and o, dO)
+in D up to the next instance (``kernel_head_dim``), launch, and slice o,
+dq, dk and dv back to D, as the JAX wrapper pads D (``_fold``). The
+padded columns add zero to every logit and every row sum, so o, lse and
+the gradients are those of the unpadded call; the scale is always the
+caller's, never recomputed from the padded D. A D above 128 raises.
 """
 
 from __future__ import annotations
@@ -47,12 +55,32 @@ import torch
 
 from . import _cuda
 
-HEAD_DIMS = (64, 72)
+# the head dims each kernel is built for (csrc/flash_attn_*.cu)
+HEAD_DIMS = (64, 72, 80, 96, 128)
 # keys per K/V tile of every flash kernel (kBlockN: the forward, the dq
 # pass, and the KV block of the single pass and the dk/dv pass), which
 # the planted unmasked-padding faults pad Sk to
 KEY_TILE = 128
 FUSED_BWD_MAX_KEYS = 2048
+
+
+def kernel_head_dim(d: int) -> int | None:
+    """The instance a head dim ``d`` runs on: the smallest of ``HEAD_DIMS``
+    at or above it (the launchers zero-pad up to it), None above 128."""
+    return next((inst for inst in HEAD_DIMS if d <= inst), None)
+
+
+def _instance(d: int) -> int:
+    inst = kernel_head_dim(d)
+    if inst is None:
+        raise ValueError(f"flash_attention kernel: head_dim {d} is above "
+                         f"{HEAD_DIMS[-1]}, the widest instance of {HEAD_DIMS}")
+    return inst
+
+
+def _pad_d(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` [..., D] zero-padded to [..., d] (contiguous)."""
+    return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
 
 
 def bwd_form(sk: int) -> str:
@@ -187,6 +215,14 @@ def _forward(q, k, v, scale, return_lse):
         return flash_attention_plain(q, k, v, scale), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    D, inst = q.shape[-1], _instance(q.shape[-1])
+    if inst != D:
+        if not k.shape[-1] == v.shape[-1] == D:
+            raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                             f"{tuple(v.shape)} disagree in head_dim")
+        o, lse = _forward(*(_pad_d(t, inst) for t in (q, k, v)), scale,
+                          return_lse)
+        return o[..., :D].contiguous(), lse
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -226,6 +262,17 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    D, inst = q.shape[-1], _instance(q.shape[-1])
+    if inst != D:
+        if not (k.shape[-1] == v.shape[-1] == D
+                and o.shape == do.shape == q.shape):
+            raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                             f"{tuple(v.shape)}, o {tuple(o.shape)} and do "
+                             f"{tuple(do.shape)} disagree")
+        grads = flash_attention_backward(
+            *(_pad_d(t, inst) for t in (q, k, v, o)), lse, _pad_d(do, inst),
+            scale)
+        return tuple(g[..., :D].contiguous() for g in grads)
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
@@ -294,11 +341,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D], differentiable.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bf16, head_dim 64 or 72, any strides with a contiguous last dim) or
-    raise. Under autograd with an input that needs a gradient the forward
-    (the op ``flash_fwd``) also writes the lse and the backward runs the
-    backward kernels; without one the kernel is launched directly, without
-    the op's dispatch."""
+    (bf16, any head_dim up to 128, zero-padded to an instance; any strides
+    with a contiguous last dim) or raise. Under autograd with an input that
+    needs a gradient the forward (the op ``flash_fwd``) also writes the lse
+    and the backward runs the backward kernels; without one the kernel is
+    launched directly, without the op's dispatch."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale)
