@@ -132,13 +132,23 @@ the script exits non-zero without a result line):
     flash parity passed; its last line and seconds printed.
 
 After the kernels phase, flash_head_dims runs the flash forward (#1), the
-single-pass backward (#4) and the pair (#5, #6) at head dims 80, 96 and
-128 (their own instances) and 36 and 88 (zero-padded by the launchers to
-64 and 96) on the flagship's 2 x 2048 x {2048, 1370} x 16, each against
+single-pass backward (#4) and the pair (#5, #6) at head dims 80, 96, 128
+and 256 (their own instances) and 36, 88, 160 and 200 (zero-padded by the
+launchers to 64, 96 and 256) on the flagship's 2 x 2048 x {2048, 1370} x
+16, the head dims above 128 also at 2 x 4096 x 4096 x 16, each against
 its plain version at the kernels phase's bars, with a scale computed from
 the padded head dim as a planted fault, ms beside the bound and SDPA's;
 and the ring over two blocks at head dims 36 and 80. Its rows go into
 each kernel's entry of the kernels line under ``head_dims``.
+
+After serving_samplers, chain_graph holds ``sample_tokens``' CUDA graph
+(``pipelines/chain_graph.py``) against the eager chain at the flagship
+width, bf16 and W8A8, for ddim, dpm and ancestral (a CUDA generator): bit
+for bit at the first call, at a replay and for a second asset, a planted
+fault (y not copied in) above the bar, exact launches, the capture's
+seconds, wall ms graphed and eager and the idle shares. Every serving
+phase, serve_assets, app and bench print the captures and replays their
+chains made (the CLI: one capture a run, a replay for each later image).
 
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
@@ -179,6 +189,7 @@ the JAX package (``topiaxl``).
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import shutil
@@ -521,7 +532,8 @@ def ptxas_summary(build_log: str) -> list[str]:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
-                          "flash_bwd_dq_kernel", "ln_modulate_kernel",
+                          "flash_bwd_wide_kernel", "flash_bwd_dq_kernel",
+                          "ln_modulate_kernel",
                           "mma_probe_kernel", "reduce_splits_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
@@ -884,10 +896,13 @@ def phase_kernels() -> dict:
     return results
 
 
-# flash_head_dims: the head dims of the instances past 72 and two that the
-# launchers zero-pad (36 -> 64, 88 -> 96), at the flagship token counts
-HEAD_DIM_CASES = (80, 96, 128, 36, 88)
+# flash_head_dims: the head dims of the instances past 72 and four that the
+# launchers zero-pad (36 -> 64, 88 -> 96, 160 and 200 -> 256), at the
+# flagship token counts; the wide heads also at 4096 tokens, where the
+# shape rule takes the pair
+HEAD_DIM_CASES = (80, 96, 128, 36, 88, 256, 160, 200)
 HEAD_DIM_SHAPES = (("self", 2, 2048, 2048, 16), ("cross", 2, 2048, 1370, 16))
+HEAD_DIM_LONG = ("long", 2, 4096, 4096, 16)
 
 
 def padded_bwd_launch(form: str, q, k, v, o, lse, do, scale: float):
@@ -949,8 +964,9 @@ def phase_flash_head_dims() -> dict:
             "flash_attn_bwd_dq": [], "flash_attn_bwd_dkv": []}
     for D in HEAD_DIM_CASES:
         inst = fa.kernel_head_dim(D)
-        for tag, B, Sq, Sk, H in HEAD_DIM_SHAPES:
-            scale = D ** -0.5 if tag == "self" else 1.0 / D
+        shapes = HEAD_DIM_SHAPES + ((HEAD_DIM_LONG,) if D > 128 else ())
+        for tag, B, Sq, Sk, H in shapes:
+            scale = 1.0 / D if tag == "cross" else D ** -0.5
             if tag == "self":
                 q, k, v = randn(B, Sq, 3, H, D).unbind(2)
             else:
@@ -1326,6 +1342,7 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
 
     from topiaxl_torch.cli.infer import main
     from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.pipelines import chain_graph
 
     class PerImage(list):
         """Snapshots the launch counters as each image finishes."""
@@ -1335,11 +1352,17 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
 
     recs = PerImage()
     root = os.path.join(tmp, f"runs_{tag}")
+    stats0 = dict(chain_graph.stats)
     _cuda.reset_launch_counts()
     rc = main([FLAGSHIP, "inference.export_glb=false",
                f"inference.input_dir={write_images(tmp, images)}",
                f"root_data_dir={root}", *overrides], timings_out=recs)
     total = dict(_cuda.launches)
+    made = {k: chain_graph.stats[k] - stats0[k] for k in stats0}
+    log(f"  [{tag}] chain graphs: {made['captures']} captured, "
+        f"{made['replays']} replayed")
+    if made != {"captures": 1, "replays": images - 1}:
+        raise AssertionError(f"{tag}: chain graphs {made}")
     if rc != 0 or len(recs) != images:
         raise AssertionError(f"cli main ({tag}) returned {rc} with "
                              f"{len(recs)} images")
@@ -1405,6 +1428,169 @@ def phase_serving_samplers(tmp: str) -> None:
             ("dpm", 12, ["inference.sampler=dpm", "inference.ddim=12"]),
             ("ancestral", 25, ["inference.sampler=ancestral"])):
         run_cli(tmp, tag, 1, overrides, serving_launches(steps))
+
+
+# chain_graph: max |graph - eager| / max |eager| of the sampled tokens
+# (the same kernels on the same buffers: 0 expected); a graph whose call
+# skips the copy of y (a planted fault) replays the last asset's chain
+# and must land above it
+CHAIN_GRAPH_BAR = 1e-6
+CHAIN_GRAPH_CASES = (("ddim", 25), ("dpm", 12), ("ancestral", 25))
+
+
+def chain_launches(steps: int) -> dict:
+    """Launches of the chain alone (``sample_tokens``, no DINOv2)."""
+    return dict(serving_launches(steps),
+                flash_attn_fwd=serving_launches(steps)["flash_attn_fwd"] - 12)
+
+
+def phase_chain_graph() -> None:
+    """``sample_tokens`` as one CUDA graph (``pipelines/chain_graph.py``)
+    at the flagship width (28 blocks of 1152, 16 heads of 72, 2048 tokens,
+    1370 conditioning tokens, CFG 6; the zero-init layers filled), bf16 and
+    W8A8, for ``ddim`` (25 steps), ``dpm`` (12) and ``ancestral`` (25, a
+    CUDA generator): the first call (the eager warm-up, whose result it
+    returns, and the capture), the same asset replayed, a second asset
+    replayed, each against ``_sample_tokens_eager`` on the same inputs at
+    ``CHAIN_GRAPH_BAR``; the two calls of the first asset must give the
+    same bits; the planted fault (y not copied in) must land above the
+    bar; every call's launches exact. Prints the capture's seconds, the
+    memory the key's graph holds (``memory_reserved`` after
+    ``empty_cache``, beside the reading before its first call), wall
+    ms a chain graphed and eager, the kernels' device ms of a replay (the
+    profiler's kernel sum, ``cli/profile.py:profile_region``) and the idle
+    shares it gives (1 - device / wall; the eager chain runs the same
+    kernels, which bf16 ``ddim`` shows by profiling it too)."""
+    import torch
+
+    from topiaxl_torch.cli.profile import profile_region
+    from topiaxl_torch.diffusion import create_diffusion
+    from topiaxl_torch.models.dit import DiT, quantize_dit_state_dict
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.pipelines import chain_graph as CG
+    from topiaxl_torch.pipelines import infer as P
+
+    card_id = card_line()
+    dev = torch.device("cuda")
+    kw = dict(seq_length=2048, in_channels=68, condition_channels=768,
+              hidden_size=1152, depth=28, num_heads=16)
+    dit = enliven_(DiT(device=dev, generator=torch.Generator(dev).manual_seed(
+        21), **kw).eval(), 22)
+    qdit = DiT(device=dev, quant=True, **kw).eval()
+    qdit.load_state_dict(quantize_dit_state_dict(qdit, dit.state_dict()))
+    g = torch.Generator(dev).manual_seed(23)
+    ys = [torch.randn((1, 1370, 768), generator=g, device=dev)
+          for _ in range(2)]
+    noise = torch.randn((1, 2048, 68), generator=g, device=dev)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    for tag, model in (("bf16", dit), ("W8A8", qdit)):
+        for sampler, steps in CHAIN_GRAPH_CASES:
+            diffusion = create_diffusion(
+                timestep_respacing=f"ddim{steps}",
+                noise_schedule="squaredcos_cap_v2", parameterization="v",
+                diffusion_steps=1000, device=dev)
+            want = chain_launches(steps)
+
+            def graphed(y, seed=24):
+                return P.sample_tokens(
+                    model, diffusion, y, 6.0, noise=noise,
+                    generator=torch.Generator(dev).manual_seed(seed),
+                    sampler=sampler).sample
+
+            def eager(y, seed=24):
+                return P._sample_tokens_eager(
+                    model, diffusion, y, 6.0, noise=noise,
+                    generator=torch.Generator(dev).manual_seed(seed),
+                    sampler=sampler).sample
+
+            CG.forget(model)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            stats0 = dict(CG.stats)
+            runs = []
+            for y in (ys[0], ys[0], ys[1]):
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = graphed(y)
+                torch.cuda.synchronize()
+                runs.append((out, time.perf_counter() - t0,
+                             dict(_cuda.launches)))
+            chain = CG.graph_for(model, diffusion, ys[0], noise, 6.0, sampler)
+            # what the key's graph holds: its pool, buffers and outputs
+            gc.collect()
+            torch.cuda.empty_cache()
+            held_mib = (torch.cuda.memory_reserved() - reserved0) / 2**20
+            refs = [eager(ys[0]), eager(ys[1])]
+            errs = [rel(runs[0][0], refs[0]), rel(runs[1][0], refs[0]),
+                    rel(runs[2][0], refs[1])]
+            same = torch.equal(runs[0][0], runs[1][0])
+            # the planted fault: every input of the first asset loaded but
+            # y, which keeps the second asset's (the last call's)
+            with chain.lock, torch.inference_mode():
+                chain.noise.copy_(noise)
+                if chain.generator is not None:
+                    chain.generator.set_state(
+                        torch.Generator(dev).manual_seed(24).get_state())
+                fault = chain.replay().sample
+            fault_err = rel(fault, refs[0])
+            graph_ms = timed(lambda: graphed(ys[0]), 2)
+            eager_ms = timed(lambda: eager(ys[0]), 1)
+            # the kernels' own device time (the profiler's kernel sum) of a
+            # replay; the eager chain runs the same kernels (profiled too
+            # for bf16 ddim, where its trace is cheapest)
+            device_ms = profile_region(f"chain {tag} {sampler} graphed",
+                                       lambda: graphed(ys[0]), 1,
+                                       top=3)["device_ms"]
+            prof = ""
+            if (tag, sampler) == ("bf16", "ddim"):
+                pr = profile_region(f"chain {tag} {sampler} eager",
+                                    lambda: eager(ys[0]), 1, top=3)
+                prof = (f"; the eager chain's own: device ms "
+                        f"{pr['device_ms']:.3f} (idle {pr['idle_share']:.3f})")
+            made = {k: CG.stats[k] - stats0[k] for k in stats0}
+            log(f"  chain_graph {tag} {sampler} {steps} steps: graph vs eager "
+                f"max rel err first call {errs[0]:.3e}, replay {errs[1]:.3e}, "
+                f"second asset {errs[2]:.3e} (bar {CHAIN_GRAPH_BAR}); replay "
+                f"of the same asset same bits: {same}; y-not-copied fault "
+                f"{fault_err:.3e}; first call {runs[0][1]:.3f} s (capture "
+                f"{chain.capture_s:.3f} s; the graph holds {held_mib:.1f} MiB "
+                f"reserved after empty_cache), replays {runs[1][1]:.3f} / "
+                f"{runs[2][1]:.3f} s; wall ms a chain graphed {graph_ms:.3f}, "
+                f"eager {eager_ms:.3f} ({eager_ms / graph_ms:.2f}x); device "
+                f"ms {device_ms:.3f} (profiler), idle share graphed "
+                f"{1 - device_ms / graph_ms:.3f}, eager "
+                f"{1 - device_ms / eager_ms:.3f}{prof}; launches per call "
+                f"{ {k: v for k, v in runs[1][2].items() if v} }; captures "
+                f"{made['captures']}, replays {made['replays']} ({card_id})")
+            if max(errs) > CHAIN_GRAPH_BAR or not same:
+                raise AssertionError(f"chain_graph {tag} {sampler}: {errs}, "
+                                     f"same bits {same}")
+            if not fault_err > CHAIN_GRAPH_BAR:
+                raise AssertionError(f"chain_graph {tag} {sampler}: the bar "
+                                     f"cannot see a stale y ({fault_err})")
+            for n, (_, _, counts) in enumerate(runs):
+                if counts != want:
+                    raise AssertionError(f"chain_graph {tag} {sampler} call "
+                                         f"{n}: launches {counts} != {want}")
+            if made["captures"] != 1:
+                raise AssertionError(f"chain_graph {tag} {sampler}: "
+                                     f"{made['captures']} captures")
+            CG.forget(model)
+            # the last key's graph goes before the next key's reading
+            del chain, refs, runs, fault
+            torch.cuda.empty_cache()
 
 
 def check_sphere_glb(glb: str) -> str:
@@ -1685,6 +1871,7 @@ def phase_serve_assets(tmp: str) -> None:
     from topiaxl_torch.diffusion import create_diffusion
     from topiaxl_torch.models.latent_stats import resolve_latent_stats
     from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.pipelines import chain_graph
     from topiaxl_torch.pipelines import infer as P
     from topiaxl_torch.pipelines.synthetic import sphere_asset
 
@@ -1762,6 +1949,7 @@ def phase_serve_assets(tmp: str) -> None:
         for way, batch in (("serial", None), ("pipelined", 1), ("batched", 2)):
             dirs = [os.path.join(tmp, "serve", way, f"a{i}") for i in range(4)]
             gen = torch.Generator(dev).manual_seed(5)
+            stats0 = dict(chain_graph.stats)
             chains.clear()
             spans.clear()
             torch.cuda.synchronize()
@@ -1782,8 +1970,11 @@ def phase_serve_assets(tmp: str) -> None:
             sec = time.perf_counter() - t0
             rates[way] = 4 / sec * 60
             summary = [check_sphere_glb(g) for g in glbs]
+            made = {k: chain_graph.stats[k] - stats0[k] for k in stats0}
             log(f"  {way}: 4 assets in {sec:.3f} s = {rates[way]:.3f} assets/min"
-                f" ({len(chains)} chains); GLB 0: {summary[0]}\n{timeline()}")
+                f" ({len(chains)} chains; chain graphs {made['captures']} "
+                f"captured, {made['replays']} replayed); GLB 0: {summary[0]}"
+                f"\n{timeline()}")
             if len(chains) != (4 if batch is None else -(-4 // batch)):
                 raise AssertionError(f"{way}: {len(chains)} chains")
             for n, got in enumerate(chains):
@@ -3591,8 +3782,11 @@ def phase_app(tmp: str) -> None:
     from topiaxl_torch.extract.glb import read_glb
     from topiaxl_torch.ops import _cuda
 
+    from topiaxl_torch.pipelines import chain_graph
+
     img_dir = write_images(os.path.join(tmp, "app_img"), 1)
     image = os.path.join(img_dir, sorted(os.listdir(img_dir))[0])
+    stats0 = dict(chain_graph.stats)
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
     app = App(FLAGSHIP, workdir=os.path.join(tmp, "app"))
@@ -3602,7 +3796,9 @@ def phase_app(tmp: str) -> None:
     log(f"  App: models built in {built:.1f} s, preprocess + generate + "
         f"export in {time.perf_counter() - t0 - built:.1f} s; {glb} glTF "
         f"{gltf['asset']['version']}, {os.path.getsize(glb)} bytes; launches "
-        f"{ {k: v for k, v in _cuda.launches.items() if v} } ({card_line()})")
+        f"{ {k: v for k, v in _cuda.launches.items() if v} }; chain graphs "
+        f"{ {k: chain_graph.stats[k] - stats0[k] for k in stats0} } "
+        f"({card_line()})")
     if gltf["asset"]["version"] != "2.0" or dict(_cuda.launches) != {
             k: EXPECTED_LAUNCHES.get(k, 0) for k in _cuda.launches}:
         raise AssertionError(f"app: {gltf['asset']}, {_cuda.launches}")
@@ -3693,6 +3889,8 @@ def main() -> int:
             phase_serving_pos_emb(tmp)
         with Phase("serving_samplers"):
             phase_serving_samplers(tmp)
+        with Phase("chain_graph"):
+            phase_chain_graph()
         with Phase("stage2"):
             phase_stage2(tmp)
         with Phase("render"):

@@ -1,15 +1,21 @@
 """The flash launchers' head dims on the CPU: the shape rule sends a head
-to the kernels only where a launcher takes it, the zero-padding of the
-head dim that the launchers do on the card leaves every output of the
-plain versions as it was (the identities they rely on), and a DiT with
-80-wide heads, whose attention takes the flash route, matches JAX's.
+to the kernels exactly where JAX's rule sends it to its Pallas kernel
+(``Sk >= 512`` and ``D >= 64``) up to the widest instance, 256; the
+zero-padding of the head dim that the launchers do on the card leaves
+every output of the plain versions as it was (the identities they rely
+on); at head dims 160, 200 and 256 the plain forward and its gradients
+match JAX's flash attention and its custom VJP (the Pallas kernels in
+interpret mode); and a DiT with 80-wide heads, whose attention takes the
+flash route, matches JAX's.
 
 Bars: the padded plain forward's o and lse and the padded plain
 backward's dq, dk and dv, sliced back, within 1e-6 of the largest value
 of the unpadded ones (f32; the padding adds exact zeros, the summation
 order over D may change); a scale computed from the padded head dim (a
-planted fault) moves o by more than 1e-2 of it. The DiT's CFG step
-within 1e-4 of JAX's (``tests/test_torch_models.py``'s bar).
+planted fault) moves o by more than 1e-2 of it. Against JAX: o within
+1e-5 and the gradients within 5e-5 (``tests/test_torch_ops.py``'s bars).
+The DiT's CFG step within 1e-4 of JAX's (``tests/test_torch_models.py``'s
+bar).
 """
 
 import jax
@@ -41,11 +47,19 @@ def test_kernel_head_dim_is_the_next_instance():
 
 @pytest.mark.parametrize("sk", [512, 1370, 2048, 4096])
 def test_use_flash_sends_only_what_the_launcher_takes(sk):
-    for d in range(8, 257):
-        assert use_flash(sk, d) == (d >= 64 and d <= 128), d
+    """JAX's rule (``topiaxl/ops/attention.py``: ``Sk >= 512`` and ``D >=
+    64``) for every head dim up to 256; none above, where no launcher
+    takes the head."""
+    for d in range(8, 300):
+        assert use_flash(sk, d) == (d >= 64 and d <= 256), d
         if use_flash(sk, d):
             assert fa.kernel_head_dim(d) is not None
-    assert not use_flash(511, 80)
+    assert not use_flash(511, 80) and not use_flash(511, 256)
+
+
+def test_kernel_head_dim_takes_129_to_256_to_the_256_instance():
+    assert [fa.kernel_head_dim(d) for d in range(129, 257)] == [256] * 128
+    assert all(fa.kernel_head_dim(d) is None for d in range(257, 520))
 
 
 def _qkv(d, seed=0, sq=37, sk=53):
@@ -61,7 +75,7 @@ def _close(got, ref):
     assert err <= REL * ref.abs().max().item(), err
 
 
-@pytest.mark.parametrize("d", [16, 36, 88, 100, 120])
+@pytest.mark.parametrize("d", [16, 36, 88, 100, 120, 160, 200])
 def test_zero_padding_the_head_dim_changes_no_output(d):
     """What the launchers do on the card, on the plain versions: q, k, v,
     o and dO padded with zeros to the instance, the caller's scale, and
@@ -99,11 +113,41 @@ def test_zero_padding_the_head_dim_changes_no_output(d):
 
 def test_launchers_refuse_a_head_dim_above_128_on_a_card_only():
     """The CPU takes the plain version at any head dim; the launchers'
-    refusal is checked before anything reaches a card."""
-    q = torch.randn(1, 4, 1, 136)
+    refusal of a head above the widest instance (256 since the wide
+    instances) is checked before anything reaches a card, and names D."""
+    q = torch.randn(1, 4, 1, 264)
     assert fa.flash_attention(q, q, q, 0.1).shape == q.shape
-    with pytest.raises(ValueError, match="head_dim 136"):
-        fa._instance(136)
+    assert fa._instance(136) == 256
+    with pytest.raises(ValueError, match="head_dim 264"):
+        fa._instance(264)
+
+
+@pytest.mark.parametrize("d", [160, 200, 256])
+def test_wide_heads_plain_matches_jax_flash(d):
+    """The plain twin of the launchers at head dims 160 and 200 (padded to
+    256 on the card) and 256, forward and gradients, against JAX's
+    ``flash_attention`` and its custom VJP (the Pallas forward and
+    single-pass backward in interpret mode), 2 x 80 x 130 x 2 x D."""
+    import jax
+
+    from topiaxl.ops.flash_attention import flash_attention as jax_flash
+
+    rng = np.random.default_rng(40 + d)
+    q = rng.standard_normal((2, 80, 2, d)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 130, 2, d)).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal((2, 80, 2, d)).astype(np.float32)
+    scale = d ** -0.5
+    ref_out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, scale),
+                           *map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fa.flash_attention(*ts, scale)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               atol=1e-5, rtol=0)
+    for t, ref, name in zip(ts, vjp(jnp.asarray(g)), "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   atol=5e-5, rtol=0, err_msg=f"d{name}")
 
 
 def test_dit_with_80_wide_heads_matches_jax():

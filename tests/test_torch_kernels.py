@@ -22,8 +22,8 @@ exact, bf16 within 1e-3 of max|plain| (f32 sums in another order), with
 planted faults (coefficients +1, one product fewer, a pad of ones) above,
 also where several blocks share an output tile (their partial sums
 reduced in a fixed order, so two launches give the same bits).
-Every head dim up to 128 (80, 96 and 128 on their own instances, the
-others zero-padded by the launchers) at the same bars, with a scale
+Every head dim up to 256 (80, 96, 128 and 256 on their own instances,
+the others zero-padded by the launchers) at the same bars, with a scale
 computed from the padded head dim (a planted fault) above the forward's.
 Ring attention (``ops/ring_attention.py``) over P token blocks held in
 one process, against one forward and backward launch over the whole
@@ -161,10 +161,10 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
 
 
 @pytest.mark.parametrize("Sk", [700, 2100])      # single pass; the pair
-@pytest.mark.parametrize("D", [16, 36, 80, 88, 96, 120, 128])
+@pytest.mark.parametrize("D", [16, 36, 80, 88, 96, 120, 128, 160, 200, 256])
 def test_flash_head_dims_match_plain(dev, D, Sk):
-    """Every head dim up to 128: 80, 96 and 128 on their own instances, the
-    others zero-padded to the next one by the launchers, with the caller's
+    """Every head dim up to 256: 80, 96, 128 and 256 on their own instances,
+    the others zero-padded to the next one by the launchers, with the caller's
     scale; one launch of each kernel as at 72. A scale recomputed from the
     padded head dim (a planted fault) lands above the forward's bar."""
     from topiaxl_torch.ops.flash_attention import kernel_head_dim
@@ -200,7 +200,7 @@ def test_flash_head_dims_match_plain(dev, D, Sk):
         assert _rel_err(fault, o_ref) > ATTN_REL_BAR
 
 
-@pytest.mark.parametrize("D", [36, 80, 128])
+@pytest.mark.parametrize("D", [36, 80, 128, 200])
 def test_ring_takes_every_head_dim(dev, D):
     """The ring's per-block forward and backward launches take the head
     dims the launchers take: P = 2 blocks of 1100 keys against one launch."""
@@ -356,8 +356,8 @@ def test_flash_refuses_what_it_cannot_run(dev):
     q = _randn(dev, 1, 8, 2, 72)
     with pytest.raises(TypeError):
         flash_attention(q.float(), q.float(), q.float(), 0.1)
-    w = _randn(dev, 1, 8, 2, 136)    # above the widest instance, 128
-    with pytest.raises(ValueError, match="head_dim 136"):
+    w = _randn(dev, 1, 8, 2, 264)    # above the widest instance, 256
+    with pytest.raises(ValueError, match="head_dim 264"):
         flash_attention(w, w, w, 0.1)
     odd = _randn(dev, 1, 8, 2, 76)[..., :72]     # strides not multiples of 8
     with pytest.raises(ValueError, match="strides"):
@@ -384,6 +384,65 @@ def test_flash_refuses_what_tma_cannot_load(dev):
     with pytest.raises(ValueError, match="strides"):
         flash_attention_backward(good, good, good, odd, lse, good, 0.1)
     assert _cuda.launches == before
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "dpm", "ancestral"])
+def test_chain_graph_equals_the_eager_chain(dev, sampler):
+    """``sample_tokens`` on the card replays one CUDA graph
+    (``pipelines/chain_graph.py``): a bf16 DiT of 2 blocks of 288 (4 heads
+    of 72) at 512 tokens and 512 conditioning tokens, so that both
+    attentions launch the flash kernel, its zero-init layers filled. The
+    first call (warm-up and capture), a replay of the same asset and a
+    replay of a second asset each equal the eager chain bit for bit; the
+    launches of a replay are those of the eager chain; a call that skips
+    the copy of y (a planted fault) does not."""
+    from topiaxl_torch.diffusion import create_diffusion
+    from topiaxl_torch.models.dit import DiT
+    from topiaxl_torch.pipelines import chain_graph
+    from topiaxl_torch.pipelines import infer as P
+
+    g = torch.Generator(dev).manual_seed(70)
+    dit = DiT(seq_length=512, in_channels=68, condition_channels=32,
+              hidden_size=288, depth=2, num_heads=4, device=dev,
+              generator=g).eval()
+    with torch.no_grad():
+        for p in dit.parameters():
+            if not p.abs().max() > 0:
+                p.normal_(0.0, 0.05, generator=g)
+    diffusion = create_diffusion("ddim4", noise_schedule="squaredcos_cap_v2",
+                                 parameterization="v", device=dev)
+    ys = [torch.randn(1, 512, 32, generator=g, device=dev) for _ in range(2)]
+    noise = torch.randn(1, 512, 68, generator=g, device=dev)
+    gen = torch.Generator(dev)
+    chain_graph.forget(dit)
+    outs = []
+    for n, y in enumerate((ys[0], ys[0], ys[1])):
+        gen.manual_seed(71)
+        before = dict(_cuda.launches)
+        got = P.sample_tokens(dit, diffusion, y, 6.0, noise=noise,
+                              generator=gen, sampler=sampler).sample
+        graph_launches = {k: v - before[k] for k, v in _cuda.launches.items()}
+        before = dict(_cuda.launches)
+        ref = P._sample_tokens_eager(
+            dit, diffusion, y, 6.0, noise=noise,
+            generator=torch.Generator(dev).manual_seed(71),
+            sampler=sampler).sample
+        eager_launches = {k: v - before[k] for k, v in _cuda.launches.items()}
+        assert torch.equal(got, ref), (sampler, n)
+        assert graph_launches == eager_launches
+        assert graph_launches["flash_attn_fwd"] == 4 * 2 * 2
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[2])
+    # the planted fault: every input of ys[0] loaded but y, which keeps the
+    # last call's (ys[1])
+    chain = chain_graph.graph_for(dit, diffusion, ys[0], noise, 6.0, sampler)
+    with chain.lock, torch.inference_mode():
+        chain.noise.copy_(noise)
+        if chain.generator is not None:
+            chain.generator.set_state(gen.manual_seed(71).get_state())
+        stale = chain.replay().sample
+    assert torch.equal(stale, outs[2])
+    chain_graph.forget(dit)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])

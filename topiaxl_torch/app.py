@@ -6,7 +6,9 @@ a PrimX with a reconstruction preview, (3) GLB export with quality knobs
 (marching-cubes resolution, decimation, remesh, fast or LSCM unwrap).
 ``App`` runs those stages with the models built once (the reference
 rebuilds them per session); stage outputs persist on the instance, so
-``export`` re-runs with other knobs without sampling again.
+``export`` re-runs with other knobs without sampling again; on a card
+every ``generate`` with the same steps, CFG scale and sampler replays the
+chain's CUDA graph, captured at the first (``pipelines/chain_graph.py``).
 ``launch_ui`` wraps the same object in a Gradio UI when ``gradio`` is
 installed, and otherwise prints how to run headless: ``python -m
 topiaxl_torch.app image.png [config.yml] [k=v ...]`` runs all three

@@ -10,11 +10,14 @@ carries every metric. Sections, in ``bench.py``'s order:
 
 - ``dit_denoise_steps_per_sec`` (``value``, ``unit``, ``vs_baseline``,
   ``mfu``): the DDIM chain of ``pipelines/infer.py:sample_tokens`` on
-  precomputed cross K/V and null outputs, four chains timed after a warm
-  one. ``mfu`` is steps/s x ``cfg_step_flops`` (the products the CFG step
-  runs: the null branch's cross-attention is not run, so it is not
-  counted) over the card's dense bf16 peak (``PEAK_BF16_TFLOPS``, keyed on
-  ``torch.cuda.get_device_name``; an unknown card raises).
+  cross K/V and null outputs projected once before the timed chains, as
+  ``bench.py`` projects them outside its timed scan; on a card the chain
+  is one CUDA graph, as ``sample_tokens`` runs it there; four chains
+  timed after a warm one (the capture). ``mfu`` is steps/s x
+  ``cfg_step_flops`` (the products the CFG step runs: the null branch's
+  cross-attention is not run, so it is not counted) over the card's dense
+  bf16 peak (``PEAK_BF16_TFLOPS``, keyed on ``torch.cuda.get_device_name``;
+  an unknown card raises).
 - ``image_to_glb_seconds`` and its rows: U²-Net matting of a PNG on disk
   (``cli/infer.py:prepare_image``), DINOv2, ``generate_primx``, and
   ``extract_glb`` on the 2048-prim sphere (mc 256, decimate 100k, texture
@@ -202,8 +205,12 @@ def ddim_chain(dit, y: torch.Tensor, noise: torch.Tensor, steps: int = 25,
                cfg_scale: float = 6.0):
     """A callable running the DDIM chain of ``sample_tokens`` (eta 0, CFG
     through ``forward_with_cfg_fast``) from ``noise`` on K/V and null
-    outputs projected here once, as a served asset has them."""
+    outputs projected here once, as a served asset has them and as
+    ``bench.py`` times its scan. On a card the chain is one CUDA graph
+    (``pipelines/chain_graph.py:CapturedGraph``, as ``sample_tokens``
+    captures its own): the first call captures, later calls replay."""
     from .diffusion import create_diffusion, gaussian
+    from .pipelines.chain_graph import CapturedGraph
 
     diffusion = create_diffusion(
         timestep_respacing=f"ddim{steps}", noise_schedule="squaredcos_cap_v2",
@@ -219,7 +226,7 @@ def ddim_chain(dit, y: torch.Tensor, noise: torch.Tensor, steps: int = 25,
     def chain():
         return gaussian.SAMPLERS["ddim"](diffusion, model_fn, noise.float())
 
-    return chain
+    return CapturedGraph(chain, y.device) if y.is_cuda else chain
 
 
 def bench_dit_steps(size: dict, dev: torch.device, quant: bool = False):
@@ -641,6 +648,11 @@ def main(argv=None) -> int:
     if bs8 is not None:
         result["train_steps_per_sec_bs8"] = round(bs8, 3)
     print(json.dumps(result), flush=True)
+    from .pipelines import chain_graph
+
+    print(f"topiaxl_torch.bench: chain graphs {chain_graph.stats['captures']}"
+          f" captured, {chain_graph.stats['replays']} replayed",
+          file=sys.stderr)
     if failed:
         print(f"topiaxl_torch.bench: sections failed: {failed}",
               file=sys.stderr)

@@ -26,7 +26,8 @@ silent fallback to the CPU. ``inference.sampler`` picks the chain:
 ``ddim`` (default), ``dpm`` (DPM-Solver++(2M) over the same respaced
 timesteps, e.g. ``inference.ddim=12``) or ``ancestral``; any other name
 raises. ``model.generator.quant=true`` serves the DiT's block matmuls
-W8A8 (``ops/int8.py``).
+W8A8 (``ops/int8.py``). On a card each image's chain replays one CUDA
+graph (``pipelines/chain_graph.py``), captured at the first image.
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ and measures, on synthetic inputs (``pipelines/synthetic.py``):
 - ``encode``: DINOv2 on that image;
 - ``precompute``: the DiT's per-block cross K/V and null outputs;
 - ``cfg_step``: one CFG'd DiT step (``forward_with_cfg_fast``);
-- ``chain``: the whole DDIM chain (``sample_tokens``);
+- ``chain``: the whole DDIM chain (``sample_tokens``: on the card its
+  CUDA graph, replayed; the region's warm-up call captures it);
+- ``chain_eager``: the same chain dispatched op by op
+  (``_sample_tokens_eager``), what the graph replaces;
 - ``vae_decode``: ``decode_primx`` of 2048 primitives;
 - ``recon``: the CLI's ``recon.jpg`` pair (the frontal render of the
   2048-prim sphere shell and of its coloured prim boxes, 128 steps, 8
@@ -230,6 +233,9 @@ def main(argv=None) -> int:
         report["chain"] = profile_region(
             "chain", lambda: P.sample_tokens(dit, diffusion, y, cfg_scale,
                                              generator=gen), 1, top=4)
+        report["chain_eager"] = profile_region(
+            "chain_eager", lambda: P._sample_tokens_eager(
+                dit, diffusion, y, cfg_scale, generator=gen), 1, top=4)
         tokens = torch.randn((1, dit.seq_length, dit.in_channels),
                              device=device, generator=gen)
         report["vae_decode"] = profile_region(

@@ -25,17 +25,20 @@
 //   * a producer warpgroup loads Q, dO and o once and streams K and V
 //     through a three-stage ring by TMA (mbarrier full/empty pairs; a
 //     stage is released when dQ of its tile is done); setmaxnreg moves
-//     its registers to the consumers;
+//     its registers to the consumers; at head dim 256 the ring has two
+//     stages and o is not staged (Q and dO alone take 128 KiB);
 //   * each consumer thread computes lse (log2 units) and delta of its two
-//     rows once, from the o and dO tiles in shared memory (the quad's four
-//     threads split the chunks), and writes delta to the scratch;
-//   * per K/V tile (128 keys up to head dim 80, 64 above: dq_block_n),
-//     S = Q K^T and dP = dO V^T run on wgmma m64n{128,64}k16
+//     rows once, from the o and dO tiles in shared memory (at 256, o from
+//     device memory; the quad's four threads split the chunks), and
+//     writes delta to the scratch;
+//   * per K/V tile (128 keys up to head dim 80, 64 up to 128, 32 at 256:
+//     dq_block_n), S = Q K^T and dP = dO V^T run on wgmma m64n{128,64,32}k16
 //     with both operands in shared memory, K-major over D; dS = p (dP -
 //     delta) is formed in the accumulator registers and packed to bf16 A
 //     fragments; dQ += dS K runs on wgmma m64n{72,64}k16 with dS from
 //     registers and K read MN-major from the same tile (m64nDk16, one
-//     instance per head dim 64, 72, 80, 96 and 128);
+//     instance per head dim 64, 72, 80, 96, 128 and 256, whose dQ takes
+//     two m64n128 halves);
 //   * overlap: in its turn a warpgroup issues S and dP of tile j with dQ
 //     of tile j - 1, and two named barriers hand the turns back and forth
 //     (ping-pong), so one warpgroup's exponentials overlap the other's
@@ -58,25 +61,29 @@ namespace {
 using namespace sm90;
 
 constexpr int kBlockM = 128;   // q rows per block, 64 per consumer warpgroup
-constexpr int kStages = 3;     // K/V ring depth
 constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr float kLog2e = 1.4426950408889634f;
 
 // keys per K/V tile: 128 up to head dim 80; 64 above, where S, dP, dQ and
 // the dS fragments of a 128-key tile (64 + 64 + D / 2 + 32 registers a
-// thread) would not fit the consumers' 240 registers without spilling
+// thread) would not fit the consumers' 240 registers without spilling; 32
+// at 256, where dQ alone takes 128 and Q and dO 128 KiB of shared memory
 __host__ __device__ constexpr int dq_block_n(int D) {
-  return D <= 80 ? 128 : 64;
+  return D <= 80 ? 128 : D <= 128 ? 64 : 32;
 }
 
 template <int D>
 struct Dq {
   static constexpr int kBlockN = dq_block_n(D);
+  // K/V ring depth; at 256 two stages, and o is read for delta from
+  // device memory, not staged (Q, dO and three stages would not fit)
+  static constexpr int kStages = D <= 128 ? 3 : 2;
+  static constexpr bool kOSmem = D <= 128;
   static constexpr int kChunks = D / 8;            // 8-column chunks of D
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps over D
   static constexpr int kChunksP = 2 * kSteps;      // chunks with padding
   static constexpr int kQElems = kChunksP * kBlockM * 8;   // Q or dO
-  static constexpr int kOElems = kChunks * kBlockM * 8;
+  static constexpr int kOElems = kOSmem ? kChunks * kBlockM * 8 : 0;
   static constexpr int kKElems = kChunksP * kBlockN * 8;   // K or V stage
   static constexpr int kBarOffset =
       2 * (2 * kQElems + kOElems + 2 * kStages * kKElems);
@@ -88,6 +95,8 @@ struct DqArgs {
   const float* lse;      // [B, H, Sq] contiguous
   float* delta;          // [B, H, Sq] contiguous, written here
   __nv_bfloat16* dq;     // [B, Sq, H, D] contiguous
+  const __nv_bfloat16* o;   // [B, Sq, H, D], strides osb, oss, osh
+  long long osb, oss, osh;
   int H, Sq, Sk;
   float scale, scale_log2;
 };
@@ -117,6 +126,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const DqArgs a) {
   using T = Dq<D>;
   constexpr int kBlockN = T::kBlockN;
+  constexpr int kStages = T::kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* dOs = Qs + T::kQElems;
@@ -164,10 +174,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     // producer: one thread issues every TMA load
     setmaxnreg_dec<24>();
     if (tid == 256) {
-      mbar_arrive_expect_tx(q_full, 3 * T::kChunks * kBlockM * 16);
+      mbar_arrive_expect_tx(q_full,
+                            (T::kOSmem ? 3 : 2) * T::kChunks * kBlockM * 16);
       tma_load_tile<D, kBlockM>(Qs, &qmap, q_full, m0, h, b);
       tma_load_tile<D, kBlockM>(dOs, &domap, q_full, m0, h, b);
-      tma_load_tile<D, kBlockM>(Os, &omap, q_full, m0, h, b);
+      if constexpr (T::kOSmem) {
+        tma_load_tile<D, kBlockM>(Os, &omap, q_full, m0, h, b);
+      }
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&kv_empty[st], ((j / kStages) & 1) ^ 1);
@@ -192,7 +205,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     const long long row_base = static_cast<long long>(blockIdx.y) * a.Sq;
 
     // lse (log2 units) and delta of rows r0 and r0 + 8; rows past Sq read
-    // zeros (delta 0) and get lse = +inf (p = 0)
+    // zeros (delta 0) and get lse = +inf (p = 0); at head dim 256 o comes
+    // from device memory
     mbar_wait(q_full, 0);
     float lse2[2], delta[2];
 #pragma unroll
@@ -203,9 +217,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int i = 0; i < (T::kChunks + 3) / 4; ++i) {
         const int c = tg + 4 * i;
-        if (c < T::kChunks) {
+        if (c < T::kChunks && (T::kOSmem || row < a.Sq)) {
           const int off = c * kBlockM * 8 + rt * 8;
-          const uint4 ov = *reinterpret_cast<const uint4*>(Os + off);
+          uint4 ov;
+          if constexpr (T::kOSmem) {
+            ov = *reinterpret_cast<const uint4*>(Os + off);
+          } else {
+            ov = *reinterpret_cast<const uint4*>(
+                a.o + b * a.osb + row * a.oss + h * a.osh + c * 8);
+          }
           const uint4 dv = *reinterpret_cast<const uint4*>(dOs + off);
           const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
           const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
@@ -329,7 +349,7 @@ int launch(const CUtensorMap (&maps)[5], const DqArgs& a, int B,
 
 // q, o, dout [B, Sq, H, D], k/v [B, Sk, H, D]: bf16, strides in elements,
 // last dim contiguous, strides multiples of 8 and bases 16-byte aligned
-// (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96 or 128 (the
+// (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96, 128 or 256 (the
 // wrapper zero-pads any other D up to the next). Writes bf16 dq
 // [B, Sq, H, D] (contiguous) and delta, f32 [B, H, Sq] (contiguous); dk,
 // dv are unused (the signature is that of every backward entry). Returns
@@ -345,7 +365,7 @@ extern "C" int topiaxl_flash_attn_bwd_dq(
     long long doss, long long dosh, float scale, void* stream) {
   (void)dk;
   (void)dv;
-  if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128) {
+  if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128 && D != 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // q, k, v, dout, o (bf16 chunks)
@@ -373,6 +393,10 @@ extern "C" int topiaxl_flash_attn_bwd_dq(
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.o = static_cast<const __nv_bfloat16*>(o);
+  a.osb = osb;
+  a.oss = oss;
+  a.osh = osh;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -384,6 +408,7 @@ extern "C" int topiaxl_flash_attn_bwd_dq(
     case 72: return launch<72>(maps, a, B, st);
     case 80: return launch<80>(maps, a, B, st);
     case 96: return launch<96>(maps, a, B, st);
-    default: return launch<128>(maps, a, B, st);
+    case 128: return launch<128>(maps, a, B, st);
+    default: return launch<256>(maps, a, B, st);
   }
 }

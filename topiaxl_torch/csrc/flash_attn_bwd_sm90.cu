@@ -59,6 +59,18 @@
 //     products before the next (kKvRegs false: dK and dV alone take D
 //     registers a thread), the single pass splits dQ's columns in halves,
 //     and at 128 its consumers take 240 registers and the producer 24;
+//   * head dim 256 has a kernel of its own (flash_bwd_wide_kernel, both
+//     variants): dK and dV of 64 keys at 256 columns would take 256
+//     registers a thread in one warpgroup, so a block owns 64 keys and its
+//     two consumer warpgroups split the columns, each accumulating dK and
+//     dV over its 128 (128 registers a thread). Each computes S^T and dP^T
+//     of the 64 keys in full (the same products twice: neither waits on
+//     the other's softmax); in the single pass warpgroup 0 puts dS^T into
+//     shared memory, each computes its 128 columns of dQ (64 at a time)
+//     and adds them to the f32 scratch with atomics, and the producer
+//     reads o for delta from device memory (Q and dO stages leave no room
+//     for o or staging tiles). Every product is waited on before the
+//     next: a simple form;
 //   * tiles use the no-swizzle core-matrix layout of sm90.cuh, so head
 //     dim 72 needs no swizzle span; the contraction over D runs to 80,
 //     with the 10th chunk of K, V, Q and dO zeroed once and never loaded;
@@ -123,13 +135,18 @@ struct BwdArgs {
   const float* delta;    // [B, H, Sq] contiguous (the dk/dv pass)
   __nv_bfloat16* dk;     // [B, Sk, H, D] contiguous
   __nv_bfloat16* dv;
+  // head dim 256, the single pass: the f32 dq scratch [B, Sq, H, D]
+  // (contiguous) and o [B, Sq, H, D] at strides osb, oss, osh
+  float* dq;
+  const __nv_bfloat16* o;
+  long long osb, oss, osh;
   int H, Sq, Sk;
   float scale, scale_log2;
 };
 
 // S^T = K Q^T and dP^T = V dO^T of one q tile, 64 keys x 64 q rows each:
-// K, V K-major A (this warpgroup's rows), Q, dO K-major B
-template <int D>
+// K, V K-major A (this warpgroup's rows of kN-key tiles), Q, dO K-major B
+template <int D, int kN = kBlockN>
 __device__ __forceinline__ void issue_st_dpt(float (&s)[kBlockM / 2],
                                              float (&dp)[kBlockM / 2],
                                              uint64_t k_desc, uint64_t v_desc,
@@ -140,12 +157,12 @@ __device__ __forceinline__ void issue_st_dpt(float (&s)[kBlockM / 2],
   const uint64_t do_desc = make_desc(dOt, kBlockM * 16, 128);
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    wgmma_ss<kBlockM, 0, 0>(s, k_desc + ((kk * 2 * kBlockN * 16) >> 4),
+    wgmma_ss<kBlockM, 0, 0>(s, k_desc + ((kk * 2 * kN * 16) >> 4),
                             q_desc + ((kk * 2 * kBlockM * 16) >> 4), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    wgmma_ss<kBlockM, 0, 0>(dp, v_desc + ((kk * 2 * kBlockN * 16) >> 4),
+    wgmma_ss<kBlockM, 0, 0>(dp, v_desc + ((kk * 2 * kN * 16) >> 4),
                             do_desc + ((kk * 2 * kBlockM * 16) >> 4), kk > 0);
   }
 }
@@ -559,6 +576,250 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
   }
 }
 
+// ---- head dim 256 (flash_bwd_wide_kernel) -------------------------------
+
+constexpr int kWideD = 256;
+constexpr int kWideN = 64;       // keys per block
+constexpr int kWideCols = 128;   // dK, dV (and dQ) columns per warpgroup
+
+template <bool kWithDq>
+struct Wide {
+  static constexpr int kStages = 2;                       // Q / dO ring depth
+  static constexpr int kChunks = kWideD / 8;
+  static constexpr int kKElems = kChunks * kWideN * 8;    // K or V
+  static constexpr int kQElems = kChunks * kBlockM * 8;   // Q or dO stage
+  static constexpr int kDsElems = kWithDq ? kBlockM * kWideN : 0;   // dS^T
+  static constexpr int kStatOffset =
+      2 * (2 * kKElems + 2 * kStages * kQElems + kDsElems);
+  static constexpr int kBarOffset = kStatOffset + 4 * 2 * kStages * kBlockM;
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 3 * kStages);
+};
+
+template <bool kWithDq>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const BwdArgs a) {
+  using T = Wide<kWithDq>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + T::kKElems;
+  __nv_bfloat16* Qs = Vs + T::kKElems;                 // [kStages] tiles
+  __nv_bfloat16* dOs = Qs + kStages * T::kQElems;      // [kStages] tiles
+  __nv_bfloat16* dSs = dOs + kStages * T::kQElems;     // [q chunk][key][8]
+  float* lse2_s = reinterpret_cast<float*>(smem + T::kStatOffset);
+  float* delta_s = lse2_s + kStages * kBlockM;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + T::kBarOffset);
+  uint64_t* in_full = kv_full + 1;       // the stage's Q, dO have arrived
+  uint64_t* q_full = in_full + kStages;  // and its lse, delta are written
+  uint64_t* q_empty = q_full + kStages;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y - b * a.H;
+  const int n0 = blockIdx.x * kWideN;
+  const int n_qt = (a.Sq + kBlockM - 1) / kBlockM;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&in_full[st], 1);
+      mbar_init(&q_full[st], kStatThreads);
+      mbar_init(&q_empty[st], 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // the producer reads o from device memory for delta: 24 registers
+    // spill there, 32 do not (the consumers keep 232)
+    setmaxnreg_dec<32>();
+    const int t = tid - 256;
+    if (t == 0) {
+      // TMA: K and V once, then Q and dO per q tile
+      mbar_arrive_expect_tx(kv_full, 2 * T::kChunks * kWideN * 16);
+      tma_load_tile<kWideD, kWideN>(Ks, &kmap, kv_full, n0, h, b);
+      tma_load_tile<kWideD, kWideN>(Vs, &vmap, kv_full, n0, h, b);
+      for (int i = 0; i < n_qt; ++i) {
+        const int st = i % kStages;
+        mbar_wait(&q_empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&in_full[st], 2 * T::kChunks * kBlockM * 16);
+        tma_load_tile<kWideD, kBlockM>(Qs + st * T::kQElems, &qmap,
+                                       &in_full[st], i * kBlockM, h, b);
+        tma_load_tile<kWideD, kBlockM>(dOs + st * T::kQElems, &domap,
+                                       &in_full[st], i * kBlockM, h, b);
+      }
+    } else if (t >= 32 && t < 32 + kStatThreads) {
+      // lse (log2 units) and delta of q row r of each tile; rows at or
+      // past Sq get lse = +inf (so p = 0) and delta 0
+      const int r = t - 32;
+      const long long row_base = static_cast<long long>(blockIdx.y) * a.Sq;
+      for (int i = 0; i < n_qt; ++i) {
+        const int st = i % kStages;
+        const int row = i * kBlockM + r;
+        const float lse2 = row < a.Sq ? a.lse[row_base + row] * kLog2e
+                                      : INFINITY;
+        float delta = 0.f;
+        if constexpr (!kWithDq) {
+          if (row < a.Sq) delta = a.delta[row_base + row];
+        }
+        mbar_wait(&in_full[st], (i / kStages) & 1);
+        if constexpr (kWithDq) {
+          // rowsum(dO * o): dO from the stage, o from device memory
+          if (row < a.Sq) {
+            const __nv_bfloat16* orow =
+                a.o + b * a.osb + row * a.oss + h * a.osh;
+            const __nv_bfloat16* drow = dOs + st * T::kQElems + r * 8;
+#pragma unroll 1
+            for (int c = 0; c < T::kChunks; ++c) {
+              const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+              const uint4 dv = *reinterpret_cast<const uint4*>(
+                  drow + c * kBlockM * 8);
+              const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+              const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 of = __bfloat1622float2(o2[e]);
+                const float2 df = __bfloat1622float2(d2[e]);
+                delta += of.x * df.x + of.y * df.y;
+              }
+            }
+          }
+        }
+        lse2_s[st * kBlockM + r] = lse2;
+        delta_s[st * kBlockM + r] = delta;
+        mbar_arrive(&q_full[st]);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: all 64 keys, columns [c0, c0 + 128)
+    setmaxnreg_inc<232>();
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tg = lane & 3;
+    const int kr = warp * 16 + g;     // first key row of the thread
+    const int c0 = wg * kWideCols;
+    const bool key_ok[2] = {n0 + kr < a.Sk, n0 + kr + 8 < a.Sk};
+
+    float dk[kWideCols / 2], dv[kWideCols / 2];
+#pragma unroll
+    for (int i = 0; i < kWideCols / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    // K, V: K-major A over the block's 64 keys; chunk stride along D
+    const uint64_t k_desc = make_desc(Ks, kWideN * 16, 128);
+    const uint64_t v_desc = make_desc(Vs, kWideN * 16, 128);
+    for (int i = 0; i < n_qt; ++i) {
+      const int st = i % kStages;
+      mbar_wait(&in_full[st], (i / kStages) & 1);
+      mbar_wait(&q_full[st], (i / kStages) & 1);
+      const __nv_bfloat16* Qt = Qs + st * T::kQElems;
+      const __nv_bfloat16* dOt = dOs + st * T::kQElems;
+
+      float s[kBlockM / 2], dp[kBlockM / 2];
+      uint32_t pa[kBlockM / 16][4], da[kBlockM / 16][4];
+      wgmma_fence();
+      issue_st_dpt<kWideD, kWideN>(s, dp, k_desc, v_desc, Qt, dOt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      p_ds_fragments(s, dp, pa, da, lse2_s + st * kBlockM,
+                     delta_s + st * kBlockM, key_ok, tg, a.scale_log2);
+
+      // dV += P^T dO and dK += dS^T Q over this warpgroup's columns
+      fence_regs(dk);
+      fence_regs(dv);
+      wgmma_fence();
+      issue_dv_dk<kWideCols>(dk, dv, pa, da, Qt + c0 * kBlockM,
+                             dOt + c0 * kBlockM);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(da);
+      if (lane == 0) mbar_arrive(&q_empty[st]);   // the stage is read
+
+      if constexpr (kWithDq) {
+        // dS^T (bf16) into shared memory, chunked by q (both warpgroups
+        // hold the same dS^T; warpgroup 0 writes it), once both are done
+        // with the previous tile's dQ products
+        named_sync(1, 256);
+        if (wg == 0) {
+#pragma unroll
+          for (int nt = 0; nt < kBlockM / 8; ++nt) {
+            __nv_bfloat16* dst = dSs + nt * kWideN * 8 + kr * 8 + tg * 2;
+            *reinterpret_cast<uint32_t*>(dst) = da[nt >> 1][(nt & 1) * 2];
+            *reinterpret_cast<uint32_t*>(dst + 64) =
+                da[nt >> 1][(nt & 1) * 2 + 1];
+          }
+          fence_proxy_async();
+        }
+        named_sync(1, 256);
+        // dQ[:, c0 : c0 + 128] of this q tile = dS K, 64 columns at a time
+        // (all 128 beside dK and dV spill): dS MN-major from the dS^T tile,
+        // K MN-major; added to the scratch (rows past Sq dropped)
+        const uint64_t ds_desc = make_desc(dSs, 128, kWideN * 16);
+#pragma unroll 1
+        for (int half = 0; half < 2; ++half) {
+          const int cq = c0 + half * (kWideCols / 2);
+          float dq[kWideCols / 4];
+          const uint64_t kq_desc = make_desc(Ks + cq * kWideN, 128,
+                                             kWideN * 16);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWideN / 16; ++kk) {
+            wgmma_ss<kWideCols / 2, 1, 1>(dq, ds_desc + ((kk * 256) >> 4),
+                                          kq_desc + ((kk * 256) >> 4),
+                                          kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = i * kBlockM + warp * 16 + g + 8 * r;
+            if (row >= a.Sq) continue;
+            float* dst = a.dq + ((static_cast<long long>(b) * a.Sq + row) *
+                                 a.H + h) * kWideD + cq + tg * 2;
+#pragma unroll
+            for (int dt = 0; dt < kWideCols / 16; ++dt) {
+              atomicAdd(dst + dt * 8, dq[dt * 4 + 2 * r] * a.scale);
+              atomicAdd(dst + dt * 8 + 1, dq[dt * 4 + 2 * r + 1] * a.scale);
+            }
+          }
+        }
+      }
+    }
+
+    // dK (scaled) and dV of this thread's keys and columns; [B, Sk, H, D]
+    // contiguous
+    const long long rs = static_cast<long long>(a.H) * kWideD;
+    const long long base =
+        (static_cast<long long>(b) * a.Sk * a.H + h) * kWideD + c0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!key_ok[r]) continue;
+      const long long off = base + (n0 + kr + 8 * r) * rs;
+#pragma unroll
+      for (int dt = 0; dt < kWideCols / 8; ++dt) {
+        const int col = dt * 8 + tg * 2;
+        *reinterpret_cast<uint32_t*>(a.dk + off + col) = pack_bf16(
+            dk[dt * 4 + 2 * r] * a.scale, dk[dt * 4 + 2 * r + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(a.dv + off + col) =
+            pack_bf16(dv[dt * 4 + 2 * r], dv[dt * 4 + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 template <int D, bool kWithDq>
 int launch(const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
            cudaStream_t st) {
@@ -571,10 +832,22 @@ int launch(const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kWithDq>
+int launch_wide(const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
+                cudaStream_t st) {
+  constexpr int smem = Wide<kWithDq>::kSmem;
+  const int err = allow_smem<flash_bwd_wide_kernel<kWithDq>>(smem);
+  if (err != 0) return err;
+  const dim3 grid((a.Sk + kWideN - 1) / kWideN, B * a.H);
+  flash_bwd_wide_kernel<kWithDq><<<grid, kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the head dims with an instance (the wrapper zero-pads any other D up to
 // the next one: ops/flash_attention.py:kernel_head_dim)
 bool head_dim_ok(int D) {
-  return D == 64 || D == 72 || D == 80 || D == 96 || D == 128;
+  return D == 64 || D == 72 || D == 80 || D == 96 || D == 128 || D == 256;
 }
 
 template <bool kWithDq>
@@ -585,13 +858,14 @@ int launch_d(int D, const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
     case 72: return launch<72, kWithDq>(maps, a, B, st);
     case 80: return launch<80, kWithDq>(maps, a, B, st);
     case 96: return launch<96, kWithDq>(maps, a, B, st);
-    default: return launch<128, kWithDq>(maps, a, B, st);
+    case 128: return launch<128, kWithDq>(maps, a, B, st);
+    default: return launch_wide<kWithDq>(maps, a, B, st);
   }
 }
 
-// the tensor maps of k, v, q and dout (bf16 chunks), then, with o, those
-// of o and of dq's two column blocks (f32); the maps a variant does not
-// read are copies of the first
+// the tensor maps of k, v, q and dout (bf16 chunks), then, with o below
+// head dim 256, those of o and of dq's two column blocks (f32); the maps a
+// variant does not read are copies of the first
 int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
                 const void* v, const void* o, const void* dout, void* dq,
                 int B, int H, int Sq, int Sk, int D, long long qsb,
@@ -599,11 +873,12 @@ int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
                 long long ksh, long long vsb, long long vss, long long vsh,
                 long long osb, long long oss, long long osh, long long dosb,
                 long long doss, long long dosh) {
+  const int kv_rows = D == kWideD ? kWideN : kBlockN;
   int err = encode_bshd(&maps[0], k, false, B, Sk, H, D, ksb, kss, ksh, 8,
-                        kBlockN);
+                        kv_rows);
   if (err == 0) {
     err = encode_bshd(&maps[1], v, false, B, Sk, H, D, vsb, vss, vsh, 8,
-                      kBlockN);
+                      kv_rows);
   }
   if (err == 0) {
     err = encode_bshd(&maps[2], q, false, B, Sq, H, D, qsb, qss, qsh, 8,
@@ -613,7 +888,7 @@ int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
     err = encode_bshd(&maps[3], dout, false, B, Sq, H, D, dosb, doss, dosh, 8,
                       kBlockM);
   }
-  if (err != 0 || o == nullptr) {
+  if (err != 0 || o == nullptr || D == kWideD) {
     for (int i = 4; i < 7; ++i) maps[i] = maps[0];
     return err;
   }
@@ -636,8 +911,8 @@ int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
 
 // q, o, dout [B, Sq, H, D], k/v [B, Sk, H, D]: bf16, strides in elements,
 // last dim contiguous, strides multiples of 8 and bases 16-byte aligned
-// (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96 or 128. Both
-// write bf16 dk, dv
+// (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96, 128 or 256.
+// Both write bf16 dk, dv
 // [B, Sk, H, D] (contiguous). flash_attn_bwd adds dq into a zeroed f32
 // [B, Sq, H, D] buffer (delta unused); flash_attn_bwd_dkv reads delta,
 // f32 [B, H, Sq] contiguous, as the dq pass wrote it (o and dq unused).
@@ -663,6 +938,11 @@ extern "C" int topiaxl_flash_attn_bwd(
   a.delta = nullptr;
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.dq = static_cast<float*>(dq);
+  a.o = static_cast<const __nv_bfloat16*>(o);
+  a.osb = osb;
+  a.oss = oss;
+  a.osh = osh;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -693,6 +973,9 @@ extern "C" int topiaxl_flash_attn_bwd_dkv(
   a.delta = static_cast<const float*>(delta);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.dq = nullptr;
+  a.o = nullptr;
+  a.osb = a.oss = a.osh = 0;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;

@@ -17,15 +17,15 @@
 // (the shape of FlashAttention-3):
 //   * one block per (batch*head, 128-row q tile): two consumer
 //     warpgroups of 64 q rows each and one producer warpgroup;
-//   * the producer keeps TMA loads of 128-key K and V tiles in flight in
-//     a two-stage shared-memory ring (mbarrier full/empty pairs, K and V
-//     released separately); Q is loaded once; setmaxnreg moves the
-//     producer's registers to the consumers;
-//   * S = Q K^T runs on wgmma m64n128k16 with both operands in shared
-//     memory (K-major over D); O += P V on wgmma m64n{72,64}k16 with P
-//     from registers and V read MN-major (transposed) from its [key, D]
-//     tile; the accumulator layout is mma.sync's, so the online softmax
-//     works on the S registers in place;
+//   * the producer keeps TMA loads of K and V tiles (128 keys; 64 at head
+//     dim 256) in flight in a two-stage shared-memory ring (mbarrier
+//     full/empty pairs, K and V released separately); Q is loaded once;
+//     setmaxnreg moves the producer's registers to the consumers;
+//   * S = Q K^T runs on wgmma m64n128k16 (m64n64k16 at head dim 256) with
+//     both operands in shared memory (K-major over D); O += P V on wgmma
+//     m64n{72,64}k16 with P from registers and V read MN-major
+//     (transposed) from its [key, D] tile; the accumulator layout is
+//     mma.sync's, so the online softmax works on the S registers in place;
 //   * overlap: in its turn a warpgroup issues S of tile j and P V of tile
 //     j - 1 together; two named barriers hand the turns back and forth
 //     (ping-pong), so one warpgroup's softmax overlaps the other's
@@ -36,10 +36,12 @@
 //     layout (sm90.cuh), loaded by TMA one 8-column chunk at a time, so
 //     head dim 72 (9 chunks) needs no swizzle span; Q K^T contracts over
 //     80, with the 10th chunk of Q and K zeroed once and never loaded;
-//   * one instance per head dim 64, 72, 80, 96 and 128 (P V on wgmma
-//     m64nDk16); at 128 the S, O and P registers (64 + 64 + 32 a thread)
-//     still fit the consumers' 240, and shared memory holds Q and two
-//     K/V stages in 160 KiB;
+//   * one instance per head dim 64, 72, 80, 96, 128 and 256 (P V on wgmma
+//     m64nDk16, at 256 two m64n128 halves); at 128 the S, O and P
+//     registers (64 + 64 + 32 a thread) still fit the consumers' 240, and
+//     shared memory holds Q and two K/V stages in 160 KiB; at 256 O alone
+//     takes 128 registers a thread, so the K/V tiles hold 64 keys (S and P
+//     32 + 16) and Q and two stages take 192 KiB;
 //   * the [B, S, H, D] strides go into the tensor maps (encoded on the
 //     host per launch), so the DiT's qkv.unbind(2) views are read
 //     without a copy; rows past Sq or Sk arrive as zeros from TMA and
@@ -56,13 +58,19 @@ namespace {
 using namespace sm90;
 
 constexpr int kBlockM = 128;   // q rows per block, 64 per consumer warpgroup
-constexpr int kBlockN = 128;   // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr float kNegBig = -1e30f;
 
+// keys per K/V tile: 128 up to head dim 128; 64 at 256, where O (128
+// registers a thread) beside S and P of a 128-key tile would spill
+__host__ __device__ constexpr int fwd_block_n(int D) {
+  return D <= 128 ? 128 : 64;
+}
+
 template <int D>
 struct Fwd {
+  static constexpr int kBlockN = fwd_block_n(D);
   static constexpr int kChunks = D / 8;            // 8-column chunks of D
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps of Q K^T
   static constexpr int kChunksP = 2 * kSteps;      // Q, K chunks with padding
@@ -78,10 +86,10 @@ struct Fwd {
 // O += P V for K/V tile j, once its V has arrived: P from registers, V
 // MN-major B (8 keys per core matrix along K, the chunks along N)
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&p)[kBlockN / 16][4],
-                                         const __nv_bfloat16* Vs,
-                                         uint64_t* v_full, int j) {
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[D / 2], const uint32_t (&p)[Fwd<D>::kBlockN / 16][4],
+    const __nv_bfloat16* Vs, uint64_t* v_full, int j) {
+  constexpr int kBlockN = Fwd<D>::kBlockN;
   const int st = j % kStages;
   mbar_wait(&v_full[st], (j / kStages) & 1);
   const uint64_t v_desc =
@@ -102,6 +110,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                  int H, int Sq, int Sk, long long osb, long long oss,
                  long long osh, float scale_log2) {
   using T = Fwd<D>;
+  constexpr int kBlockN = T::kBlockN;
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + T::kQElems;                  // [kStages] tiles
@@ -175,7 +184,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     // Q: K-major A, this warpgroup's 64 rows; chunk stride along D
     const uint64_t q_desc = make_desc(Qs + wg * 64 * 8, kBlockM * 16, 128);
 
-    float s[kBlockN / 2];          // S tile: 16 column tiles x 4
+    float s[kBlockN / 2];          // S tile: kBlockN / 8 column tiles x 4
     float acc[D / 2];              // O: D / 8 column tiles x 4
     uint32_t p[kBlockN / 16][4];   // P (bf16) as A fragments, per k16 step
     float m_run[2] = {kNegBig, kNegBig};   // rows g, g + 8; log2 units
@@ -310,7 +319,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 // q [B, Sq, H, D], k/v [B, Sk, H, D], o [B, Sq, H, D]: bf16, strides in
 // elements, last dim contiguous, every stride a multiple of 8 and the
 // bases 16-byte aligned (TMA). D must be one of the instances, 64, 72,
-// 80, 96 or 128 (the wrapper zero-pads any other D up to the next one:
+// 80, 96, 128 or 256 (the wrapper zero-pads any other D up to the next one:
 // ops/flash_attention.py:kernel_head_dim). lse is null or an f32
 // [B, H, Sq] contiguous buffer. Returns the CUDA error code of the tensor
 // map encoding or of the launch (0 on success).
@@ -321,16 +330,18 @@ extern "C" int topiaxl_flash_attn_fwd(
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
     long long osh, float scale, void* stream) {
-  if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128) {
+  if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128 && D != 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap qm, km, vm;
   int err = encode_bshd(&qm, q, false, B, Sq, H, D, qsb, qss, qsh, 8, kBlockM);
   if (err == 0) {
-    err = encode_bshd(&km, k, false, B, Sk, H, D, ksb, kss, ksh, 8, kBlockN);
+    err = encode_bshd(&km, k, false, B, Sk, H, D, ksb, kss, ksh, 8,
+                      fwd_block_n(D));
   }
   if (err == 0) {
-    err = encode_bshd(&vm, v, false, B, Sk, H, D, vsb, vss, vsh, 8, kBlockN);
+    err = encode_bshd(&vm, v, false, B, Sk, H, D, vsb, vss, vsh, 8,
+                      fwd_block_n(D));
   }
   if (err != 0) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
@@ -350,8 +361,11 @@ extern "C" int topiaxl_flash_attn_fwd(
     case 96:
       return launch<96>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
                         scale_log2, st);
-    default:
+    case 128:
       return launch<128>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+                         scale_log2, st);
+    default:
+      return launch<256>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
                          scale_log2, st);
   }
 }

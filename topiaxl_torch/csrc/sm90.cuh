@@ -404,6 +404,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(kTransB));
 }
 
+// m64n256k16 as two m64n128k16 halves: the second half's B starts 16 core
+// matrices (128 columns) further along N, which the descriptor's stride
+// byte offset (SBO) spaces, K-major or MN-major alike
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  const uint64_t sbo = (db >> 32) & 0x3FFFu;   // in 16-byte units
+  wgmma_rs_n128<kTransB>(*reinterpret_cast<float(*)[64]>(&d[0]), a, db,
+                         scale_d);
+  wgmma_rs_n128<kTransB>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                         db + 16 * sbo, scale_d);
+}
+
 // m64n128k32 s8 x s8 product with s32 accumulators (64 registers a
 // thread, the f32 layout above); both operands K-major, the only form
 // wgmma offers for 8-bit types
@@ -463,9 +477,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_rs_n80<kTransB>(d, a, db, scale_d);
   } else if constexpr (N == 96) {
     wgmma_rs_n96<kTransB>(d, a, db, scale_d);
-  } else {
-    static_assert(N == 128, "no wgmma_rs for this N");
+  } else if constexpr (N == 128) {
     wgmma_rs_n128<kTransB>(d, a, db, scale_d);
+  } else {
+    static_assert(N == 256, "no wgmma_rs for this N");
+    wgmma_rs_n256<kTransB>(d, a, db, scale_d);
   }
 }
 

@@ -15,11 +15,24 @@ import. A failed build raises.
 
 Every wrapper adds one to ``launches[<kernel>]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went
-through the kernels (``reset_launch_counts`` zeroes them).
+through the kernels (``reset_launch_counts`` zeroes them). A CUDA graph
+replays its kernels without running the wrappers, so what captures a
+graph tallies the launches its own thread makes during the capture
+(``tally``), takes them back and adds them at each replay
+(``add_launches``; ``pipelines/chain_graph.py``).
+
+Every wrapper launches on ``stream_of(t)``, the current stream of its
+tensors' card: inside a capture that is the capture stream, so the
+kernels are captured with the rest of the graph. Their tensor maps are
+encoded on the host and passed by value, so a captured launch keeps the
+addresses it was captured with: the graph's buffers and pool must stay
+where they are, as they do.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +53,8 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# the launches of a thread inside ``tally``
+_tallies = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +88,26 @@ def reset_launch_counts() -> None:
 
 def count_launch(name: str) -> None:
     launches[name] += 1
+    counts = getattr(_tallies, "counts", None)
+    if counts is not None:
+        counts[name] += 1
+
+
+@contextlib.contextmanager
+def tally():
+    """A Counter of the launches this thread makes inside the block
+    (those of other threads are not in it)."""
+    _tallies.counts = counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _tallies.counts = None
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (name -> launches, negative to take back)."""
+    for name, n in counts.items():
+        launches[name] += n
 
 
 def sources() -> list[Path]:

@@ -4,7 +4,7 @@ Counterpart of ``topiaxl/ops/attention.py``. The dispatch is a shape
 rule, as in the JAX package: the flash kernel when the key sequence is
 long enough for the logits to matter (``Sk >= 512``) and the head is
 wide enough (``D >= 64``): the DiT's self- and cross-attention and
-DINOv2's, at any head dim the kernels take (up to 128). Otherwise (the
+DINOv2's, at any head dim the kernels take (up to 256). Otherwise (the
 VAE's 64-voxel volume attention) the einsum form, which never used a
 kernel on the TPU either.
 
@@ -26,10 +26,10 @@ from .flash_attention import (flash_attention, flash_attention_plain,
 
 
 def use_flash(sk: int, head_dim: int) -> bool:
-    """The JAX package's rule (``Sk >= 512`` and ``D >= 64``), restricted to
-    the head dims the kernel launchers take (up to 128, zero-padded to an
-    instance: ``flash_attention.kernel_head_dim``); a wider head takes the
-    einsum form, as a narrower one does."""
+    """The JAX package's rule (``Sk >= 512`` and ``D >= 64``) for every head
+    dim the kernel launchers take (up to 256, zero-padded to an instance:
+    ``flash_attention.kernel_head_dim``); a head above 256 takes the einsum
+    form, as a narrower one than 64 does."""
     return sk >= 512 and head_dim >= 64 and kernel_head_dim(head_dim) is not None
 
 

@@ -41,12 +41,13 @@ one block of at most ``FUSED_BWD_MAX_KEYS`` keys (the DiT's self- and
 cross-attention), the two-pass dq + dk/dv pair otherwise.
 
 Head dims: each kernel has an instance for every D in ``HEAD_DIMS``. The
-launchers take any D from 1 to 128: they zero-pad q, k, v (and o, dO)
-in D up to the next instance (``kernel_head_dim``), launch, and slice o,
-dq, dk and dv back to D, as the JAX wrapper pads D (``_fold``). The
-padded columns add zero to every logit and every row sum, so o, lse and
-the gradients are those of the unpadded call; the scale is always the
-caller's, never recomputed from the padded D. A D above 128 raises.
+launchers take any D from 1 to 256: they zero-pad q, k, v (and o, dO)
+in D up to the next instance (``kernel_head_dim``; 129 to 255 go to
+256), launch, and slice o, dq, dk and dv back to D, as the JAX wrapper
+pads D (``_fold``). The padded columns add zero to every logit and every
+row sum, so o, lse and the gradients are those of the unpadded call; the
+scale is always the caller's, never recomputed from the padded D. A D
+above 256 raises and names D.
 """
 
 from __future__ import annotations
@@ -56,17 +57,18 @@ import torch
 from . import _cuda
 
 # the head dims each kernel is built for (csrc/flash_attn_*.cu)
-HEAD_DIMS = (64, 72, 80, 96, 128)
-# keys per K/V tile of every flash kernel (kBlockN: the forward, the dq
-# pass, and the KV block of the single pass and the dk/dv pass), which
-# the planted unmasked-padding faults pad Sk to
+HEAD_DIMS = (64, 72, 80, 96, 128, 256)
+# keys per K/V tile of the flash kernels up to head dim 128 (kBlockN: the
+# forward, the KV block of the single pass and the dk/dv pass; the dq pass
+# above 80 and every kernel at 256 take narrower tiles that divide it),
+# which the planted unmasked-padding faults pad Sk to
 KEY_TILE = 128
 FUSED_BWD_MAX_KEYS = 2048
 
 
 def kernel_head_dim(d: int) -> int | None:
     """The instance a head dim ``d`` runs on: the smallest of ``HEAD_DIMS``
-    at or above it (the launchers zero-pad up to it), None above 128."""
+    at or above it (the launchers zero-pad up to it), None above 256."""
     return next((inst for inst in HEAD_DIMS if d <= inst), None)
 
 
@@ -341,7 +343,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D], differentiable.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bf16, any head_dim up to 128, zero-padded to an instance; any strides
+    (bf16, any head_dim up to 256, zero-padded to an instance; any strides
     with a contiguous last dim) or raise. Under autograd with an input that
     needs a gradient the forward (the op ``flash_fwd``) also writes the lse
     and the backward runs the backward kernels; without one the kernel is

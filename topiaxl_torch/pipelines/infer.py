@@ -2,9 +2,10 @@
 ``topiaxl/pipelines/infer.py``).
 
 Stage 1: conditioning tokens -> DDIM (or DPM-Solver++, or ancestral)
-chain with CFG over the DiT (one Python step per spaced timestep,
-cross-attention K/V projected once) ->
-one batched VAE decode of all primitives -> PrimX parameters.
+chain with CFG over the DiT (cross-attention K/V projected once; on a
+card the whole chain is one CUDA graph per key, replayed, as JAX jits
+it: ``pipelines/chain_graph.py``) -> one batched VAE decode of all
+primitives -> PrimX parameters.
 
 Stage 2: noise filter, coarse-to-fine SDF grid on the device, then the
 host stages (``topiaxl_torch.extract``, the port's copy of the JAX
@@ -33,6 +34,7 @@ from ..models import primx as primx_lib
 from ..models.dit import DiT
 from ..models.primx import PrimXParams
 from ..models.vae3d import VAE3D
+from . import chain_graph
 
 log = logging.getLogger("topiaxl_torch.extract")
 
@@ -45,6 +47,19 @@ class EmptyIsosurfaceError(RuntimeError):
 # Stage 1: denoise + decode
 # ---------------------------------------------------------------------------
 
+def _chain_inputs(dit: DiT, y: torch.Tensor, noise, generator, sampler):
+    """The checked sampler and the initial noise, drawn from ``generator``
+    when not given."""
+    if sampler not in gaussian.SAMPLERS:
+        raise ValueError(
+            f"sampler={sampler!r}: expected one of {sorted(gaussian.SAMPLERS)}")
+    if noise is None:
+        noise = torch.randn((y.shape[0], dit.seq_length, dit.in_channels),
+                            generator=generator, device=y.device,
+                            dtype=torch.float32)
+    return noise
+
+
 @torch.inference_mode()
 def sample_tokens(dit: DiT, diffusion: Diffusion, y: torch.Tensor,
                   cfg_scale: float = 6.0, noise: torch.Tensor | None = None,
@@ -54,28 +69,33 @@ def sample_tokens(dit: DiT, diffusion: Diffusion, y: torch.Tensor,
     (DPM-Solver++(2M)) or 'ancestral'; returns normalised tokens [B, N,
     C_in] (and the last x0 prediction). ``noise`` [B, N, C_in] is drawn
     from ``generator`` when not given; the ancestral chain draws its
-    per-step noise from it too."""
-    if sampler not in gaussian.SAMPLERS:
-        raise ValueError(
-            f"sampler={sampler!r}: expected one of {sorted(gaussian.SAMPLERS)}")
-    if noise is None:
-        noise = torch.randn((y.shape[0], dit.seq_length, dit.in_channels),
-                            generator=generator, device=y.device,
-                            dtype=torch.float32)
-    kvs = dit.precompute_kv(y)
-    if cfg_scale > 0:
-        null_outs = dit.precompute_null_out()
+    per-step noise from it too (on a card, a CUDA generator or None, the
+    default one).
 
-        def model_fn(x, t):
-            return dit.forward_with_cfg_fast(x, t, kvs, null_outs, cfg_scale)
-    else:
-        def model_fn(x, t):
-            return dit.forward_kv(x, t, kvs)
+    On a CUDA card the chain, its K/V projection and null outputs
+    included, replays one captured CUDA graph per key, as JAX runs its
+    jitted ``sample_tokens`` (``chain_graph.sample``; the first call of a
+    key runs eagerly and captures). On the CPU, and for a tensor-parallel
+    or ring-attention DiT, it runs eagerly (``_sample_tokens_eager``)."""
+    if y.device.type == "cuda" and chain_graph.capturable(dit):
+        noise = _chain_inputs(dit, y, noise, generator, sampler)
+        return chain_graph.sample(dit, diffusion, y, noise, cfg_scale,
+                                  sampler, generator)
+    return _sample_tokens_eager(dit, diffusion, y, cfg_scale, noise,
+                                generator, sampler)
 
-    if sampler == "ancestral":
-        return gaussian.p_sample_loop(diffusion, model_fn, noise.float(),
-                                      generator=generator)
-    return gaussian.SAMPLERS[sampler](diffusion, model_fn, noise.float())
+
+@torch.inference_mode()
+def _sample_tokens_eager(dit: DiT, diffusion: Diffusion, y: torch.Tensor,
+                         cfg_scale: float = 6.0,
+                         noise: torch.Tensor | None = None,
+                         generator: torch.Generator | None = None,
+                         sampler: str = "ddim"):
+    """``sample_tokens`` dispatched op by op on any device: what the graph
+    captures, and what the checks hold it against."""
+    noise = _chain_inputs(dit, y, noise, generator, sampler)
+    return chain_graph.sample_chain(dit, diffusion, y, noise, cfg_scale,
+                                    sampler, generator)
 
 
 def denormalize_tokens(tokens, latent_mean, latent_std, latent_nf: float = 1.0):
@@ -426,6 +446,10 @@ def serve_assets(dit: DiT, vae: VAE3D, diffusion: Diffusion, ys, output_dirs,
     the chain, which orders it; what overlaps is the host's share of
     stage 2 (isosurface, cleanup, decimation, unwrap, inpaint, GLB
     writing, in numpy, cv2 and C++ that release the GIL) with the chain.
+    On a card each chain replays the graph its key captured at its first
+    group (``sample_tokens``), so this thread holds the interpreter for a
+    replay, not for the chain's launches; a group of another size (the
+    last) captures its own, in ``thread_local`` mode beside the workers.
     """
     from concurrent.futures import ThreadPoolExecutor
 
