@@ -106,9 +106,10 @@ the script exits non-zero without a result line):
     Adam moments, parameters; then the same under two planted faults (no
     gradient sync; both ranks on the same rows).
 24. tp: two ranks on the one card (``torchrun``, gloo) at dp 1 x tp 2:
-    ``generate_primx_sharded`` with ``dit_param_rules()`` at the full
-    depth of 28 on a 5-step DDIM chain (two assets) and two ``cli.train``
-    steps at ``train.mesh={dp: 1, tp: 2}`` (flagship width at 8 blocks,
+    ``generate_primx_sharded`` with ``dit_param_rules()`` at a depth of
+    ``TP_GEN_DEPTH`` = 8 on a 5-step DDIM chain (two assets) and two
+    ``cli.train``
+    steps at ``train.mesh={dp: 1, tp: 2}`` (flagship width at 4 blocks,
     remat, batch 8, lr 1e-5, resumed from a step-0 checkpoint whose
     zero-init layers are filled, its gates at 1),
     each against one process on the same inputs and beside the planted
@@ -137,9 +138,17 @@ and 256 (their own instances) and 36, 88, 160 and 200 (zero-padded by the
 launchers to 64, 96 and 256) on the flagship's 2 x 2048 x {2048, 1370} x
 16, the head dims above 128 also at 2 x 4096 x 4096 x 16, each against
 its plain version at the kernels phase's bars, with a scale computed from
-the padded head dim as a planted fault, ms beside the bound and SDPA's;
-and the ring over two blocks at head dims 36 and 80. Its rows go into
-each kernel's entry of the kernels line under ``head_dims``.
+the padded head dim as a planted fault, ms beside the bound, SDPA's and
+the old form's in the log only (before the wide heads' redesign, copied
+from PERF.md, not measured by the run), the backward form the shape rule
+takes (``bwd_form``; ``flash_attention_backward`` launches that form and
+no other, within the bar), and the redesigned forms' own planted faults:
+the swizzled forward (above 80) with its second O column half left
+unrescaled, the 256 backward's dQ without its first 64-key block; and
+the ring over two blocks at head dims 36 and 80. Its rows go into each
+kernel's entry of the kernels line under ``head_dims``. The kernels
+phase prints the flagship rows (D 64 / 72) beside PERF.md's, and the
+script its total seconds before the kernels line.
 
 After serving_samplers, chain_graph holds ``sample_tokens``' CUDA graph
 (``pipelines/chain_graph.py``) against the eager chain at the flagship
@@ -386,11 +395,16 @@ RING_CASES = (("flagship", 2, 2048, (2, 4)), ("8192 prims", 1, 8192, (2,)))
 # (seed_checkpoint): at 4 blocks sound ranks read 2.6e-6 / 1.1e-5 /
 # 1.5e-3 / 2.8e-3, without the sync 1.8e-3 / 8.1e-3 / 8.9e-2 / 0.56, on
 # the same rows 1.3e-3 / 1.6e-3 / 4.4e-2 / 0.27: each fault crosses every
-# bar. Each bar sits between the sound reading and the faults', and each
-# fault must cross one
+# bar. At DP_DEPTH = 2 (two runs) sound ranks read 2.3e-6-5.9e-6 /
+# 7.6e-6-1.2e-5 / 1.45e-3 / 2.3e-3-2.4e-3, without the sync 7.1e-4 /
+# 4.2e-3 / 7.3e-2 / 0.53, on the same rows 2.3e-3 / 3.1e-3 / 4.3e-2 /
+# 0.28: each fault still crosses every bar, and sound ranks stay 13x or
+# more under each. Each bar sits between the sound reading and the
+# faults', and each fault must cross one
 # the dp phase's depth: the whole script's time; each of its checkpoints
-# is 13.6 GB at 28 blocks
-DP_DEPTH = 4
+# is 13.6 GB at 28 blocks (the phase took 82 s at 4 blocks on one H100
+# machine)
+DP_DEPTH = 2
 DP_LOSS_REL = 1e-4
 DP_GNORM_REL = 1e-3
 DP_MU_REL = 2e-2
@@ -658,7 +672,7 @@ def check_flash_backward(results: dict, randn) -> None:
                                  f"error {lse_err}")
         del o_ref, lse_ref
 
-        form = fa.bwd_form(Sk)
+        form = fa.bwd_form(Sk, D)
         got = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
@@ -754,6 +768,8 @@ def check_flash_backward(results: dict, randn) -> None:
                 f"PyTorch flash backward {lib_ms:.4f} ms ({how}; "
                 f"kernels/library {sum(times.values()) / lib_ms:.2f})"
                 if lib_ms else how))
+        if form == "fused":
+            vs_recorded("flash_attn_bwd", tag, times["flash_attn_bwd"])
         for name, rel in zip(("dq", "dk", "dv"), rels):
             if not rel <= ATTN_BWD_REL_BAR:
                 raise AssertionError(f"backward {tag} {name}: rel error {rel} "
@@ -779,6 +795,27 @@ def check_flash_backward(results: dict, randn) -> None:
         del dq_acc, dq, dk, dv, delta, o, lse
         torch.cuda.empty_cache()
     flash["lse_max_abs_err"] = lse_max
+
+
+# the flagship rows of PERF.md's kernel table (ms on an H100 80GB HBM3 at
+# 700 W): the D 64 / 72 instances, which the redesign of the wide heads
+# leaves as they were; the kernels phase prints each reading beside them
+FLAGSHIP_MS = {("flash_attn_fwd", "dit_self"): 0.1458,
+               ("flash_attn_fwd", "dit_cross"): 0.0522,
+               ("flash_attn_fwd", "dinov2"): 0.0254,
+               ("flash_attn_bwd", "dit_self"): 1.4142,
+               ("flash_attn_bwd", "dit_cross"): 0.9736}
+FLAGSHIP_TOL = 0.04
+
+
+def vs_recorded(name: str, tag: str, ms: float) -> None:
+    """Logs ``ms`` beside PERF.md's reading of the same row, if it has one."""
+    rec = FLAGSHIP_MS.get((name, tag))
+    if rec is not None:
+        ratio = ms / rec
+        log(f"  {name} {tag}: {ms:.4f} ms against PERF.md's {rec:.4f} ms, "
+            f"ratio {ratio:.3f} (within {FLAGSHIP_TOL:.0%}: "
+            f"{abs(ratio - 1) <= FLAGSHIP_TOL})")
 
 
 def phase_kernels() -> dict:
@@ -837,6 +874,7 @@ def phase_kernels() -> dict:
             f"({4 * B * H * Sq * Sk * D / ms / 1e9:.1f} TFLOP/s), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
             f"kernel/bound {ms / bound_ms:.2f}), {lib_msg}")
+        vs_recorded("flash_attn_fwd", tag, ms)
         if not rel <= ATTN_REL_BAR:
             raise AssertionError(f"flash_attn_fwd {tag}: rel error {rel} > "
                                  f"{ATTN_REL_BAR}")
@@ -898,19 +936,41 @@ def phase_kernels() -> dict:
 
 # flash_head_dims: the head dims of the instances past 72 and four that the
 # launchers zero-pad (36 -> 64, 88 -> 96, 160 and 200 -> 256), at the
-# flagship token counts; the wide heads also at 4096 tokens, where the
-# shape rule takes the pair
+# flagship token counts; the wide heads also at 4096 tokens, where JAX's
+# rule takes the pair and the port's (measured here) the single pass
 HEAD_DIM_CASES = (80, 96, 128, 36, 88, 256, 160, 200)
 HEAD_DIM_SHAPES = (("self", 2, 2048, 2048, 16), ("cross", 2, 2048, 1370, 16))
 HEAD_DIM_LONG = ("long", 2, 4096, 4096, 16)
+# the forms before the redesign of the wide heads (forward above 80,
+# flash_bwd_wide_kernel at 129-256), ms of forward / single pass / pair on
+# an H100 80GB HBM3 at 700 W as PERF.md records them (this phase, before
+# the redesign): copies, not readings of this run, so they go into the log
+# line beside today's for reference and never into the kernels line;
+# None: not recorded
+HEAD_DIM_OLD_MS = {
+    (80, "self"): (0.1541, 0.3786, 0.4385), (80, "cross"): (0.1155, None, None),
+    (96, "self"): (0.1835, 0.4169, 0.4969), (96, "cross"): (0.1364, None, None),
+    (128, "self"): (0.2540, 0.5574, 0.6061),
+    (128, "cross"): (0.1902, None, None),
+    (36, "self"): (0.1255, 0.3665, 0.4237), (36, "cross"): (0.0901, None, None),
+    (88, "self"): (0.1802, 0.4134, 0.4997), (88, "cross"): (0.1348, None, None),
+    (256, "self"): (0.5015, 4.3028, 2.0038),
+    (256, "cross"): (0.3706, 3.1920, 1.3710),
+    (256, "long"): (1.9492, 16.3071, 7.2568),
+    (160, "self"): (0.5016, 4.2189, 1.9637),
+    (160, "cross"): (0.3685, 3.2439, 1.3827),
+    (160, "long"): (1.9659, 16.5703, 7.3006),
+    (200, "self"): (0.5042, 4.2322, 1.9815),
+    (200, "cross"): (0.3720, 3.2351, 1.3763),
+    (200, "long"): (1.9919, 16.3707, 7.3365)}
 
 
 def padded_bwd_launch(form: str, q, k, v, o, lse, do, scale: float):
     """(dq, dk, dv) of one backward form launched on q, k, v, o, dO
     zero-padded in D to their instance, sliced back: ``fused`` (#4) or
-    ``pair`` (#5 then #6), whatever the shape rule would take; and a
-    callable that launches the same kernels again on the padded inputs
-    (for timing: the pad is not in it)."""
+    ``pair`` (#5 then #6), whatever the shape rule would take; a callable
+    that launches the same kernels again on the padded inputs (for
+    timing: the pad is not in it); and one callable a kernel, by name."""
     import torch
     import torch.nn.functional as F
 
@@ -922,23 +982,25 @@ def padded_bwd_launch(form: str, q, k, v, o, lse, do, scale: float):
                            for t in (q, k, v, o, do))
     dk = torch.empty_like(kp)
     dv = torch.empty_like(vp)
+    # the pair's dq pass writes delta for its dk/dv pass; at 256 the
+    # single pass writes it for itself
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if form == "fused":
         dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
-
-        def launch():
-            fa._bwd_launch("flash_attn_bwd", qp, kp, vp, op, lse, dop, None,
-                           dq, dk, dv, scale)
+        outs = {"flash_attn_bwd": (delta, dq, dk, dv)}
     else:
         dq = torch.empty_like(qp)
-        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        outs = {"flash_attn_bwd_dq": (delta, dq, None, None),
+                "flash_attn_bwd_dkv": (delta, None, dk, dv)}
+    parts = {name: (lambda name=name: fa._bwd_launch(
+        name, qp, kp, vp, op, lse, dop, *outs[name], scale)) for name in outs}
 
-        def launch():
-            fa._bwd_launch("flash_attn_bwd_dq", qp, kp, vp, op, lse, dop,
-                           delta, dq, None, None, scale)
-            fa._bwd_launch("flash_attn_bwd_dkv", qp, kp, vp, op, lse, dop,
-                           delta, None, dk, dv, scale)
+    def launch():
+        for part in parts.values():
+            part()
+
     launch()
-    return (dq[..., :D].to(q.dtype), dk[..., :D], dv[..., :D]), launch
+    return (dq[..., :D].to(q.dtype), dk[..., :D], dv[..., :D]), launch, parts
 
 
 def phase_flash_head_dims() -> dict:
@@ -946,10 +1008,17 @@ def phase_flash_head_dims() -> dict:
     on the flagship's token counts (16 heads, batch 2): each against its
     plain version at the kernels phase's bars, a planted fault (the scale
     computed from the padded head dim) above them, ms beside the bound
-    (counted at the true head dim) and SDPA's; then the ring over two
-    blocks at a padded head dim. Returns the rows for the kernels line."""
+    (counted at the true head dim), SDPA's and, in the log only, the old
+    form's (``HEAD_DIM_OLD_MS``); the backward form ``bwd_form`` takes. The
+    redesigned kernels' own faults: for the forward above 80 (swizzled,
+    two O column halves sharing one softmax) the second half left
+    unrescaled, for the 256 backward (dQ summed over 64-key blocks) dQ
+    without the first block; each lands above its bar. Then the ring over
+    two blocks at a padded head dim. Returns the rows for the kernels
+    line."""
     import torch
 
+    from topiaxl_torch.ops import _cuda
     from topiaxl_torch.ops import flash_attention as fa
     from topiaxl_torch.ops.ring_attention import (LocalRing, ring_backward,
                                                   ring_forward)
@@ -989,21 +1058,53 @@ def phase_flash_head_dims() -> dict:
                 bwd_fault = max(rel_err(a, b) for a, b in zip(
                     fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                  inst ** -0.5), ref))
+            # the redesigned forms' planted faults (plain versions on the
+            # same inputs): the swizzled forward's second O half left
+            # unrescaled; the 256 backward's dQ without one key block
+            design = {}
+            if inst > 80:
+                design["o half unrescaled"] = (rel_err(
+                    fa.flash_attention_online(q, k, v, scale,
+                                              fa.fwd_key_tile(D),
+                                              stale_half=True), o_ref),
+                    ATTN_REL_BAR)
+            if inst == fa.HEAD_DIMS[-1]:
+                design["dq without a key block"] = (rel_err(
+                    fa.flash_attention_bwd_dq_blocks(q, k, v, o, lse, do,
+                                                     scale, drop=0),
+                    ref[0]), ATTN_BWD_REL_BAR)
             qp, kp, vp = (torch.nn.functional.pad(t, (0, inst - D))
                           for t in (q, k, v))
             fwd_ms = cuda_ms(lambda: fa._forward(qp, kp, vp, scale, False), 20)
             fwd_bound = bound(4 * B * H * Sq * Sk * D,
                               2 * (2 * B * Sq + 2 * B * Sk) * H * D)
             sdpa_ms, sdpa_how = sdpa_forward_ms(q, k, v, scale, 20)
-            forms = {}
+            forms, pass_ms = {}, {}
             for form in ("fused", "pair"):
-                got, launch = padded_bwd_launch(form, q, k, v, o, lse, do,
-                                                scale)
+                got, launch, parts = padded_bwd_launch(form, q, k, v, o, lse,
+                                                       do, scale)
                 torch.cuda.synchronize()
                 rels = [rel_err(a, b) for a, b in zip(got, ref)]
                 errs = [(a.float() - b.float()).abs().max().item()
                         for a, b in zip(got, ref)]
                 forms[form] = (rels, max(errs), cuda_ms(launch, 5))
+                if form == "pair":   # each pass alone (#6 after #5's delta)
+                    pass_ms = {n: cuda_ms(p, 5) for n, p in parts.items()}
+            # the wrapper takes the rule's form, and only its kernels
+            rule_form = fa.bwd_form(Sk, D)
+            before = dict(_cuda.launches)
+            rule_rel = max(rel_err(a, b) for a, b in zip(
+                fa.flash_attention_backward(q, k, v, o, lse, do, scale), ref))
+            torch.cuda.synchronize()
+            rule_launches = {n: _cuda.launches[n] - before[n]
+                             for n in rows if n != "flash_attn_fwd"}
+            want = ({"flash_attn_bwd": 1} if rule_form == "fused" else
+                    {"flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1})
+            if ({n: c for n, c in rule_launches.items() if c} != want
+                    or not rule_rel <= ATTN_BWD_REL_BAR):
+                raise AssertionError(f"head dim {D} {tag}: the rule's form "
+                                     f"{rule_form} launched {rule_launches}, "
+                                     f"grads {rule_rel}")
             plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(
                 q, k, v, scale), 3)
             plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
@@ -1021,7 +1122,13 @@ def phase_flash_head_dims() -> dict:
             pair_bound = bounds["dq"][0] + bounds["dkv"][0]
             fault_msg = (f"; padded-scale fault o {fault:.3e}, grads "
                          f"{bwd_fault:.3e}" if fault is not None
-                         else "; own instance")
+                         else "; own instance") + "".join(
+                f"; {name} fault {val:.3e} (bar {bar})"
+                for name, (val, bar) in design.items())
+            old = HEAD_DIM_OLD_MS.get((D, tag), (None,) * 3)
+            old_msg = ", ".join(
+                f"{n} {t:.4f}" for n, t in zip(("forward", "single pass",
+                                                "pair"), old) if t)
             lib_f = (f"sdpa {sdpa_ms:.4f} ms" if sdpa_ms
                      else f"sdpa: {sdpa_how[:60]}")
             lib_b = (f"PyTorch flash backward {lib_bwd:.4f} ms" if lib_bwd
@@ -1029,13 +1136,22 @@ def phase_flash_head_dims() -> dict:
             log(f"  head dim {D} (instance {inst}) {tag} {shape}: forward o "
                 f"max rel err {o_rel:.3e} (bar {ATTN_REL_BAR}), lse "
                 f"{lse_err:.3e}; {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f} ms, "
-                f"{fwd_bound[1]}), plain {plain_fwd:.4f} ms, {lib_f}; single "
-                f"pass dq/dk/dv {'/'.join(f'{r:.3e}' for r in forms['fused'][0])}"
-                f" {forms['fused'][2]:.4f} ms (bound {bounds['fused'][0]:.4f}); "
-                f"pair {'/'.join(f'{r:.3e}' for r in forms['pair'][0])} "
-                f"{forms['pair'][2]:.4f} ms (bound {pair_bound:.4f}); plain "
+                f"{fwd_bound[1]}; share {fwd_bound[0] / fwd_ms:.1%}), plain "
+                f"{plain_fwd:.4f} ms, {lib_f}; single pass dq/dk/dv "
+                f"{'/'.join(f'{r:.3e}' for r in forms['fused'][0])} "
+                f"{forms['fused'][2]:.4f} ms (bound {bounds['fused'][0]:.4f}; "
+                f"share {bounds['fused'][0] / forms['fused'][2]:.1%}); pair "
+                f"{'/'.join(f'{r:.3e}' for r in forms['pair'][0])} "
+                f"{forms['pair'][2]:.4f} ms (bound {pair_bound:.4f}; share "
+                f"{pair_bound / forms['pair'][2]:.1%}; #5 "
+                f"{pass_ms['flash_attn_bwd_dq']:.4f}, #6 "
+                f"{pass_ms['flash_attn_bwd_dkv']:.4f} ms alone); plain "
                 f"backward {plain_bwd:.4f} ms, {lib_b} (bar "
-                f"{ATTN_BWD_REL_BAR}{fault_msg}) ({card_id})")
+                f"{ATTN_BWD_REL_BAR}{fault_msg}); the rule takes "
+                f"{rule_form} (through the wrapper: max rel err "
+                f"{rule_rel:.3e}); the old form's ms (PERF.md): "
+                f"{old_msg or 'not recorded'}"
+                f" ({card_id})")
             if not (o_rel <= ATTN_REL_BAR and lse_err <= LSE_ABS_BAR):
                 raise AssertionError(f"head dim {D} {tag}: forward {o_rel}, "
                                      f"lse {lse_err}")
@@ -1046,7 +1162,11 @@ def phase_flash_head_dims() -> dict:
                                           and bwd_fault > ATTN_BWD_REL_BAR):
                 raise AssertionError(f"head dim {D} {tag}: the bars cannot see "
                                      f"a padded scale ({fault}, {bwd_fault})")
-            at = dict(at=shape, instance=inst)
+            for name, (val, bar) in design.items():
+                if not val > bar:
+                    raise AssertionError(f"head dim {D} {tag}: the bar {bar} "
+                                         f"cannot see the fault {name} ({val})")
+            at = dict(at=shape, instance=inst, bwd_form=rule_form)
             rows["flash_attn_fwd"].append(dict(
                 at, ms=fwd_ms, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                 plain_ms=plain_fwd, library_ms=sdpa_ms, max_abs_err=o_abs,
@@ -1059,7 +1179,8 @@ def phase_flash_head_dims() -> dict:
             for name, key in (("flash_attn_bwd_dq", "dq"),
                               ("flash_attn_bwd_dkv", "dkv")):
                 rows[name].append(dict(
-                    at, pair_ms=forms["pair"][2], bound_ms=bounds[key][0],
+                    at, ms=pass_ms[name], pair_ms=forms["pair"][2],
+                    bound_ms=bounds[key][0],
                     bound_by=bounds[key][1], plain_ms=plain_bwd,
                     library_ms=lib_bwd, max_abs_err=forms["pair"][1],
                     max_rel_err=max(forms["pair"][0])))
@@ -2925,7 +3046,7 @@ def phase_ring() -> dict:
             fwd_ms = events_ms(lambda: ring_forward(ring, qs, ks, vs, scale), 5)
             bwd_ms = events_ms(lambda: ring_backward(
                 ring, qs, ks, vs, outs, lses, dos, scale), 5)
-            form = fa.bwd_form(N // P)
+            form = fa.bwd_form(N // P, 72)
             want_fwd = {"flash_attn_fwd": P * P}
             want_bwd = ({"flash_attn_bwd": P * P} if form == "fused" else
                         {"flash_attn_bwd_dq": P * P,
@@ -3137,12 +3258,12 @@ def phase_dp(tmp: str) -> None:
 
 # tp: a tensor-parallel rank pair (dp 1 x tp 2) against one process, bf16
 # on both: generation's PrimX (max |a - b| / max |b| of srt and of feat)
-# after a 5-step DDIM chain over the full-depth DiT, and two cli.train
-# steps' loss, grad norm, Adam mu and update (as in dp). Each rank rounds
+# after a 5-step DDIM chain over a DiT of TP_GEN_DEPTH blocks, and two
+# cli.train steps' loss, grad norm, Adam mu and update (as in dp). Each rank rounds
 # its partial products to bf16 before the all-reduce, which one process
 # does not. The planted fault (qkv's rows split as one block: rank 0 holds
 # all of q and half of k) must cross a bar. On an H100 sound ranks read
-# srt / feat 2.4e-2 / 4.2e-2 (fault 0.128 / 0.208). Training
+# srt / feat 2.4e-2 / 4.2e-2 at 28 blocks (fault 0.128 / 0.208). Training
 # TP_TRAIN_DEPTH = 8 blocks with the filled gates at ~0.03, loss / grad
 # norm / mu / update read 9.7e-6 / 3.8e-5 / 1.37e-3 / 1.52e-2 and the fault
 # 2.1e-4 / 3.2e-4 / 4.8e-2 / 0.743: attention reached the loss so weakly
@@ -3152,6 +3273,13 @@ def phase_dp(tmp: str) -> None:
 # at gates of 1 and 1.6e-3 at 0.3. Gates of 1 at 1e-5 read 1.1e-4 /
 # 1.2e-3 / 3.7e-3 / 2.6e-2, the fault 3.3e-2 / 3.9e-2 / 1.29 / 1.28
 # (gates of 0.3: the fault's grad norm 9.3e-3, under its bar).
+# At the cut depths (two runs each): generation at TP_GEN_DEPTH = 8 reads
+# srt / feat 2.1e-2 / 3.7e-2 sound and 5.5e-2 / 0.198 faulted (the check
+# takes the larger of the two: 3.7e-2 sound, 1.3x under the bar, and
+# 0.198 faulted, 3.9x over it); training at TP_TRAIN_DEPTH = 4 reads loss
+# / grad norm / mu / update 4.3e-4-4.9e-4 / 1.5e-3-1.6e-3 / 2.3e-3 /
+# 2.2e-2 sound (2x or more under each bar) and 8.7e-2 / 0.117 / 1.20 /
+# 1.24 faulted (over every bar).
 TP_GEN_REL = 5e-2
 TP_BARS = {"loss": 1e-3, "grad norm": 1e-2, "Adam mu": 5e-2, "update": 0.3}
 TP_TRAIN_GATE = 1.0
@@ -3170,17 +3298,23 @@ PP_DEPTH = 8
 # resumed on tp = 2 (bf16 rounding as above)
 RESTORE_LOSS_REL = 1e-3
 TP_GEN_STEPS = 5
+# the tp generation's depth (flagship width): at 28 blocks each of its two
+# chains over gloo took 15.4 s of the phase's 138.6 s on one H100 machine
+TP_GEN_DEPTH = 8
 # the tp trainer's depth (flagship width): at 28 blocks each of the phase's
 # four 13.6 GB checkpoints is written and read through the host, and the
-# phase took 244-561 s on one H100 machine
-TP_TRAIN_DEPTH = 8
+# phase took 244-561 s on one H100 machine (107 s at 8 blocks, generation
+# at TP_GEN_DEPTH)
+TP_TRAIN_DEPTH = 4
 # per step with remat on each tp rank: the trainer's launches at that depth
 # (every block runs on each rank, on half the heads; its forward twice)
 TP_TRAIN_LAUNCHES = train_launches(True, TP_TRAIN_DEPTH)
-TP_GEN_LAUNCHES = {"flash_attn_fwd": TP_GEN_STEPS * 56, "flash_attn_bwd": 0,
-                   "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                   "ln_modulate": TP_GEN_STEPS * 29,
-                   "ln_modulate_residual": TP_GEN_STEPS * 56, **NO_PROBES}
+TP_GEN_LAUNCHES = {"flash_attn_fwd": TP_GEN_STEPS * 2 * TP_GEN_DEPTH,
+                   "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
+                   "flash_attn_bwd_dkv": 0,
+                   "ln_modulate": TP_GEN_STEPS * (TP_GEN_DEPTH + 1),
+                   "ln_modulate_residual": TP_GEN_STEPS * 2 * TP_GEN_DEPTH,
+                   **NO_PROBES}
 
 
 # the ranks of the tp, pp and restore phases: argv[1] is the repository,
@@ -3269,7 +3403,8 @@ def resume_from(seed_ckpt: str, overrides: list) -> list:
 def tp_generate_inputs(assets: int = 2):
     """The flagship DiT (bf16, enlivened) and VAE, a DDIM chain of
     TP_GEN_STEPS, conditioning and initial noise for ``assets`` assets,
-    all from seeds on the card: the same in every process."""
+    all from seeds on the card: the same in every process. The DiT has
+    TP_GEN_DEPTH blocks."""
     import torch
 
     import topiaxl_torch.registry  # noqa: F401
@@ -3277,7 +3412,8 @@ def tp_generate_inputs(assets: int = 2):
     from topiaxl_torch.diffusion.schedule import create_diffusion
     from topiaxl_torch.models.latent_stats import resolve_latent_stats
 
-    cfg = load_config(FLAGSHIP)
+    cfg = load_config(FLAGSHIP,
+                      overrides=[f"model.generator.depth={TP_GEN_DEPTH}"])
     dev = torch.device("cuda")
     dit = enliven_(build(cfg.model.generator, device=dev, generator=torch.
                          Generator(dev).manual_seed(3)).eval(), 4)
@@ -3517,8 +3653,9 @@ def read_ranks(out: str, n: int) -> list:
 
 def phase_tp(tmp: str) -> None:
     """Tensor parallelism over two ranks on the one card (dp 1 x tp 2,
-    gloo): ``generate_primx_sharded`` with ``dit_param_rules()`` at the
-    full depth on a short DDIM chain, and two ``cli.train`` steps at
+    gloo): ``generate_primx_sharded`` with ``dit_param_rules()`` at
+    ``TP_GEN_DEPTH`` blocks on a short DDIM chain, and two ``cli.train``
+    steps at
     ``train.mesh={dp: 1, tp: 2}`` (flagship width at ``TP_TRAIN_DEPTH``
     blocks, remat, batch 8, lr ``TP_TRAIN_LR``, resumed from an enlivened
     step-0 checkpoint whose gates are ``TP_TRAIN_GATE``), each against one
@@ -3598,9 +3735,11 @@ def phase_tp(tmp: str) -> None:
             f"{res['peak_gib']:.2f} GiB, parts gather back exactly: "
             f"{res['gathers_exact']}")
         if launches != TP_GEN_LAUNCHES or res["heads"] != {
-                "8": TP_GEN_STEPS * 56} or not res["gathers_exact"]:
+                "8": TP_GEN_LAUNCHES["flash_attn_fwd"]} or not res[
+                    "gathers_exact"]:
             raise AssertionError(f"tp generate rank {r}: {res}")
-    log(f"  tp generate (2 assets, {TP_GEN_STEPS} DDIM steps, depth 28): srt "
+    log(f"  tp generate (2 assets, {TP_GEN_STEPS} DDIM steps, depth "
+        f"{TP_GEN_DEPTH}): srt "
         f"/ feat max rel err vs one process {sound[0]:.3e} / {sound[1]:.3e} "
         f"(bar {TP_GEN_REL}); contiguous-qkv fault {fault[0]:.3e} / "
         f"{fault[1]:.3e} ({card_id})")
@@ -3867,6 +4006,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
 
+    t_start = time.perf_counter()
     with Phase("device"):
         phase_device()
     with Phase("build"):
@@ -3961,6 +4101,8 @@ def main() -> int:
                     launches=launches[name], **results[name])
                for name, (src, rep) in KERNELS.items()]
     log(f"ring launches (kernels line: main paths only): {ring_launches}")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
+        f" s (limit 1200 s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,16 +3,24 @@ to the kernels exactly where JAX's rule sends it to its Pallas kernel
 (``Sk >= 512`` and ``D >= 64``) up to the widest instance, 256; the
 zero-padding of the head dim that the launchers do on the card leaves
 every output of the plain versions as it was (the identities they rely
-on); at head dims 160, 200 and 256 the plain forward and its gradients
-match JAX's flash attention and its custom VJP (the Pallas kernels in
-interpret mode); and a DiT with 80-wide heads, whose attention takes the
-flash route, matches JAX's.
+on); the kernels' designs above head dim 80 rely on three more
+identities (dq summed over 64-key blocks, dk and dv from P^T and dS^T
+split by query halves, o in two column halves under one online
+softmax), each with its planted fault; the backward form is the one
+measured faster at the 256 instance and JAX's rule elsewhere; at head
+dims 160, 200 and 256 the plain forward and its gradients match JAX's
+flash attention and its custom VJP (the Pallas kernels in interpret
+mode), and at 320, above every instance, so does the port's einsum form;
+and a DiT with 80-wide heads, whose attention takes the flash route,
+matches JAX's.
 
 Bars: the padded plain forward's o and lse and the padded plain
 backward's dq, dk and dv, sliced back, within 1e-6 of the largest value
 of the unpadded ones (f32; the padding adds exact zeros, the summation
 order over D may change); a scale computed from the padded head dim (a
-planted fault) moves o by more than 1e-2 of it. Against JAX: o within
+planted fault) moves o by more than 1e-2 of it. The design identities
+within 1e-6 of the largest value (f32, only the summation order
+changes), each planted fault above 1e-2. Against JAX: o within
 1e-5 and the gradients within 5e-5 (``tests/test_torch_ops.py``'s bars).
 The DiT's CFG step within 1e-4 of JAX's (``tests/test_torch_models.py``'s
 bar).
@@ -111,6 +119,86 @@ def test_zero_padding_the_head_dim_changes_no_output(d):
     assert rel > 1e-2, rel
 
 
+def test_backward_form_is_measured_at_the_256_instance():
+    """Head dims 129-256 take the single pass at every key length: on the
+    card it beat the pair there at 2048, 1370 and 4096 keys (head dims
+    160, 200 and 256). Every other head dim keeps JAX's rule, the single
+    pass up to 2048 keys and the pair above."""
+    for d, sk in ((256, 4096), (160, 4096), (200, 4096), (256, 2048),
+                  (256, 1370)):
+        assert fa.bwd_form(sk, d) == "fused", (sk, d)
+    assert fa.bwd_form(4096, 128) == "two_pass"
+    for d in range(1, 300):
+        wide = 128 < d <= 256
+        for sk in (1, 700, 1370, fa.FUSED_BWD_MAX_KEYS):
+            assert fa.bwd_form(sk, d) == "fused", (sk, d)
+        for sk in (fa.FUSED_BWD_MAX_KEYS + 1, 4096, 8192):
+            want = "fused" if wide else "two_pass"
+            assert fa.bwd_form(sk, d) == want, (sk, d)
+
+
+def _design_inputs(d, sq=150, sk=200):
+    """f32 q, k, v, dO [2, sq, 2, d] / [2, sk, 2, d] (ragged against the
+    64-row q tiles and 64-key blocks), o and lse of the plain forward."""
+    g = torch.Generator().manual_seed(d)
+    q, do = (torch.randn((2, sq, 2, d), generator=g) for _ in range(2))
+    k, v = (torch.randn((2, sk, 2, d), generator=g) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale, return_lse=True)
+    return q, k, v, do, o, lse, scale
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("identity,d", [("dq_by_key_blocks", 256),
+                                        ("dkdv_by_query_halves", 256),
+                                        ("o_by_column_halves", 96),
+                                        ("o_by_column_halves", 128),
+                                        ("o_by_column_halves", 256)])
+def test_wide_kernel_designs_rely_on_identities(identity, d):
+    """What the redesigned kernels compute, on the plain versions in f32:
+    the 256 backward adds dq over 64-key blocks (one block of the grid
+    each) and splits S^T and dP^T by query halves of each 64-row q tile,
+    the two halves recombined through P^T and dS^T in shared memory; the
+    forward above 80 keeps O in two column halves under one running max
+    and denominator over key tiles of ``fwd_key_tile(d)`` keys. Each
+    equals the plain result; its planted fault (a block left out, a half
+    dropped, the second O half never rescaled) lands above 1e-2."""
+    q, k, v, do, o, lse, scale = _design_inputs(d)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    if identity == "dq_by_key_blocks":
+        got = fa.flash_attention_bwd_dq_blocks(q, k, v, o, lse, do, scale)
+        assert _rel(got, dq) <= REL
+        fault = fa.flash_attention_bwd_dq_blocks(q, k, v, o, lse, do, scale,
+                                                 drop=0)
+        assert _rel(fault, dq) > 1e-2
+    elif identity == "dkdv_by_query_halves":
+        p, ds = fa._bwd_p_ds(q, k, v, lse, fa.flash_attention_bwd_delta(
+            o, do), do, scale)
+        parts = []   # (dk, dv) of each 32-query half of each q tile
+        for r0 in range(0, q.shape[1], 32):
+            rows = slice(r0, r0 + 32)
+            parts.append((
+                torch.einsum("bhqk,bqhd->bkhd", ds[:, :, rows], q[:, rows]),
+                torch.einsum("bhqk,bqhd->bkhd", p[:, :, rows], do[:, rows])))
+        got_dk = sum(a for a, _ in parts) * scale
+        got_dv = sum(b for _, b in parts)
+        assert _rel(got_dk, dk) <= REL and _rel(got_dv, dv) <= REL
+        one_half = sum(b for i, (_, b) in enumerate(parts) if i % 2 == 0)
+        assert _rel(one_half, dv) > 1e-2
+    else:
+        ref = fa.flash_attention_plain(q, k, v, scale)
+        tile = fa.fwd_key_tile(d)
+        assert tile == (64 if d == 256 else 128)
+        got = fa.flash_attention_online(q, k, v, scale, tile)
+        assert _rel(got, ref) <= REL
+        fault = fa.flash_attention_online(q, k, v, scale, tile,
+                                          stale_half=True)
+        assert _rel(fault, ref) > 1e-2
+
+
 def test_launchers_refuse_a_head_dim_above_128_on_a_card_only():
     """The CPU takes the plain version at any head dim; the launchers'
     refusal of a head above the widest instance (256 since the wide
@@ -122,15 +210,19 @@ def test_launchers_refuse_a_head_dim_above_128_on_a_card_only():
         fa._instance(264)
 
 
-@pytest.mark.parametrize("d", [160, 200, 256])
+@pytest.mark.parametrize("d", [160, 200, 256, 320])
 def test_wide_heads_plain_matches_jax_flash(d):
     """The plain twin of the launchers at head dims 160 and 200 (padded to
     256 on the card) and 256, forward and gradients, against JAX's
     ``flash_attention`` and its custom VJP (the Pallas forward and
-    single-pass backward in interpret mode), 2 x 80 x 130 x 2 x D."""
+    single-pass backward in interpret mode), 2 x 80 x 130 x 2 x D. At 320,
+    above every instance, the port's attention takes its einsum form at
+    any key length (``use_flash``) and still agrees with JAX's kernels:
+    the head has no kernel yet, but its result is JAX's."""
     import jax
 
     from topiaxl.ops.flash_attention import flash_attention as jax_flash
+    from topiaxl_torch.ops.attention import multi_head_attention
 
     rng = np.random.default_rng(40 + d)
     q = rng.standard_normal((2, 80, 2, d)).astype(np.float32)
@@ -141,7 +233,11 @@ def test_wide_heads_plain_matches_jax_flash(d):
     ref_out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, scale),
                            *map(jnp.asarray, (q, k, v)))
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    out = fa.flash_attention(*ts, scale)
+    if fa.kernel_head_dim(d) is None:
+        assert not use_flash(4096, d)
+        out = multi_head_attention(*ts, scale)
+    else:
+        out = fa.flash_attention(*ts, scale)
     out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
                                atol=1e-5, rtol=0)

@@ -145,7 +145,7 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
     o = flash_attention(q, k, v, scale)
     lse = o.grad_fn.saved_tensors[4]
     o.backward(do)
-    names = (["flash_attn_bwd"] if bwd_form(Sk) == "fused"
+    names = (["flash_attn_bwd"] if bwd_form(Sk, D) == "fused"
              else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
     for name in ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         assert _cuda.launches[name] == before[name] + (name in names)
@@ -178,7 +178,7 @@ def test_flash_head_dims_match_plain(dev, D, Sk):
     o = flash_attention(q, k, v, scale)
     lse = o.grad_fn.saved_tensors[4]
     o.backward(do)
-    names = (["flash_attn_bwd"] if bwd_form(Sk) == "fused"
+    names = (["flash_attn_bwd"] if bwd_form(Sk, D) == "fused"
              else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
     for name in ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_dq",
                  "flash_attn_bwd_dkv"):
@@ -242,7 +242,7 @@ def test_ring_over_local_blocks_matches_one_launch(dev, P, N):
     outs, lses = ring_forward(ring, qs, ks, vs, scale)
     grads = ring_backward(ring, qs, ks, vs, outs, lses, dos, scale)
     torch.cuda.synchronize()
-    names = (["flash_attn_bwd"] if bwd_form(N // P) == "fused"
+    names = (["flash_attn_bwd"] if bwd_form(N // P, 72) == "fused"
              else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
     assert _cuda.launches["flash_attn_fwd"] == before["flash_attn_fwd"] + P * P
     for name in names:
@@ -270,7 +270,7 @@ def test_two_pass_backward_repeats_bit_for_bit(dev):
     o = flash_attention(q.requires_grad_(), k, v, scale)
     lse = o.grad_fn.saved_tensors[4]
     args = (q.detach(), k, v, o.detach(), lse, do, scale)
-    assert bwd_form(Sk) == "two_pass"
+    assert bwd_form(Sk, D) == "two_pass"
     before = dict(_cuda.launches)
     first = flash_attention_backward(*args)
     second = flash_attention_backward(*args)

@@ -481,9 +481,13 @@ def test_flash_lse_matches_jax_kernel():
 
 def test_backward_form_is_a_shape_rule():
     """The single pass while the whole KV is one block of at most 2048
-    keys (the DiT's self- and cross-attention), the two-pass pair above."""
-    assert bwd_form(2048) == bwd_form(1370) == bwd_form(1) == "fused"
-    assert bwd_form(FUSED_BWD_MAX_KEYS + 1) == bwd_form(4096) == "two_pass"
+    keys (the DiT's self- and cross-attention), the two-pass pair above,
+    at every head dim up to 128 (JAX's rule)."""
+    for d in (64, 72, 80, 128):
+        assert (bwd_form(2048, d) == bwd_form(1370, d) == bwd_form(1, d)
+                == "fused")
+        assert (bwd_form(FUSED_BWD_MAX_KEYS + 1, d) == bwd_form(4096, d)
+                == "two_pass")
 
 
 def test_backward_without_delta_fault():

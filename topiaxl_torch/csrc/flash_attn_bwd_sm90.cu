@@ -5,7 +5,9 @@
 //     into a zeroed f32 [B, Sq, H, D] buffer. Replaces the TPU kernel
 //     topiaxl/ops/flash_attention.py:_flash_bwd_fused_kernel (:369), the
 //     backward taken when the keys fit one block (Sk <= 2048: the DiT's
-//     self- and cross-attention);
+//     self- and cross-attention), and at head dims 129-256 at every Sk,
+//     because the card measured it faster than the pair there
+//     (ops/flash_attention.py:bwd_form);
 //   * the dk/dv pass of the two-pass pair (flash_attn_bwd_dkv, !kWithDq):
 //     reads delta = rowsum(dO * o), f32 [B, H, Sq], from the scratch the
 //     dq pass (flash_attn_bwd.cu) wrote before it on the same stream, in
@@ -59,23 +61,42 @@
 //     products before the next (kKvRegs false: dK and dV alone take D
 //     registers a thread), the single pass splits dQ's columns in halves,
 //     and at 128 its consumers take 240 registers and the producer 24;
-//   * head dim 256 has a kernel of its own (flash_bwd_wide_kernel, both
-//     variants): dK and dV of 64 keys at 256 columns would take 256
-//     registers a thread in one warpgroup, so a block owns 64 keys and its
-//     two consumer warpgroups split the columns, each accumulating dK and
-//     dV over its 128 (128 registers a thread). Each computes S^T and dP^T
-//     of the 64 keys in full (the same products twice: neither waits on
-//     the other's softmax); in the single pass warpgroup 0 puts dS^T into
-//     shared memory, each computes its 128 columns of dQ (64 at a time)
-//     and adds them to the f32 scratch with atomics, and the producer
-//     reads o for delta from device memory (Q and dO stages leave no room
-//     for o or staging tiles). Every product is waited on before the
-//     next: a simple form;
-//   * tiles use the no-swizzle core-matrix layout of sm90.cuh, so head
-//     dim 72 needs no swizzle span; the contraction over D runs to 80,
-//     with the 10th chunk of K, V, Q and dO zeroed once and never loaded;
-//     the [B, S, H, D] strides go into tensor maps, so the DiT's
-//     qkv.unbind(2) views are read without a copy.
+//   * head dims 129-256 (padded to 256) have a kernel of their own,
+//     flash_bwd_wide_kernel, both variants. dK and dV of 64 keys at 256
+//     columns would take 256 registers a thread in one warpgroup, so a
+//     block owns 64 keys and its two consumer warpgroups split the columns,
+//     each accumulating dK and dV over its 128 (128 registers a thread).
+//     The rest of the design keeps each product once a block and the
+//     tensor cores fed:
+//       - S^T = K Q^T and dP^T = V dO^T are split by queries: each
+//         warpgroup computes its 32 of the q tile's 64 (m64n32, K and V
+//         K-major A over D), so the block runs each of the five products
+//         once; P^T and dS^T (bf16, 8 KiB each, two buffers so that one
+//         barrier a tile orders them) pass through shared memory, where
+//         dV += P^T dO and dK += dS^T Q over a warpgroup's 128 columns
+//         read all 64 queries (m64n128, A from shared memory);
+//       - dQ = dS K (single pass) in two 64-column halves a warpgroup,
+//         staged as f32 in the warpgroup's own boxes of the spent Q/dO
+//         stage (32-column boxes, 128-byte swizzle) and added to the f32
+//         scratch by four bulk TMA reduce-adds a tile, with no atomic per
+//         element; the stage goes back to the producer once the
+//         reduce-adds have read it, and the second half runs beside the
+//         next tile's S^T and dP^T;
+//       - delta = rowsum(dO * o) comes from a pass of its own ahead of the
+//         single pass (flash_bwd_delta_kernel, one warp a row), as the
+//         dk/dv pass reads it from the dq pass's scratch: read by the
+//         producer in the kernel, o took a device-memory round trip a row
+//         and held the consumers up;
+//       - the dk/dv pass queues S^T and dP^T of tile i + 1 behind dV and
+//         dK of tile i;
+//       - K, V, Q and dO arrive in 64-column boxes with the 128-byte
+//         swizzle (four a tile), the loop-invariant K and V descriptors
+//         kept out of registers across the loop (opaque_desc);
+//   * below 256 the tiles use the no-swizzle core-matrix layout of
+//     sm90.cuh, so head dim 72 needs no swizzle span; the contraction over
+//     D runs to 80, with the 10th chunk of K, V, Q and dO zeroed once and
+//     never loaded; the [B, S, H, D] strides go into tensor maps, so the
+//     DiT's qkv.unbind(2) views are read without a copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,14 +153,16 @@ struct Bwd {
 
 struct BwdArgs {
   const float* lse;      // [B, H, Sq] contiguous
-  const float* delta;    // [B, H, Sq] contiguous (the dk/dv pass)
+  // [B, H, Sq] contiguous: read by the dk/dv pass, and at head dim 256 by
+  // the single pass too, after its delta pass wrote it
+  const float* delta;
   __nv_bfloat16* dk;     // [B, Sk, H, D] contiguous
   __nv_bfloat16* dv;
-  // head dim 256, the single pass: the f32 dq scratch [B, Sq, H, D]
-  // (contiguous) and o [B, Sq, H, D] at strides osb, oss, osh
-  float* dq;
+  // head dim 256, the single pass: o and dO [B, Sq, H, D] at their
+  // strides, which the delta pass reads (writing delta)
   const __nv_bfloat16* o;
-  long long osb, oss, osh;
+  const __nv_bfloat16* dout;
+  long long osb, oss, osh, dosb, doss, dosh;
   int H, Sq, Sk;
   float scale, scale_log2;
 };
@@ -580,27 +603,171 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
 
 constexpr int kWideD = 256;
 constexpr int kWideN = 64;       // keys per block
-constexpr int kWideCols = 128;   // dK, dV (and dQ) columns per warpgroup
+constexpr int kWideCols = 128;   // dK, dV and dQ columns per warpgroup
+constexpr int kWideQ = 32;       // S^T, dP^T queries per warpgroup
+constexpr int kWideBox = 64;     // bf16 columns per TMA box (128-byte swizzle)
+constexpr int kWideBoxBytes = kWideBox * 2 * 64;   // one box of 64 rows
+constexpr int kDqBox = 32;       // f32 dQ columns per reduce-add box
 
 template <bool kWithDq>
 struct Wide {
   static constexpr int kStages = 2;                       // Q / dO ring depth
-  static constexpr int kChunks = kWideD / 8;
-  static constexpr int kKElems = kChunks * kWideN * 8;    // K or V
-  static constexpr int kQElems = kChunks * kBlockM * 8;   // Q or dO stage
-  static constexpr int kDsElems = kWithDq ? kBlockM * kWideN : 0;   // dS^T
+  static constexpr int kKElems = kWideN * kWideD;         // K or V
+  static constexpr int kQElems = kBlockM * kWideD;        // Q or dO stage
+  static constexpr int kPElems = kWideN * kBlockM;        // P^T or dS^T
   static constexpr int kStatOffset =
-      2 * (2 * kKElems + 2 * kStages * kQElems + kDsElems);
+      2 * (2 * kKElems + 2 * kStages * kQElems + 2 * 2 * kPElems);
   static constexpr int kBarOffset = kStatOffset + 4 * 2 * kStages * kBlockM;
   static constexpr int kSmem = kBarOffset + 8 * (1 + 3 * kStages);
+  // registers a thread: the producer issues loads and copies lse, delta
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static_assert(kWideN == kBlockM, "K/V and Q/dO boxes share one size");
 };
 
+// delta = rowsum(dO * o) in f32 [B, H, Sq] for the wide single pass, ahead
+// of it on the same stream (a pass over o and dO, bound by their bytes):
+// one warp a row (b, s, h), lane l on columns [8 l, 8 l + 8)
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                       const __nv_bfloat16* __restrict__ dout,
+                       float* __restrict__ delta, int H, int Sq, int rows,
+                       long long osb, long long oss, long long osh,
+                       long long dosb, long long doss, long long dosh) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int h = row % H;
+  const int s = (row / H) % Sq;
+  const int b = row / H / Sq;
+  const uint4 ov = *reinterpret_cast<const uint4*>(
+      o + b * osb + s * oss + h * osh + lane * 8);
+  const uint4 dv = *reinterpret_cast<const uint4*>(
+      dout + b * dosb + s * doss + h * dosh + lane * 8);
+  const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+  const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 of = __bfloat1622float2(o2[e]);
+    const float2 df = __bfloat1622float2(d2[e]);
+    sum += of.x * df.x + of.y * df.y;
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (lane == 0) delta[(static_cast<long long>(b) * H + h) * Sq + s] = sum;
+}
+
+// byte offset of k16 step kk (over D) of a K-major swizzled 64-row tile:
+// box kk / 4, 32 bytes a step into its rows
+__device__ __forceinline__ uint32_t wide_k_offset(int kk) {
+  return (kk >> 2) * kWideBoxBytes + (kk & 3) * 32;
+}
+
+// S^T = K Q_w^T and dP^T = V dO_w^T over the 32 queries [32 wg, 32 wg +
+// 32) of the q tile (m64n32, each warpgroup its own half, so each product
+// runs once a block): K, V K-major A (64 keys), Q, dO K-major B (this
+// warpgroup's rows of each box), all with the 128-byte swizzle
+__device__ __forceinline__ void issue_st_dpt_wide(
+    float (&s)[kWideQ / 2], float (&dp)[kWideQ / 2],
+    const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
+    const __nv_bfloat16* Qt, const __nv_bfloat16* dOt, int wg) {
+  const uint64_t k_desc = opaque_desc(make_desc_sw<128>(Ks, 16, 1024));
+  const uint64_t v_desc = opaque_desc(make_desc_sw<128>(Vs, 16, 1024));
+  const uint64_t q_desc = make_desc_sw<128>(Qt + wg * kWideQ * kWideBox, 16,
+                                            1024);
+  const uint64_t do_desc = make_desc_sw<128>(dOt + wg * kWideQ * kWideBox,
+                                             16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kWideD / 16; ++kk) {
+    const uint32_t off = wide_k_offset(kk) >> 4;
+    wgmma_ss<kWideQ, 0, 0>(s, k_desc + off, q_desc + off, kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kWideD / 16; ++kk) {
+    const uint32_t off = wide_k_offset(kk) >> 4;
+    wgmma_ss<kWideQ, 0, 0>(dp, v_desc + off, do_desc + off, kk > 0);
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q over this warpgroup's 128 columns, all 64
+// queries: P^T, dS^T K-major A from their chunked tiles ([q chunk][key][8]:
+// LBO 1024 along q, SBO 128 along keys, a k16 step two chunks); dO, Q
+// MN-major B, boxes 2 wg and 2 wg + 1 (LBO one box, SBO 8 rows, a k16 step
+// 16 rows)
+__device__ __forceinline__ void issue_dv_dk_wide(
+    float (&dk)[kWideCols / 2], float (&dv)[kWideCols / 2],
+    const __nv_bfloat16* Pt, const __nv_bfloat16* dSt,
+    const __nv_bfloat16* Qt, const __nv_bfloat16* dOt, int wg) {
+  const uint64_t p_desc = make_desc(Pt, kWideN * 16, 128);
+  const uint64_t ds_desc = make_desc(dSt, kWideN * 16, 128);
+  const int cols = 2 * wg * 64 * kWideBox;   // the first of this wg's boxes
+  const uint64_t do_m = make_desc_sw<128>(dOt + cols, kWideBoxBytes, 1024);
+  const uint64_t q_m = make_desc_sw<128>(Qt + cols, kWideBoxBytes, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kBlockM / 16; ++kk) {
+    wgmma_ss<kWideCols, 0, 1>(dv, p_desc + ((kk * 2048) >> 4),
+                              do_m + ((kk * 2048) >> 4), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBlockM / 16; ++kk) {
+    wgmma_ss<kWideCols, 0, 1>(dk, ds_desc + ((kk * 2048) >> 4),
+                              q_m + ((kk * 2048) >> 4), 1);
+  }
+}
+
+// dQ[:, c0 + 64 half : +64] = dS K over the block's 64 keys (this
+// warpgroup's columns, one half at a time so that no more than dK, dV and
+// two 32-register sums are live): dS MN-major A from the dS^T tile (LBO 128
+// along keys, SBO 1024 along q), K MN-major B from box 2 wg + half
+__device__ __forceinline__ void issue_dq_wide(float (&dq)[kWideCols / 4],
+                                              const __nv_bfloat16* dSt,
+                                              const __nv_bfloat16* Ks,
+                                              int wg, int half) {
+  const uint64_t dsm = make_desc(dSt, 128, kWideN * 16);
+  const uint64_t k_m = opaque_desc(make_desc_sw<128>(
+      Ks + (2 * wg + half) * kWideN * kWideBox, kWideBoxBytes, 1024));
+#pragma unroll
+  for (int kk = 0; kk < kWideN / 16; ++kk) {
+    wgmma_ss<kWideCols / 2, 1, 1>(dq, dsm + ((kk * 256) >> 4),
+                                  k_m + ((kk * 2048) >> 4), kk > 0);
+  }
+}
+
+// the scaled dQ half `half` of this thread's rows into its two f32 staging
+// boxes (32 columns each, 128-byte swizzle: the 16-byte chunk c of row r at
+// c ^ (r % 8)); box(j) is f32 box j of the warpgroup's four
+template <typename BoxFn>
+__device__ __forceinline__ void stage_dq_wide(const float (&dq)[kWideCols / 4],
+                                              BoxFn box, int half, int warp,
+                                              int g, int tg, float scale) {
+#pragma unroll
+  for (int nt = 0; nt < kWideCols / 16; ++nt) {
+    unsigned char* dst = box(2 * half + (nt >> 2));
+    const int chunk = 2 * (nt & 3) + (tg >> 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      *reinterpret_cast<float2*>(dst + row * 128 + ((chunk ^ g) << 4) +
+                                 (tg & 1) * 8) =
+          make_float2(dq[nt * 4 + 2 * r] * scale,
+                      dq[nt * 4 + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// Head dims 129-256 (zero-padded to 256), both variants. dK and dV of 128
+// keys at 256 columns would take 256 registers a thread in one warpgroup,
+// so a block owns 64 keys and its two consumer warpgroups split the
+// columns, each accumulating dK and dV over its 128 (128 registers a
+// thread). See the header for the design.
 template <bool kWithDq>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap domap,
+                      const __grid_constant__ CUtensorMap dqmap,
                       const BwdArgs a) {
   using T = Wide<kWithDq>;
   constexpr int kStages = T::kStages;
@@ -609,7 +776,8 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap kmap,
   __nv_bfloat16* Vs = Ks + T::kKElems;
   __nv_bfloat16* Qs = Vs + T::kKElems;                 // [kStages] tiles
   __nv_bfloat16* dOs = Qs + kStages * T::kQElems;      // [kStages] tiles
-  __nv_bfloat16* dSs = dOs + kStages * T::kQElems;     // [q chunk][key][8]
+  __nv_bfloat16* Ps = dOs + kStages * T::kQElems;      // P^T [2] buffers
+  __nv_bfloat16* dSs = Ps + 2 * T::kPElems;            // dS^T [2] buffers
   float* lse2_s = reinterpret_cast<float*>(smem + T::kStatOffset);
   float* delta_s = lse2_s + kStages * kBlockM;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + T::kBarOffset);
@@ -622,13 +790,14 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap kmap,
   const int h = blockIdx.y - b * a.H;
   const int n0 = blockIdx.x * kWideN;
   const int n_qt = (a.Sq + kBlockM - 1) / kBlockM;
+  check_smem_align(smem);
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&in_full[st], 1);
       mbar_init(&q_full[st], kStatThreads);
-      mbar_init(&q_empty[st], 8);   // one arrival per consumer warp
+      mbar_init(&q_empty[st], 2);   // one arrival per consumer warpgroup
     }
     mbar_fence_init();
   }
@@ -636,69 +805,47 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap kmap,
 
   const int wg = tid / 128;
   if (wg == 2) {
-    // the producer reads o from device memory for delta: 24 registers
-    // spill there, 32 do not (the consumers keep 232)
-    setmaxnreg_dec<32>();
+    setmaxnreg_dec<T::kProducerRegs>();
     const int t = tid - 256;
     if (t == 0) {
-      // TMA: K and V once, then Q and dO per q tile
-      mbar_arrive_expect_tx(kv_full, 2 * T::kChunks * kWideN * 16);
-      tma_load_tile<kWideD, kWideN>(Ks, &kmap, kv_full, n0, h, b);
-      tma_load_tile<kWideD, kWideN>(Vs, &vmap, kv_full, n0, h, b);
+      // TMA: K and V once, then Q and dO per q tile, 64-column boxes
+      mbar_arrive_expect_tx(kv_full, 2 * 2 * T::kKElems);
+      tma_load_tile_sw<kWideD, kWideN, kWideBox>(Ks, &kmap, kv_full, n0, h,
+                                                 b);
+      tma_load_tile_sw<kWideD, kWideN, kWideBox>(Vs, &vmap, kv_full, n0, h,
+                                                 b);
       for (int i = 0; i < n_qt; ++i) {
         const int st = i % kStages;
         mbar_wait(&q_empty[st], ((i / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&in_full[st], 2 * T::kChunks * kBlockM * 16);
-        tma_load_tile<kWideD, kBlockM>(Qs + st * T::kQElems, &qmap,
-                                       &in_full[st], i * kBlockM, h, b);
-        tma_load_tile<kWideD, kBlockM>(dOs + st * T::kQElems, &domap,
-                                       &in_full[st], i * kBlockM, h, b);
+        mbar_arrive_expect_tx(&in_full[st], 2 * 2 * T::kQElems);
+        tma_load_tile_sw<kWideD, kBlockM, kWideBox>(
+            Qs + st * T::kQElems, &qmap, &in_full[st], i * kBlockM, h, b);
+        tma_load_tile_sw<kWideD, kBlockM, kWideBox>(
+            dOs + st * T::kQElems, &domap, &in_full[st], i * kBlockM, h, b);
       }
-    } else if (t >= 32 && t < 32 + kStatThreads) {
-      // lse (log2 units) and delta of q row r of each tile; rows at or
-      // past Sq get lse = +inf (so p = 0) and delta 0
-      const int r = t - 32;
+    } else if (t >= 64) {
+      // warps 2 and 3: lse (log2 units) and delta (from the scratch) of q
+      // row r of each tile; rows at or past Sq get lse = +inf (so p = 0)
+      // and delta 0
+      const int r = t - 64;
       const long long row_base = static_cast<long long>(blockIdx.y) * a.Sq;
       for (int i = 0; i < n_qt; ++i) {
         const int st = i % kStages;
         const int row = i * kBlockM + r;
         const float lse2 = row < a.Sq ? a.lse[row_base + row] * kLog2e
                                       : INFINITY;
-        float delta = 0.f;
-        if constexpr (!kWithDq) {
-          if (row < a.Sq) delta = a.delta[row_base + row];
-        }
+        const float delta = row < a.Sq ? a.delta[row_base + row] : 0.f;
+        // the stage is free (its Q, dO are loaded after the release)
         mbar_wait(&in_full[st], (i / kStages) & 1);
-        if constexpr (kWithDq) {
-          // rowsum(dO * o): dO from the stage, o from device memory
-          if (row < a.Sq) {
-            const __nv_bfloat16* orow =
-                a.o + b * a.osb + row * a.oss + h * a.osh;
-            const __nv_bfloat16* drow = dOs + st * T::kQElems + r * 8;
-#pragma unroll 1
-            for (int c = 0; c < T::kChunks; ++c) {
-              const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
-              const uint4 dv = *reinterpret_cast<const uint4*>(
-                  drow + c * kBlockM * 8);
-              const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-              const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const float2 of = __bfloat1622float2(o2[e]);
-                const float2 df = __bfloat1622float2(d2[e]);
-                delta += of.x * df.x + of.y * df.y;
-              }
-            }
-          }
-        }
         lse2_s[st * kBlockM + r] = lse2;
         delta_s[st * kBlockM + r] = delta;
         mbar_arrive(&q_full[st]);
       }
     }
   } else {
-    // consumer warpgroup wg: all 64 keys, columns [c0, c0 + 128)
-    setmaxnreg_inc<232>();
+    // consumer warpgroup wg: dK, dV of all 64 keys over columns [c0, c0 +
+    // 128); S^T, dP^T of queries [32 wg, 32 wg + 32) of each q tile
+    setmaxnreg_inc<T::kConsumerRegs>();
     const int warp = (tid & 127) >> 5;
     const int lane = tid & 31;
     const int g = lane >> 2;
@@ -706,98 +853,165 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap kmap,
     const int kr = warp * 16 + g;     // first key row of the thread
     const int c0 = wg * kWideCols;
     const bool key_ok[2] = {n0 + kr < a.Sk, n0 + kr + 8 < a.Sk};
+    const bool leader = (tid & 127) == 0;
 
-    float dk[kWideCols / 2], dv[kWideCols / 2];
+    float dk[kWideCols / 2], dv[kWideCols / 2], dq[kWideCols / 4];
+    float s[kWideQ / 2], dp[kWideQ / 2];
 #pragma unroll
     for (int i = 0; i < kWideCols / 2; ++i) dk[i] = dv[i] = 0.f;
 
+    // S^T and dP^T (and dQ) start their sums from zero (scale_d 0); the
+    // zeros here end the registers' live ranges at their last read
+    auto zero = [](auto& r) {
+#pragma unroll
+      for (auto& x : r) x = 0.f;
+    };
     mbar_wait(kv_full, 0);
-    // K, V: K-major A over the block's 64 keys; chunk stride along D
-    const uint64_t k_desc = make_desc(Ks, kWideN * 16, 128);
-    const uint64_t v_desc = make_desc(Vs, kWideN * 16, 128);
+    mbar_wait(&in_full[0], 0);
+    zero(s);
+    zero(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_st_dpt_wide(s, dp, Ks, Vs, Qs, dOs, wg);
+    wgmma_commit();
     for (int i = 0; i < n_qt; ++i) {
       const int st = i % kStages;
-      mbar_wait(&in_full[st], (i / kStages) & 1);
-      mbar_wait(&q_full[st], (i / kStages) & 1);
+      const int sn = (i + 1) % kStages;
       const __nv_bfloat16* Qt = Qs + st * T::kQElems;
       const __nv_bfloat16* dOt = dOs + st * T::kQElems;
-
-      float s[kBlockM / 2], dp[kBlockM / 2];
-      uint32_t pa[kBlockM / 16][4], da[kBlockM / 16][4];
-      wgmma_fence();
-      issue_st_dpt<kWideD, kWideN>(s, dp, k_desc, v_desc, Qt, dOt);
-      wgmma_commit();
+      __nv_bfloat16* Pt = Ps + (i & 1) * T::kPElems;
+      __nv_bfloat16* dSt = dSs + (i & 1) * T::kPElems;
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      p_ds_fragments(s, dp, pa, da, lse2_s + st * kBlockM,
-                     delta_s + st * kBlockM, key_ok, tg, a.scale_log2);
+      fence_regs(dk);
+      fence_regs(dv);
+      if constexpr (kWithDq) {
+        // the previous tile's reduce-adds have read its stage: release it
+        if (i > 0 && leader) {
+          bulk_wait<0, true>();
+          mbar_arrive(&q_empty[(i - 1) % kStages]);
+        }
+      }
+      mbar_wait(&q_full[st], (i / kStages) & 1);
 
-      // dV += P^T dO and dK += dS^T Q over this warpgroup's columns
+      // p = exp(s * scale - lse), masked; dS = p * (dP - delta); P^T and
+      // dS^T (bf16) into this tile's buffers, chunked by q: this thread's
+      // keys kr, kr + 8, queries 32 wg + 8 nt + 2 tg, +1
+      const float* lse2 = lse2_s + st * kBlockM + wg * kWideQ;
+      const float* delta = delta_s + st * kBlockM + wg * kWideQ;
+#pragma unroll
+      for (int nt = 0; nt < kWideQ / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = nt * 8 + tg * 2 + (e & 1);
+          const int idx = nt * 4 + e;
+          const float p = key_ok[e >> 1]
+              ? exp2f(fmaf(s[idx], a.scale_log2, -lse2[qc])) : 0.f;
+          s[idx] = p;
+          dp[idx] = p * (dp[idx] - delta[qc]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int off = (wg * (kWideQ / 8) + nt) * kWideN * 8 +
+                          (kr + 8 * r) * 8 + tg * 2;
+          *reinterpret_cast<uint32_t*>(Pt + off) =
+              pack_bf16(s[nt * 4 + 2 * r], s[nt * 4 + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dSt + off) =
+              pack_bf16(dp[nt * 4 + 2 * r], dp[nt * 4 + 2 * r + 1]);
+        }
+      }
+      // both halves written before either warpgroup reads them (the
+      // buffers alternate, so the tile before the last is done with these)
+      fence_proxy_async();
+      named_sync(1, 256);
+
+      if constexpr (kWithDq) {
+        zero(dq);
+        fence_regs(dq);
+      } else if (i + 1 < n_qt) {
+        zero(s);
+        zero(dp);
+      }
+      fence_regs(s);
+      fence_regs(dp);
       fence_regs(dk);
       fence_regs(dv);
       wgmma_fence();
-      issue_dv_dk<kWideCols>(dk, dv, pa, da, Qt + c0 * kBlockM,
-                             dOt + c0 * kBlockM);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_regs(pa);
-      fence_regs(da);
-      if (lane == 0) mbar_arrive(&q_empty[st]);   // the stage is read
-
+      issue_dv_dk_wide(dk, dv, Pt, dSt, Qt, dOt, wg);
       if constexpr (kWithDq) {
-        // dS^T (bf16) into shared memory, chunked by q (both warpgroups
-        // hold the same dS^T; warpgroup 0 writes it), once both are done
-        // with the previous tile's dQ products
-        named_sync(1, 256);
-        if (wg == 0) {
-#pragma unroll
-          for (int nt = 0; nt < kBlockM / 8; ++nt) {
-            __nv_bfloat16* dst = dSs + nt * kWideN * 8 + kr * 8 + tg * 2;
-            *reinterpret_cast<uint32_t*>(dst) = da[nt >> 1][(nt & 1) * 2];
-            *reinterpret_cast<uint32_t*>(dst + 64) =
-                da[nt >> 1][(nt & 1) * 2 + 1];
-          }
-          fence_proxy_async();
+        // dQ (scaled) to the f32 scratch, in two halves of 64 columns:
+        // staged in this warpgroup's own boxes of the stage (Q boxes 2 wg,
+        // 2 wg + 1, then dO's, which only its dK and dV products read) as
+        // four f32 boxes of 32 columns with the 128-byte swizzle, then four
+        // bulk reduce-adds (rows past Sq are dropped). The second half
+        // runs beside S^T and dP^T of the next tile.
+        auto dq_box = [&](int j) {
+          return reinterpret_cast<unsigned char*>(const_cast<__nv_bfloat16*>(
+              (j < 2 ? Qt : dOt) + (2 * wg + (j & 1)) * kBlockM * kWideBox));
+        };
+        issue_dq_wide(dq, dSt, Ks, wg, 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(dq);
+        stage_dq_wide(dq, dq_box, 0, warp, g, tg, a.scale);
+        zero(dq);
+        fence_regs(dq);
+        const bool next = i + 1 < n_qt;
+        if (next) {
+          mbar_wait(&in_full[sn], ((i + 1) / kStages) & 1);
+          zero(s);
+          zero(dp);
+          fence_regs(s);
+          fence_regs(dp);
         }
-        named_sync(1, 256);
-        // dQ[:, c0 : c0 + 128] of this q tile = dS K, 64 columns at a time
-        // (all 128 beside dK and dV spill): dS MN-major from the dS^T tile,
-        // K MN-major; added to the scratch (rows past Sq dropped)
-        const uint64_t ds_desc = make_desc(dSs, 128, kWideN * 16);
-#pragma unroll 1
-        for (int half = 0; half < 2; ++half) {
-          const int cq = c0 + half * (kWideCols / 2);
-          float dq[kWideCols / 4];
-          const uint64_t kq_desc = make_desc(Ks + cq * kWideN, 128,
-                                             kWideN * 16);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kWideN / 16; ++kk) {
-            wgmma_ss<kWideCols / 2, 1, 1>(dq, ds_desc + ((kk * 256) >> 4),
-                                          kq_desc + ((kk * 256) >> 4),
-                                          kk > 0);
-          }
+        wgmma_fence();
+        issue_dq_wide(dq, dSt, Ks, wg, 1);
+        wgmma_commit();
+        if (next) {
+          issue_st_dpt_wide(s, dp, Ks, Vs, Qs + sn * T::kQElems,
+                            dOs + sn * T::kQElems, wg);
           wgmma_commit();
+          wgmma_wait<1>();
+        } else {
           wgmma_wait<0>();
-          fence_regs(dq);
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = i * kBlockM + warp * 16 + g + 8 * r;
-            if (row >= a.Sq) continue;
-            float* dst = a.dq + ((static_cast<long long>(b) * a.Sq + row) *
-                                 a.H + h) * kWideD + cq + tg * 2;
-#pragma unroll
-            for (int dt = 0; dt < kWideCols / 16; ++dt) {
-              atomicAdd(dst + dt * 8, dq[dt * 4 + 2 * r] * a.scale);
-              atomicAdd(dst + dt * 8 + 1, dq[dt * 4 + 2 * r + 1] * a.scale);
-            }
-          }
         }
+        fence_regs(dq);
+        stage_dq_wide(dq, dq_box, 1, warp, g, tg, a.scale);
+        fence_proxy_async();
+        named_sync(2 + wg, 128);
+        if (leader) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            tma_reduce_add_4d(&dqmap, dq_box(j), c0 + j * kDqBox,
+                              i * kBlockM, h, b);
+          }
+          bulk_commit();
+        }
+      } else {
+        // S^T and dP^T of the next tile queue behind dV and dK of this
+        // one; once those are done the stage is released
+        wgmma_commit();
+        if (i + 1 < n_qt) {
+          mbar_wait(&in_full[sn], ((i + 1) / kStages) & 1);
+          issue_st_dpt_wide(s, dp, Ks, Vs, Qs + sn * T::kQElems,
+                            dOs + sn * T::kQElems, wg);
+          wgmma_commit();
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs(dk);
+        fence_regs(dv);
+        if (leader) mbar_arrive(&q_empty[st]);
       }
     }
+    // the last reduce-adds are done before the block (and its shared
+    // memory) goes
+    if (kWithDq && leader) bulk_wait<0, false>();
 
     // dK (scaled) and dV of this thread's keys and columns; [B, Sk, H, D]
     // contiguous
@@ -835,12 +1049,20 @@ int launch(const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
 template <bool kWithDq>
 int launch_wide(const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
                 cudaStream_t st) {
+  if constexpr (kWithDq) {
+    const int rows = B * a.Sq * a.H;
+    flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0, st>>>(
+        a.o, a.dout, const_cast<float*>(a.delta), a.H, a.Sq, rows, a.osb,
+        a.oss, a.osh, a.dosb, a.doss, a.dosh);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
   constexpr int smem = Wide<kWithDq>::kSmem;
   const int err = allow_smem<flash_bwd_wide_kernel<kWithDq>>(smem);
   if (err != 0) return err;
   const dim3 grid((a.Sk + kWideN - 1) / kWideN, B * a.H);
   flash_bwd_wide_kernel<kWithDq><<<grid, kThreads, smem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], a);
+      maps[0], maps[1], maps[2], maps[3], maps[4], a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -863,9 +1085,11 @@ int launch_d(int D, const CUtensorMap (&maps)[7], const BwdArgs& a, int B,
   }
 }
 
-// the tensor maps of k, v, q and dout (bf16 chunks), then, with o below
-// head dim 256, those of o and of dq's two column blocks (f32); the maps a
-// variant does not read are copies of the first
+// the tensor maps of k, v, q and dout (bf16 chunks; at head dim 256
+// swizzled 64-column boxes), then, with o below head dim 256, those of o
+// and of dq's two column blocks (f32), at 256 with dq that of dq's
+// 32-column swizzled boxes; the maps a variant does not read are copies
+// of the first
 int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
                 const void* v, const void* o, const void* dout, void* dq,
                 int B, int H, int Sq, int Sk, int D, long long qsb,
@@ -873,23 +1097,31 @@ int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
                 long long ksh, long long vsb, long long vss, long long vsh,
                 long long osb, long long oss, long long osh, long long dosb,
                 long long doss, long long dosh) {
-  const int kv_rows = D == kWideD ? kWideN : kBlockN;
-  int err = encode_bshd(&maps[0], k, false, B, Sk, H, D, ksb, kss, ksh, 8,
-                        kv_rows);
+  const bool wide = D == kWideD;
+  const int kv_rows = wide ? kWideN : kBlockN;
+  const int box = wide ? kWideBox : 8;
+  const int sw = wide ? 128 : 0;
+  int err = encode_bshd(&maps[0], k, false, B, Sk, H, D, ksb, kss, ksh, box,
+                        kv_rows, sw);
   if (err == 0) {
-    err = encode_bshd(&maps[1], v, false, B, Sk, H, D, vsb, vss, vsh, 8,
-                      kv_rows);
+    err = encode_bshd(&maps[1], v, false, B, Sk, H, D, vsb, vss, vsh, box,
+                      kv_rows, sw);
   }
   if (err == 0) {
-    err = encode_bshd(&maps[2], q, false, B, Sq, H, D, qsb, qss, qsh, 8,
-                      kBlockM);
+    err = encode_bshd(&maps[2], q, false, B, Sq, H, D, qsb, qss, qsh, box,
+                      kBlockM, sw);
   }
   if (err == 0) {
-    err = encode_bshd(&maps[3], dout, false, B, Sq, H, D, dosb, doss, dosh, 8,
-                      kBlockM);
+    err = encode_bshd(&maps[3], dout, false, B, Sq, H, D, dosb, doss, dosh,
+                      box, kBlockM, sw);
   }
-  if (err != 0 || o == nullptr || D == kWideD) {
+  if (err != 0 || o == nullptr || wide) {
     for (int i = 4; i < 7; ++i) maps[i] = maps[0];
+    if (err == 0 && wide && dq != nullptr) {
+      const long long hd = static_cast<long long>(H) * D;
+      err = encode_bshd(&maps[4], dq, true, B, Sq, H, D, Sq * hd, hd, D,
+                        kDqBox, kBlockM, 128);
+    }
     return err;
   }
   const int dq0 = dq_cols0(D);
@@ -914,8 +1146,11 @@ int encode_maps(CUtensorMap (&maps)[7], const void* q, const void* k,
 // (TMA); lse f32 [B, H, Sq] contiguous; D 64, 72, 80, 96, 128 or 256.
 // Both write bf16 dk, dv
 // [B, Sk, H, D] (contiguous). flash_attn_bwd adds dq into a zeroed f32
-// [B, Sq, H, D] buffer (delta unused); flash_attn_bwd_dkv reads delta,
-// f32 [B, H, Sq] contiguous, as the dq pass wrote it (o and dq unused).
+// [B, Sq, H, D] buffer; at D 256 it takes delta, an f32 [B, H, Sq]
+// contiguous scratch, and starts two kernels, flash_bwd_delta_kernel
+// writing delta there and then flash_bwd_wide_kernel (below 256 delta is
+// unused and it starts one); flash_attn_bwd_dkv reads delta as the dq
+// pass wrote it (o and dq unused).
 // Each returns the CUDA error code of the tensor map encoding or of the
 // launch (0 on success).
 extern "C" int topiaxl_flash_attn_bwd(
@@ -926,8 +1161,9 @@ extern "C" int topiaxl_flash_attn_bwd(
     long long ksh, long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh, long long dosb,
     long long doss, long long dosh, float scale, void* stream) {
-  (void)delta;
-  if (!head_dim_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim_ok(D) || (D == kWideD && delta == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap maps[7];
   const int err = encode_maps(maps, q, k, v, o, dout, dq, B, H, Sq, Sk, D,
                               qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
@@ -935,14 +1171,17 @@ extern "C" int topiaxl_flash_attn_bwd(
   if (err != 0) return err;
   BwdArgs a;
   a.lse = static_cast<const float*>(lse);
-  a.delta = nullptr;
+  a.delta = static_cast<const float*>(delta);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.dq = static_cast<float*>(dq);
   a.o = static_cast<const __nv_bfloat16*>(o);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
   a.osb = osb;
   a.oss = oss;
   a.osh = osh;
+  a.dosb = dosb;
+  a.doss = doss;
+  a.dosh = dosh;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -973,9 +1212,8 @@ extern "C" int topiaxl_flash_attn_bwd_dkv(
   a.delta = static_cast<const float*>(delta);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.dq = nullptr;
-  a.o = nullptr;
-  a.osb = a.oss = a.osh = 0;
+  a.o = a.dout = nullptr;
+  a.osb = a.oss = a.osh = a.dosb = a.doss = a.dosh = 0;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;

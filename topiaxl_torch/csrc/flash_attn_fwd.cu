@@ -32,16 +32,27 @@
 //     products. (Running the softmax of tile j while P V of tile j - 1 is
 //     still in flight, waiting for S alone, makes ptxas serialise the
 //     wgmmas (C7514) and measured slower on the H100.)
-//   * tiles live in shared memory in wgmma's no-swizzle core-matrix
-//     layout (sm90.cuh), loaded by TMA one 8-column chunk at a time, so
-//     head dim 72 (9 chunks) needs no swizzle span; Q K^T contracts over
-//     80, with the 10th chunk of Q and K zeroed once and never loaded;
+//   * up to head dim 80 (the DiT's 72, DINOv2's 64) tiles live in shared
+//     memory in wgmma's no-swizzle core-matrix layout (sm90.cuh), loaded by
+//     TMA one 8-column chunk at a time, so head dim 72 (9 chunks) needs no
+//     swizzle span; Q K^T contracts over 80, with the 10th chunk of Q and
+//     K zeroed once and never loaded;
+//   * above 80 (96, 128, 256) the tiles are swizzled (sm90.cuh): 64-column
+//     boxes with the 128-byte swizzle at 128 and 256, 32-column boxes with
+//     the 64-byte one at 96, so a tile arrives in D / 64 (D / 32) TMA boxes
+//     of whole 128-byte (64-byte) rows where the chunked layout took D / 8
+//     boxes of 16-byte rows, each costing a request per row and half a
+//     32-byte sector; the same descriptors read Q and K K-major and V
+//     MN-major. There the O rescale is skipped when no row of the warp
+//     moved its maximum (after the first tiles, most tiles);
 //   * one instance per head dim 64, 72, 80, 96, 128 and 256 (P V on wgmma
-//     m64nDk16, at 256 two m64n128 halves); at 128 the S, O and P
-//     registers (64 + 64 + 32 a thread) still fit the consumers' 240, and
-//     shared memory holds Q and two K/V stages in 160 KiB; at 256 O alone
-//     takes 128 registers a thread, so the K/V tiles hold 64 keys (S and P
-//     32 + 16) and Q and two stages take 192 KiB;
+//     m64nDk16, at 256 two m64n128 halves sharing the P fragments, each
+//     half of O its own accumulator chain); at 128 the S, O and P registers
+//     (64 + 64 + 32 a thread) still fit the consumers' 240, and shared
+//     memory holds Q and two K/V stages in 160 KiB; at 256 O alone takes
+//     128 registers a thread, so the K/V tiles hold 64 keys (S and P 32 +
+//     16; a 128-key S tile beside O would take 224 of the 240) and Q and
+//     two stages take 192 KiB;
 //   * the [B, S, H, D] strides go into the tensor maps (encoded on the
 //     host per launch), so the DiT's qkv.unbind(2) views are read
 //     without a copy; rows past Sq or Sk arrive as zeros from TMA and
@@ -68,8 +79,20 @@ __host__ __device__ constexpr int fwd_block_n(int D) {
   return D <= 128 ? 128 : 64;
 }
 
+// above head dim 80 the tiles use the swizzled layout (sm90.cuh): boxes
+// of 64 columns with the 128-byte swizzle where D is a multiple of 64
+// (128, 256), of 32 columns with the 64-byte one otherwise (96); up to 80
+// the chunked no-swizzle layout, which head dim 72 needs
+__host__ __device__ constexpr bool fwd_swizzled(int D) { return D > 80; }
+__host__ __device__ constexpr int fwd_box_cols(int D) {
+  return !fwd_swizzled(D) ? 8 : D % 64 == 0 ? 64 : 32;
+}
+
 template <int D>
 struct Fwd {
+  static constexpr bool kSw = fwd_swizzled(D);
+  static constexpr int kSwCols = fwd_box_cols(D);   // columns per TMA box
+  static constexpr int kSwBytes = 2 * kSwCols;       // swizzle span (kSw)
   static constexpr int kBlockN = fwd_block_n(D);
   static constexpr int kChunks = D / 8;            // 8-column chunks of D
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps of Q K^T
@@ -81,7 +104,31 @@ struct Fwd {
       2 * (kQElems + kStages * (kKElems + kVElems));
   static constexpr int kSmem = kBarOffset + 8 * (1 + 4 * kStages);
   static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+  static_assert(!kSw || (D % kSwCols == 0 && kChunksP == kChunks),
+                "a swizzled head dim is a multiple of its box and of 16");
 };
+
+// byte offset of k16 step kk of a K-major swizzled tile of kRows rows: box
+// kk / (kSwCols / 16), 32 bytes a step into its rows
+template <int D, int kRows>
+__host__ __device__ constexpr uint32_t sw_k_offset(int kk) {
+  constexpr int kPerBox = Fwd<D>::kSwCols / 16;
+  return (kk / kPerBox) * kRows * Fwd<D>::kSwBytes + (kk % kPerBox) * 32;
+}
+
+// rows [row0, row0 + kRows) of head (b, h) into a tile: 8-column chunks,
+// or above head dim 80 kSwCols-column swizzled boxes
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int h,
+                                          int b) {
+  if constexpr (Fwd<D>::kSw) {
+    tma_load_tile_sw<D, kRows, Fwd<D>::kSwCols>(dst, map, bar, row0, h, b);
+  } else {
+    tma_load_tile<D, kRows>(dst, map, bar, row0, h, b);
+  }
+}
 
 // O += P V for K/V tile j, once its V has arrived: P from registers, V
 // MN-major B (8 keys per core matrix along K, the chunks along N)
@@ -89,14 +136,35 @@ template <int D>
 __device__ __forceinline__ void issue_pv(
     float (&acc)[D / 2], const uint32_t (&p)[Fwd<D>::kBlockN / 16][4],
     const __nv_bfloat16* Vs, uint64_t* v_full, int j) {
-  constexpr int kBlockN = Fwd<D>::kBlockN;
+  using T = Fwd<D>;
+  constexpr int kBlockN = T::kBlockN;
   const int st = j % kStages;
   mbar_wait(&v_full[st], (j / kStages) & 1);
-  const uint64_t v_desc =
-      make_desc(Vs + st * Fwd<D>::kVElems, 128, kBlockN * 16);
+  if constexpr (T::kSw) {
+    // V MN-major with the swizzle: LBO one box (kSwCols columns along N),
+    // SBO 8 keys, a k16 step 16 keys; at 256 two m64n128 halves, the
+    // second two boxes along
+    constexpr uint32_t kBox = kBlockN * T::kSwBytes;
+    const uint64_t v_desc = make_desc_sw<T::kSwBytes>(
+        Vs + st * T::kVElems, kBox, 8 * T::kSwBytes);
 #pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    wgmma_rs<D, 1>(acc, p[kk], v_desc + ((kk * 256) >> 4), 1);
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      const uint32_t off = (kk * 16 * T::kSwBytes) >> 4;
+      if constexpr (D == 256) {
+        wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(&acc[0]), p[kk],
+                         v_desc + off, 1);
+        wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(&acc[64]), p[kk],
+                         v_desc + off + ((2 * kBox) >> 4), 1);
+      } else {
+        wgmma_rs<D, 1>(acc, p[kk], v_desc + off, 1);
+      }
+    }
+  } else {
+    const uint64_t v_desc = make_desc(Vs + st * T::kVElems, 128, kBlockN * 16);
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      wgmma_rs<D, 1>(acc, p[kk], v_desc + ((kk * 256) >> 4), 1);
+    }
   }
   wgmma_commit();
 }
@@ -126,6 +194,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.y - b * H;
   const int m0 = blockIdx.x * kBlockM;
   const int n_tiles = (Sk + kBlockN - 1) / kBlockN;
+  if constexpr (T::kSw) check_smem_align(smem);
 
   // the padding chunks of Q and of every K stage: zero once, never loaded
   if constexpr (T::kChunksP > T::kChunks) {
@@ -160,18 +229,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     setmaxnreg_dec<24>();
     if (tid == 256) {
       mbar_arrive_expect_tx(q_full, T::kChunks * kBlockM * 16);
-      tma_load_tile<D, kBlockM>(Qs, &qmap, q_full, m0, h, b);
+      load_tile<D, kBlockM>(Qs, &qmap, q_full, m0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         const uint32_t ph = (j / kStages) & 1;
         mbar_wait(&k_empty[st], ph ^ 1);
         mbar_arrive_expect_tx(&k_full[st], T::kChunks * kBlockN * 16);
-        tma_load_tile<D, kBlockN>(Ks + st * T::kKElems, &kmap, &k_full[st],
-                                  j * kBlockN, h, b);
+        load_tile<D, kBlockN>(Ks + st * T::kKElems, &kmap, &k_full[st],
+                              j * kBlockN, h, b);
         mbar_wait(&v_empty[st], ph ^ 1);
         mbar_arrive_expect_tx(&v_full[st], T::kChunks * kBlockN * 16);
-        tma_load_tile<D, kBlockN>(Vs + st * T::kVElems, &vmap, &v_full[st],
-                                  j * kBlockN, h, b);
+        load_tile<D, kBlockN>(Vs + st * T::kVElems, &vmap, &v_full[st],
+                              j * kBlockN, h, b);
       }
     }
   } else {
@@ -181,8 +250,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     const int lane = tid & 31;
     const int g = lane >> 2;
     const int tg = lane & 3;
-    // Q: K-major A, this warpgroup's 64 rows; chunk stride along D
-    const uint64_t q_desc = make_desc(Qs + wg * 64 * 8, kBlockM * 16, 128);
+    // Q: K-major A, this warpgroup's 64 rows; chunk stride along D (or,
+    // swizzled, 64 rows into each box)
+    const uint64_t q_desc = [&] {
+      if constexpr (T::kSw) {
+        return make_desc_sw<T::kSwBytes>(Qs + wg * 64 * T::kSwCols, 16,
+                                         8 * T::kSwBytes);
+      } else {
+        return make_desc(Qs + wg * 64 * 8, kBlockM * 16, 128);
+      }
+    }();
 
     float s[kBlockN / 2];          // S tile: kBlockN / 8 column tiles x 4
     float acc[D / 2];              // O: D / 8 column tiles x 4
@@ -198,16 +275,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       const int st = j % kStages;
       mbar_wait(&k_full[st], (j / kStages) & 1);
       named_sync(1 + wg, 256);           // this warpgroup's turn
-      const uint64_t k_desc =
-          make_desc(Ks + st * T::kKElems, kBlockN * 16, 128);
       fence_regs(acc);
       fence_regs(p);
       wgmma_fence();
+      if constexpr (T::kSw) {
+        const uint64_t k_desc = make_desc_sw<T::kSwBytes>(
+            Ks + st * T::kKElems, 16, 8 * T::kSwBytes);
 #pragma unroll
-      for (int kk = 0; kk < T::kSteps; ++kk) {
-        wgmma_ss<kBlockN, 0, 0>(s, q_desc + ((kk * 2 * kBlockM * 16) >> 4),
-                                k_desc + ((kk * 2 * kBlockN * 16) >> 4),
-                                kk > 0);
+        for (int kk = 0; kk < T::kSteps; ++kk) {
+          wgmma_ss<kBlockN, 0, 0>(s, q_desc + (sw_k_offset<D, kBlockM>(kk) >> 4),
+                                  k_desc + (sw_k_offset<D, kBlockN>(kk) >> 4),
+                                  kk > 0);
+        }
+      } else {
+        const uint64_t k_desc =
+            make_desc(Ks + st * T::kKElems, kBlockN * 16, 128);
+#pragma unroll
+        for (int kk = 0; kk < T::kSteps; ++kk) {
+          wgmma_ss<kBlockN, 0, 0>(s, q_desc + ((kk * 2 * kBlockM * 16) >> 4),
+                                  k_desc + ((kk * 2 * kBlockN * 16) >> 4),
+                                  kk > 0);
+        }
       }
       wgmma_commit();
       if (j > 0) issue_pv<D>(acc, p, Vs, v_full, j - 1);
@@ -250,9 +338,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         l_run[(i >> 1) & 1] += pv;
       }
 
-      // rescale O to the new row maxima; P of tile j takes the A registers
+      // rescale O to the new row maxima (swizzled form: skipped where no
+      // row of the warp moved its maximum); P of tile j takes the A
+      // registers
+      if (!T::kSw || __any_sync(0xffffffffu,
+                                alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
@@ -334,14 +427,17 @@ extern "C" int topiaxl_flash_attn_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap qm, km, vm;
-  int err = encode_bshd(&qm, q, false, B, Sq, H, D, qsb, qss, qsh, 8, kBlockM);
+  const int box = fwd_box_cols(D);
+  const int sw = fwd_swizzled(D) ? 2 * box : 0;
+  int err = encode_bshd(&qm, q, false, B, Sq, H, D, qsb, qss, qsh, box,
+                        kBlockM, sw);
   if (err == 0) {
-    err = encode_bshd(&km, k, false, B, Sk, H, D, ksb, kss, ksh, 8,
-                      fwd_block_n(D));
+    err = encode_bshd(&km, k, false, B, Sk, H, D, ksb, kss, ksh, box,
+                      fwd_block_n(D), sw);
   }
   if (err == 0) {
-    err = encode_bshd(&vm, v, false, B, Sk, H, D, vsb, vss, vsh, 8,
-                      fwd_block_n(D));
+    err = encode_bshd(&vm, v, false, B, Sk, H, D, vsb, vss, vsh, box,
+                      fwd_block_n(D), sw);
   }
   if (err != 0) return err;
   const float scale_log2 = scale * 1.4426950408889634f;

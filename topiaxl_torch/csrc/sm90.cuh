@@ -24,6 +24,19 @@
 // byte offset (SBO) the stride along M or N (PTX ISA, wgmma matrix
 // descriptor, canonical no-swizzle layouts).
 //
+// Swizzled layout (the forward above head dim 80, the backward at 256): a
+// [rows, D] bf16 tile is kept as D / C boxes of [rows][C] (C = 64
+// columns with the 128-byte swizzle, 32 with the 64-byte one), each box
+// one TMA load of C columns by `rows` rows, 1024-byte aligned. Inside a
+// box row r's 16-byte chunk c sits at chunk c ^ (r % 8) (128-byte) or
+// c ^ ((r / 2) % 4) (64-byte), the pattern wgmma reads back from a
+// descriptor of the same swizzle mode. K-major (contraction along the
+// box's columns): SBO = 8 rows of a box, LBO unused, a k16 step 32 bytes
+// into the box row (the hardware swizzles the address). MN-major
+// (contraction along rows): LBO = one box (the next C columns along N),
+// SBO = 8 rows, a k16 step 16 rows (PTX ISA, wgmma matrix descriptor;
+// CUTLASS make_gmma_desc).
+//
 // wgmma accumulator layout (m64nN, f32): warp w of the warpgroup holds
 // rows 16 w + g and 16 w + g + 8 (g = lane / 4); for each 8-column tile i
 // the registers d[4 i .. 4 i + 3] hold (row g, columns 8 i + 2 tg, +1) and
@@ -121,6 +134,20 @@ __device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst,
   }
 }
 
+// rows [row0, row0 + kRows) of head (b, h) into a swizzled tile: D / kCols
+// boxes of [kRows][kCols], the map's box kCols columns by kRows rows with
+// the matching swizzle (encode_bshd's `swizzle`)
+template <int D, int kRows, int kCols>
+__device__ __forceinline__ void tma_load_tile_sw(__nv_bfloat16* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int row0,
+                                                 int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / kCols; ++c) {
+    tma_load_4d(dst + c * kRows * kCols, map, bar, c * kCols, row0, h, b);
+  }
+}
+
 // adds a shared-memory box into a 4-d tensor map's f32 tensor, in one
 // bulk reduction (elements past the tensor's extent are not written);
 // completion is tracked by the issuing thread's bulk groups
@@ -162,6 +189,30 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
   return d;
+}
+
+// swizzled descriptor (kSwBytes 128 or 64: layout type 1 or 2); for a
+// K-major operand pass lbo = 16 (unused)
+template <int kSwBytes>
+__device__ __forceinline__ uint64_t make_desc_sw(const void* p, uint32_t lbo,
+                                                 uint32_t sbo) {
+  static_assert(kSwBytes == 128 || kSwBytes == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t kLayout = kSwBytes == 128 ? 1 : 2;
+  return make_desc(p, lbo, sbo) | (kLayout << 62);
+}
+
+// hides a descriptor's value from the optimiser where it is used, so that
+// the k-step descriptors derived from a loop-invariant base are computed
+// at each use and not kept in registers across the loop
+__device__ __forceinline__ uint64_t opaque_desc(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// traps unless the dynamic shared memory starts on a 1024-byte boundary,
+// which the swizzled tiles' descriptors (base offset 0) assume
+__device__ __forceinline__ void check_smem_align(const void* smem) {
+  if ((smem_addr(smem) & 1023u) != 0) __trap();
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -547,8 +598,11 @@ inline EncodeTiledFn encode_tiled() {
 
 // tensor map of a [B, S, H, D] view (strides in elements, last dim
 // contiguous), bf16 or f32, whose box is `box_cols` columns by `box_rows`
-// rows of one head: for bf16 the 8-column chunk that tma_load_tile loads,
-// for f32 the tile that tma_reduce_add_4d adds. Rows past S read as zeros
+// rows of one head: for bf16 the 8-column chunk that tma_load_tile loads
+// (swizzle 0) or the box of tma_load_tile_sw (swizzle 64 or 128 bytes,
+// box_cols times the element size equal to it), for f32 the tile that
+// tma_reduce_add_4d adds (from a shared-memory box laid out with the same
+// swizzle). Rows past S read as zeros
 // and are not written. A map depends only on these arguments, so the maps
 // of recent views are kept in a small direct-mapped cache per host
 // thread: PyTorch's allocator hands the same addresses out step after
@@ -556,25 +610,26 @@ inline EncodeTiledFn encode_tiled() {
 // Returns 0 or a CUDA error code.
 inline int encode_bshd(CUtensorMap* map, const void* base, bool f32, int B,
                        int S, int H, int D, long long sb, long long ss,
-                       long long sh, int box_cols, int box_rows) {
+                       long long sh, int box_cols, int box_rows,
+                       int swizzle = 0) {
   // a dimension of extent 1 is never stepped over; give it a legal stride
   const long long unit = f32 ? 4 : 8;   // elements in 16 bytes
   if (B == 1) sb = unit;
   if (H == 1) sh = unit;
   struct Entry {
-    long long key[11];
+    long long key[12];
     CUtensorMap map;
   };
   constexpr int kEntries = 256;
   thread_local Entry cache[kEntries] = {};
-  const long long key[11] = {reinterpret_cast<long long>(base), f32, B, S,
-                             H, D, sb, ss, sh, box_cols, box_rows};
+  const long long key[12] = {reinterpret_cast<long long>(base), f32, B, S,
+                             H, D, sb, ss, sh, box_cols, box_rows, swizzle};
   unsigned long long hash = 1469598103934665603ull;
   for (long long k : key) hash = (hash ^ static_cast<unsigned long long>(k)) *
                                  1099511628211ull;
   Entry& e = cache[(hash >> 17) % kEntries];
   bool hit = key[0] != 0;
-  for (int i = 0; i < 11; ++i) hit = hit && e.key[i] == key[i];
+  for (int i = 0; i < 12; ++i) hit = hit && e.key[i] == key[i];
   if (hit) {
     *map = e.map;
     return 0;
@@ -595,10 +650,12 @@ inline int encode_bshd(CUtensorMap* map, const void* base, bool f32, int B,
   const CUresult r = fn(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  for (int i = 0; i < 11; ++i) e.key[i] = key[i];
+  for (int i = 0; i < 12; ++i) e.key[i] = key[i];
   e.map = *map;
   return 0;
 }

@@ -15,7 +15,10 @@ import. A failed build raises.
 
 Every wrapper adds one to ``launches[<kernel>]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went
-through the kernels (``reset_launch_counts`` zeroes them). A CUDA graph
+through the kernels (``reset_launch_counts`` zeroes them). A count is
+one call of a kernel's C entry point: one ``flash_attn_bwd`` at head dim
+256 starts two kernels, a delta pass and then the single pass
+(``csrc/flash_attn_bwd_sm90.cu``), and counts once. A CUDA graph
 replays its kernels without running the wrappers, so what captures a
 graph tallies the launches its own thread makes during the capture
 (``tally``), takes them back and adds them at each replay

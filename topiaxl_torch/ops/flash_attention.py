@@ -35,10 +35,13 @@ gradient: the backward without delta (moves dq, dk) and the pair with
 padded keys left unmasked (``flash_attention_bwd_unmasked``, moves dv
 too).
 
-Which backward runs is a shape rule, as in the JAX package
-(``_select_fused_chunk``): the single-pass kernel when the whole KV is
-one block of at most ``FUSED_BWD_MAX_KEYS`` keys (the DiT's self- and
-cross-attention), the two-pass dq + dk/dv pair otherwise.
+Which backward runs is a shape rule (``bwd_form``): up to head dim 128
+JAX's (``_select_fused_chunk``), the single-pass kernel when the whole
+KV is one block of at most ``FUSED_BWD_MAX_KEYS`` keys (the DiT's self-
+and cross-attention), the two-pass dq + dk/dv pair otherwise; at head
+dims 129-256 (the 256 instance) the single pass at every key length,
+the form ``chip_smoke.py``'s ``flash_head_dims`` phase measured faster
+on the card there.
 
 Head dims: each kernel has an instance for every D in ``HEAD_DIMS``. The
 launchers take any D from 1 to 256: they zero-pad q, k, v (and o, dO)
@@ -64,12 +67,23 @@ HEAD_DIMS = (64, 72, 80, 96, 128, 256)
 # which the planted unmasked-padding faults pad Sk to
 KEY_TILE = 128
 FUSED_BWD_MAX_KEYS = 2048
+# keys per block of the backward kernels at head dim 256 (the wide single
+# pass and dk/dv pass): the f32 sums of dq they add run over blocks this
+# size, which ``flash_attention_bwd_dq_blocks`` repeats
+WIDE_KEY_BLOCK = 64
 
 
 def kernel_head_dim(d: int) -> int | None:
     """The instance a head dim ``d`` runs on: the smallest of ``HEAD_DIMS``
     at or above it (the launchers zero-pad up to it), None above 256."""
     return next((inst for inst in HEAD_DIMS if d <= inst), None)
+
+
+def fwd_key_tile(d: int) -> int:
+    """Keys per K/V tile of the forward kernel at head dim ``d``: 64 on the
+    256 instance (O's 128 registers a thread leave no room for a wider S
+    tile), ``KEY_TILE`` below it."""
+    return 64 if kernel_head_dim(d) == HEAD_DIMS[-1] else KEY_TILE
 
 
 def _instance(d: int) -> int:
@@ -85,10 +99,19 @@ def _pad_d(t: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
 
 
-def bwd_form(sk: int) -> str:
+def bwd_form(sk: int, d: int) -> str:
     """``"fused"`` (one pass, dq reduced into f32) or ``"two_pass"`` (dq pass +
-    dk/dv pass) for a key length ``sk``."""
-    return "fused" if sk <= FUSED_BWD_MAX_KEYS else "two_pass"
+    dk/dv pass) for a key length ``sk`` and head dim ``d``: JAX's rule
+    (the single pass up to ``FUSED_BWD_MAX_KEYS`` keys) up to head dim
+    128; the single pass at every key length on the 256 instance (head
+    dims 129-256), by measurement: on an H100 80GB HBM3 at 700 W,
+    chip_smoke.py's flash_head_dims phase read the single pass at 1.3379 /
+    0.9978 / 5.0480 ms and the pair at 1.5439 / 1.0948 / 5.6649 ms at
+    2 x {2048, 2048, 4096} x {2048, 1370, 4096} x 16 x 256, and the same
+    order at head dims 160 and 200."""
+    if kernel_head_dim(d) == HEAD_DIMS[-1]:
+        return "fused"
+    return "two_pass" if sk > FUSED_BWD_MAX_KEYS else "fused"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,6 +138,55 @@ def flash_attention_unmasked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     return flash_attention_plain(q, k, v, scale, return_lse)
+
+
+def flash_attention_online(q, k, v, scale: float, block: int,
+                           stale_half: bool = False):
+    """o of the forward as the swizzled kernel form computes it, in f32 on
+    the plain version: an online softmax over key tiles of ``block`` keys
+    with O kept in two column halves that share one running max and
+    denominator (each half rescaled when the max moves). Equal to
+    ``flash_attention_plain`` up to the bf16 rounding of P, which this
+    leaves out. ``stale_half=True`` is a planted fault for the kernel
+    checks: the second half is never rescaled."""
+    B, Sq, H, D = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), -torch.inf, **f32)
+    den = torch.zeros((B, H, Sq), **f32)
+    halves = [torch.zeros((B, H, Sq, D // 2), **f32),
+              torch.zeros((B, H, Sq, D - D // 2), **f32)]
+    cols = [slice(0, D // 2), slice(D // 2, D)]
+    for n0 in range(0, k.shape[1], block):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, n0:n0 + block]) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den = den * alpha + p.sum(-1)
+        for i, c in enumerate(cols):
+            pv = torch.einsum("bhqk,bkhd->bhqd", p, vf[:, n0:n0 + block, :, c])
+            stale = stale_half and i == 1
+            halves[i] = (halves[i] if stale else halves[i] * alpha[..., None]) + pv
+        m = m_new
+    return (torch.cat(halves, -1) / den[..., None]).transpose(1, 2)
+
+
+def flash_attention_bwd_dq_blocks(q, k, v, o, lse, do, scale: float,
+                                  block: int = WIDE_KEY_BLOCK,
+                                  drop: int | None = None):
+    """dq as the kernels at head dim 256 sum it, in f32: one dS_blk K_blk
+    product per block of ``block`` keys (a block of the grid), added up.
+    Equal to ``flash_attention_bwd_plain``'s dq before its rounding.
+    ``drop`` is a planted fault for the kernel checks: the sum without
+    that block's contribution."""
+    _, ds = _bwd_p_ds(q, k, v, lse, flash_attention_bwd_delta(o, do), do,
+                      scale)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for i, n0 in enumerate(range(0, k.shape[1], block)):
+        if i != drop:
+            dq += torch.einsum("bhqk,bkhd->bqhd", ds[..., n0:n0 + block],
+                               k[:, n0:n0 + block].float())
+    return dq * scale
 
 
 def flash_attention_bwd_delta(o, do):
@@ -291,16 +363,18 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float):
                          f"{lse.stride()} on {lse.device}")
     dk = torch.empty((B, Sk, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    if bwd_form(Sk) == "fused":
+    # delta's f32 scratch: the pair's dq pass writes it for its dk/dv pass;
+    # the single pass at head dim 256 writes it in a pass of its own first
+    # (below 256 the single pass computes delta itself and leaves it)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if bwd_form(Sk, D) == "fused":
         dq_acc = torch.zeros((B, Sq, H, D), dtype=torch.float32,
                              device=q.device)
-        _bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, None, dq_acc, dk,
+        _bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, delta, dq_acc, dk,
                     dv, scale)
         return dq_acc.to(q.dtype), dk, dv
-    # the dq pass writes delta, the dk/dv pass (after it, on the same
-    # stream) reads it
+    # the dk/dv pass runs after the dq pass on the same stream
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _bwd_launch("flash_attn_bwd_dq", q, k, v, o, lse, do, delta, dq, None,
                 None, scale)
     _bwd_launch("flash_attn_bwd_dkv", q, k, v, o, lse, do, delta, None, dk,
