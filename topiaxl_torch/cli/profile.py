@@ -33,16 +33,18 @@ of kernel self times under ``torch.profiler``), the idle share
 1 - device / wall, and the kernels that take the most device time. The
 last line is one JSON object with every number printed.
 
-With ``model.generator.quant=true`` the DiT regions run W8A8; while the
-profiler traces, the three parts of each W8A8 layer run inside ranges
-``int8.quantize_activations``, ``int8.int_mm`` and ``int8.rescale``,
-whose device ms per call each region reports (``ranges_ms``). The
-trainer refuses ``quant``, so ``train_step`` is then skipped.
+While the profiler traces, the program's spans (``core/profiling.py:
+span``) record and open ranges of their names. With
+``model.generator.quant=true`` the DiT regions run W8A8, and each region
+reports the device ms per call of the three spans of each eager W8A8
+layer, ``int8.quantize_activations``, ``int8.int_mm`` and
+``int8.rescale`` (``ranges_ms``; a graph's replay runs no Python and
+opens none). The trainer refuses ``quant``, so ``train_step`` is then
+skipped.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
@@ -70,37 +72,13 @@ def _group(name: str) -> str:
     return "other"
 
 
-@contextlib.contextmanager
-def _int8_ranges():
-    """Runs the W8A8 layers' activation quant, int8 product and rescale
-    (``ops/int8.py``) inside profiler ranges named after them."""
-    from torch.profiler import record_function
-
-    from ..ops import int8
-
-    names = ("quantize_activations", "int_mm", "rescale")
-    saved = {n: getattr(int8, n) for n in names}
-
-    def ranged(name, fn):
-        def call(*args):
-            with record_function(f"int8.{name}"):
-                return fn(*args)
-        return call
-
-    for n, fn in saved.items():
-        setattr(int8, n, ranged(n, fn))
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(int8, n, fn)
-
-
 def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
     """Time ``fn`` on the card: wall without the profiler, device time
     with it. Prints a summary and returns it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from ..core import profiling
 
     fn()                                    # warm-up: allocator, kernel build
     torch.cuda.synchronize()
@@ -110,17 +88,20 @@ def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
 
-    with _int8_ranges(), profile(
+    profiling.clear_spans()
+    with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
+    spans = {s.name for s in profiling.spans()}
+    profiling.clear_spans()
     events = prof.key_averages()
-    # the ranges also appear on the device timeline, spanning their kernels
-    # and the gaps between them: kernels only, and each range's own kernels
+    # the spans' ranges also appear on the device timeline, spanning their
+    # kernels and the gaps between them: kernels only
     kernels = [e for e in events
                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
-               and not e.key.startswith("int8.")]
+               and e.key not in spans]
     ranges = {e.key: e.device_time_total / 1e3 / repeats for e in events
               if e.device_type == DeviceType.CPU and e.key.startswith("int8.")}
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / repeats

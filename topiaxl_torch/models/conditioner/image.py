@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ...core.profiling import span
 from ...ops.resize import resize_bicubic
 from .dinov2 import DinoViT, dinov2_config
 
@@ -46,13 +47,14 @@ class DinoV2Wrapper(torch.nn.Module):
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """image [B, H, W, 3] in [0, 255] -> tokens [B, 1 + hw, D] f32."""
-        x = resize_bicubic(image.float() / 255.0, self.image_size,
-                           self.image_size)
-        mean = torch.tensor(CLIP_MEAN, device=x.device)
-        std = torch.tensor(CLIP_STD, device=x.device)
-        outs = self.vit((x - mean) / std)
-        return torch.cat([outs["x_norm_clstoken"][:, None, :],
-                          outs["x_norm_patchtokens"]], dim=1)
+        with span("encode"):
+            x = resize_bicubic(image.float() / 255.0, self.image_size,
+                               self.image_size)
+            mean = torch.tensor(CLIP_MEAN, device=x.device)
+            std = torch.tensor(CLIP_STD, device=x.device)
+            outs = self.vit((x - mean) / std)
+            return torch.cat([outs["x_norm_clstoken"][:, None, :],
+                              outs["x_norm_patchtokens"]], dim=1)
 
 
 class ImageConditioner(torch.nn.Module):

@@ -18,6 +18,8 @@ from typing import Mapping
 import torch
 from torch import nn
 
+from ..core.profiling import span
+
 # cuBLASLt's int8 product takes more than 16 rows
 _MIN_ROWS = 32
 
@@ -58,9 +60,15 @@ def rescale(acc: torch.Tensor, s: torch.Tensor, w_scale: torch.Tensor,
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
-    """[..., in] @ int8 [out, in]^T with per-token activation quant."""
-    xq, s = quantize_activations(x)
-    out = rescale(int_mm(xq, w_q), s, w_scale, out_dtype)
+    """[..., in] @ int8 [out, in]^T with per-token activation quant; its
+    three parts are the spans ``int8.quantize_activations``,
+    ``int8.int_mm`` and ``int8.rescale``."""
+    with span("int8.quantize_activations"):
+        xq, s = quantize_activations(x)
+    with span("int8.int_mm"):
+        acc = int_mm(xq, w_q)
+    with span("int8.rescale"):
+        out = rescale(acc, s, w_scale, out_dtype)
     return out.reshape(*x.shape[:-1], w_q.shape[0])
 
 

@@ -61,6 +61,7 @@ import weakref
 
 import torch
 
+from ..core.profiling import span
 from ..diffusion import gaussian
 from ..diffusion.schedule import Diffusion, DiffusionTables
 from ..ops import _cuda
@@ -225,7 +226,8 @@ class CapturedGraph:
     def replay(self) -> gaussian.SampleLoopOutput:
         """Replay the graph on what its input buffers hold; the launches
         it makes are counted here."""
-        self.graph.replay()
+        with span("chain.replay"):
+            self.graph.replay()
         with _lock:
             _cuda.add_launches(self.launches)
             stats["replays"] += 1

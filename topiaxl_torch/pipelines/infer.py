@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.profiling import span
 from ..diffusion import gaussian
 from ..diffusion.schedule import Diffusion
 from ..models import primx as primx_lib
@@ -77,12 +78,13 @@ def sample_tokens(dit: DiT, diffusion: Diffusion, y: torch.Tensor,
     jitted ``sample_tokens`` (``chain_graph.sample``; the first call of a
     key runs eagerly and captures). On the CPU, and for a tensor-parallel
     or ring-attention DiT, it runs eagerly (``_sample_tokens_eager``)."""
-    if y.device.type == "cuda" and chain_graph.capturable(dit):
-        noise = _chain_inputs(dit, y, noise, generator, sampler)
-        return chain_graph.sample(dit, diffusion, y, noise, cfg_scale,
-                                  sampler, generator)
-    return _sample_tokens_eager(dit, diffusion, y, cfg_scale, noise,
-                                generator, sampler)
+    with span("sample_tokens"):
+        if y.device.type == "cuda" and chain_graph.capturable(dit):
+            noise = _chain_inputs(dit, y, noise, generator, sampler)
+            return chain_graph.sample(dit, diffusion, y, noise, cfg_scale,
+                                      sampler, generator)
+        return _sample_tokens_eager(dit, diffusion, y, cfg_scale, noise,
+                                    generator, sampler)
 
 
 @torch.inference_mode()
@@ -109,14 +111,16 @@ def decode_primx(vae: VAE3D, recon_tokens: torch.Tensor, prim_shape: int = 8,
     """De-normalised tokens [B, N, 4 + L] -> (srt [B, N, 4], feat
     [B, N, C * S^3]): one VAE decode of every primitive of the batch, then
     the payload normalisation inverted (sdf / 5, rest (x + 1) / 2)."""
-    B, N, _ = recon_tokens.shape
-    srt = recon_tokens[..., 0:4]
-    lat = recon_tokens[..., 4:]
-    ls = round(lat.shape[-1] ** (1.0 / 3.0))
-    payload = vae.decode(lat.reshape(B * N, 1, ls, ls, ls))  # [BN, C, S, S, S]
-    payload = torch.cat([payload[:, 0:1] / 5.0, (payload[:, 1:] + 1.0) / 2.0],
-                        dim=1)
-    return srt, payload.reshape(B, N, dim_feat * prim_shape**3)
+    with span("decode_primx"):
+        B, N, _ = recon_tokens.shape
+        srt = recon_tokens[..., 0:4]
+        lat = recon_tokens[..., 4:]
+        ls = round(lat.shape[-1] ** (1.0 / 3.0))
+        # [BN, C, S, S, S]
+        payload = vae.decode(lat.reshape(B * N, 1, ls, ls, ls))
+        payload = torch.cat([payload[:, 0:1] / 5.0,
+                             (payload[:, 1:] + 1.0) / 2.0], dim=1)
+        return srt, payload.reshape(B, N, dim_feat * prim_shape**3)
 
 
 def generate_primx(dit: DiT, vae: VAE3D, diffusion: Diffusion,
@@ -127,15 +131,16 @@ def generate_primx(dit: DiT, vae: VAE3D, diffusion: Diffusion,
                    generator: torch.Generator | None = None,
                    sampler: str = "ddim"):
     """Conditioning tokens [B, M, C] -> PrimXParams (a list when B > 1)."""
-    out = sample_tokens(dit, diffusion, y, cfg_scale, noise, generator,
-                        sampler)
-    dev = out.sample.device
-    recon = denormalize_tokens(
-        out.sample, torch.as_tensor(latent_mean, device=dev),
-        torch.as_tensor(latent_std, device=dev), latent_nf)
-    srt, feat = decode_primx(vae, recon, prim_shape, dim_feat)
-    params = [PrimXParams(srt[b], feat[b]) for b in range(y.shape[0])]
-    return params[0] if len(params) == 1 else params
+    with span("generate_primx"):
+        out = sample_tokens(dit, diffusion, y, cfg_scale, noise, generator,
+                            sampler)
+        dev = out.sample.device
+        recon = denormalize_tokens(
+            out.sample, torch.as_tensor(latent_mean, device=dev),
+            torch.as_tensor(latent_std, device=dev), latent_nf)
+        srt, feat = decode_primx(vae, recon, prim_shape, dim_feat)
+        params = [PrimXParams(srt[b], feat[b]) for b in range(y.shape[0])]
+        return params[0] if len(params) == 1 else params
 
 
 def generate_primx_sharded(dit: DiT, vae: VAE3D, diffusion: Diffusion,

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.profiling import span
 from ..diffusion import Diffusion, gaussian
 from ..diffusion.timestep_sampler import (
     LossSecondMomentState,
@@ -320,10 +321,12 @@ def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
         last = i == grad_accum - 1
         with (contextlib.nullcontext() if last or not hasattr(
                 forward, "no_sync") else forward.no_sync()):
-            terms = gaussian.training_losses(diffusion, model_fn, x[sl],
-                                             t[sl], noise=noise[sl])
-            loss = (terms["loss_total"] * weights[sl]).mean()
-            loss.backward()
+            with span("train.forward"):
+                terms = gaussian.training_losses(diffusion, model_fn, x[sl],
+                                                 t[sl], noise=noise[sl])
+                loss = (terms["loss_total"] * weights[sl]).mean()
+            with span("train.backward"):
+                loss.backward()
         loss_sum += loss.detach()
         for k, val in terms.items():
             terms_all.setdefault(k, []).append(val.detach())
@@ -408,44 +411,56 @@ def build_train_step(model, diffusion: Diffusion, optimizer: dict, forward,
     norm's groups (``fused_adamw_ema_update``'s ``norm_group``,
     ``split_group``, ``split_names``) and ``sync_grads(params)``, run
     after the backward where no library syncs the gradients (the
-    pipeline, ``parallel/pipeline.py``)."""
+    pipeline, ``parallel/pipeline.py``). The step is the root span
+    ``train_step``; its draws (``train.draws``), each microbatch's forward
+    and loss (``train.forward``) and backward (``train.backward``) and the
+    update (``train.optimizer``) are spans inside it."""
     index, parts = split
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
+        with span("train_step"):
+            return step(state, batch, seed)
+
+    def step(state: TrainState, batch: dict, seed: int) -> dict:
         x, y = batch["x"], batch["y"]
         B, device = x.shape[0], x.device
         rows = slice(index * B, (index + 1) * B)
-        gen, cpu_gen = _step_generators(seed, state.step, device)
-        # every draw over the global batch, then this rank's rows
-        if timestep_sampler == "lsm" and state.sampler_state is not None:
-            t, weights = lsm_sample(state.sampler_state, B * parts, cpu_gen)
-            t, weights = t[rows].to(device), weights[rows].to(device)
-        else:
-            t, weights = uniform_sample(diffusion.num_timesteps, B * parts,
-                                        gen, device)
-            t, weights = t[rows], weights[rows]
-        drop = model.cond_drop_mask(B * parts, gen, device)
-        drop = None if drop is None else drop[rows]
-        noise = torch.randn((B * parts, *x.shape[1:]), generator=gen,
-                            device=device, dtype=x.dtype)[rows]
-        if "t" in batch:
-            t = batch["t"].to(device)
-            weights = torch.ones_like(weights)
-        drop = batch["drop"].to(device) if "drop" in batch else drop
-        noise = batch["noise"].to(device, x.dtype) if "noise" in batch else noise
+        with span("train.draws"):
+            gen, cpu_gen = _step_generators(seed, state.step, device)
+            # every draw over the global batch, then this rank's rows
+            if timestep_sampler == "lsm" and state.sampler_state is not None:
+                t, weights = lsm_sample(state.sampler_state, B * parts,
+                                        cpu_gen)
+                t, weights = t[rows].to(device), weights[rows].to(device)
+            else:
+                t, weights = uniform_sample(diffusion.num_timesteps,
+                                            B * parts, gen, device)
+                t, weights = t[rows], weights[rows]
+            drop = model.cond_drop_mask(B * parts, gen, device)
+            drop = None if drop is None else drop[rows]
+            noise = torch.randn((B * parts, *x.shape[1:]), generator=gen,
+                                device=device, dtype=x.dtype)[rows]
+            if "t" in batch:
+                t = batch["t"].to(device)
+                weights = torch.ones_like(weights)
+            drop = batch["drop"].to(device) if "drop" in batch else drop
+            noise = (batch["noise"].to(device, x.dtype) if "noise" in batch
+                     else noise)
         loss, terms = accumulate_gradients(model, diffusion, x, y, t, weights,
                                            noise, drop, grad_accum, forward)
 
-        params = state.params()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params.items()}
-        if sync_grads is not None:
-            sync_grads(grads)
-        gnorm = fused_adamw_ema_update(
-            grads, state.opt_state, params, state.ema_params, optimizer,
-            ema_decay=ema_decay, grad_prescale=1.0 / grad_accum,
-            **norm)
-        model.zero_grad(set_to_none=True)
+        with span("train.optimizer"):
+            params = state.params()
+            grads = {n: (p.grad if p.grad is not None
+                         else torch.zeros_like(p))
+                     for n, p in params.items()}
+            if sync_grads is not None:
+                sync_grads(grads)
+            gnorm = fused_adamw_ema_update(
+                grads, state.opt_state, params, state.ema_params, optimizer,
+                ema_decay=ema_decay, grad_prescale=1.0 / grad_accum,
+                **norm)
+            model.zero_grad(set_to_none=True)
         if timestep_sampler == "lsm" and state.sampler_state is not None:
             state.sampler_state = lsm_update(state.sampler_state, t.cpu(),
                                              terms["loss_total"], data_group)
