@@ -28,7 +28,10 @@ the script exits non-zero without a result line):
    launch counters zeroed before and read after.
 6. serving: ``topiaxl_torch.cli.infer.main`` on two synthetic images at
    the flagship config (``configs/inference_dit.yml``, random weights,
-   no GLB export), with the exact kernel launch counts per image.
+   no GLB export), with the exact kernel launch counts per image, and
+   the flash forwards by tile layout: the chain's 1,400 split (head dim
+   72) and DINOv2's 12 swizzled (64), the same for the image whose chain
+   ran eager and was captured (the first) and the one that replayed it.
 7. serving_int8: the same with ``model.generator.quant=true`` (W8A8), in
    turns with bf16 (int8, bf16, int8 after phase 6's bf16): stage 1 of
    each run's warm image, and the same launch counts.
@@ -143,7 +146,7 @@ the old form's in the log only (before the wide heads' redesign, copied
 from PERF.md, not measured by the run), the backward form the shape rule
 takes (``bwd_form``; ``flash_attention_backward`` launches that form and
 no other, within the bar), and the redesigned forms' own planted faults:
-the swizzled forward (above 80) with its second O column half left
+the forward above 80 with its second O column half left
 unrescaled, the 256 backward's dQ without its first 64-key block; and
 the ring over two blocks at head dims 36 and 80. Its rows go into each
 kernel's entry of the kernels line under ``head_dims``. The kernels
@@ -221,6 +224,10 @@ EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                      "ln_modulate": 25 * 29,
                      "ln_modulate_residual": 25 * 56, **NO_PROBES}
+# the same image's flash forwards by tile layout (flash_attention.
+# fwd_tile_layout): the chain's 1,400 at head dim 72 split (a swizzled
+# 64-column box and one 8-column chunk), DINOv2's 12 at 64 one swizzled box
+EXPECTED_FWD_LAYOUTS = {"split": 25 * 56, "swizzled": 12}
 
 
 def train_launches(remat=False, depth: int = 28) -> dict:
@@ -798,11 +805,11 @@ def check_flash_backward(results: dict, randn) -> None:
 
 
 # the flagship rows of PERF.md's kernel table (ms on an H100 80GB HBM3 at
-# 700 W): the D 64 / 72 instances, which the redesign of the wide heads
-# leaves as they were; the kernels phase prints each reading beside them
-FLAGSHIP_MS = {("flash_attn_fwd", "dit_self"): 0.1458,
-               ("flash_attn_fwd", "dit_cross"): 0.0522,
-               ("flash_attn_fwd", "dinov2"): 0.0254,
+# 700 W): the D 64 / 72 instances, the forward's on swizzled tiles (the
+# split layout at 72); the kernels phase prints each reading beside them
+FLAGSHIP_MS = {("flash_attn_fwd", "dit_self"): 0.1225,
+               ("flash_attn_fwd", "dit_cross"): 0.0450,
+               ("flash_attn_fwd", "dinov2"): 0.0238,
                ("flash_attn_bwd", "dit_self"): 1.4142,
                ("flash_attn_bwd", "dit_cross"): 0.9736}
 FLAGSHIP_TOL = 0.04
@@ -1010,8 +1017,8 @@ def phase_flash_head_dims() -> dict:
     computed from the padded head dim) above them, ms beside the bound
     (counted at the true head dim), SDPA's and, in the log only, the old
     form's (``HEAD_DIM_OLD_MS``); the backward form ``bwd_form`` takes. The
-    redesigned kernels' own faults: for the forward above 80 (swizzled,
-    two O column halves sharing one softmax) the second half left
+    redesigned kernels' own faults: for the forward above 80 (O in
+    two column halves sharing one softmax) the second half left
     unrescaled, for the 256 backward (dQ summed over 64-key blocks) dQ
     without the first block; each lands above its bar. Then the ring over
     two blocks at a padded head dim. Returns the rows for the kernels
@@ -1452,13 +1459,13 @@ def write_images(tmp: str, n: int) -> str:
 
 
 def run_cli(tmp: str, tag: str, images: int, overrides: list,
-            expected: dict) -> tuple[dict, list]:
+            expected: dict, layouts: dict | None = None) -> tuple[dict, list]:
     """``cli.infer.main`` at the flagship config on ``images`` synthetic
     images (no GLB export), the counters zeroed just before; checks each
-    image's launches against ``expected``, its denoised PrimX (finite,
-    shaped) and its ``recon.jpg`` (decodes at 518 x 1036). Returns the
-    run's total launches and one record per image (stage seconds,
-    launches)."""
+    image's launches against ``expected`` (and, given ``layouts``, its
+    flash forwards by tile layout), its denoised PrimX (finite, shaped) and
+    its ``recon.jpg`` (decodes at 518 x 1036). Returns the run's total
+    launches and one record per image (stage seconds, launches)."""
     import cv2
 
     from topiaxl_torch.cli.infer import main
@@ -1469,7 +1476,8 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
         """Snapshots the launch counters as each image finishes."""
 
         def append(self, rec):
-            super().append(dict(rec, launches=dict(_cuda.launches)))
+            super().append(dict(rec, launches=dict(_cuda.launches),
+                                layouts=dict(_cuda.fwd_layouts)))
 
     recs = PerImage()
     root = os.path.join(tmp, f"runs_{tag}")
@@ -1488,14 +1496,20 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
         raise AssertionError(f"cli main ({tag}) returned {rc} with "
                              f"{len(recs)} images")
     prev = dict.fromkeys(total, 0)
+    prev_layouts = dict.fromkeys(_cuda.fwd_layouts, 0)
     for rec in recs:
         per = {k: rec["launches"][k] - prev[k] for k in total}
-        prev = rec["launches"]
+        per_layout = {k: n - prev_layouts[k] for k, n in rec["layouts"].items()}
+        prev, prev_layouts = rec["launches"], rec["layouts"]
         log(f"  [{tag}] {rec['image']}: encode {rec['encode_s']:.3f} s, "
             f"stage1 {rec['stage1_s']:.3f} s, recon {rec['recon_s']:.3f} s, "
-            f"stage2 {rec['stage2_s']:.3f} s; launches {per}")
+            f"stage2 {rec['stage2_s']:.3f} s; launches {per}; flash forwards "
+            f"by tile layout {per_layout}")
         if per != expected:
             raise AssertionError(f"{tag}: launches {per} != {expected}")
+        if layouts is not None and per_layout != layouts:
+            raise AssertionError(f"{tag}: flash forwards by tile layout "
+                                 f"{per_layout} != {layouts}")
         out = os.path.join(root, "inference", "topiaxl-sview",
                            "inference_folder", rec["image"])
         recon = cv2.imread(os.path.join(out, "recon.jpg"))
@@ -1512,7 +1526,8 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
 
 
 def phase_serving(tmp: str) -> tuple[dict, list]:
-    return run_cli(tmp, "bf16", 2, [], EXPECTED_LAUNCHES)
+    return run_cli(tmp, "bf16", 2, [], EXPECTED_LAUNCHES,
+                   EXPECTED_FWD_LAYOUTS)
 
 
 def phase_serving_int8(tmp: str, bf16: list) -> None:

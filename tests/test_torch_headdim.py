@@ -70,6 +70,55 @@ def test_kernel_head_dim_takes_129_to_256_to_the_256_instance():
     assert all(fa.kernel_head_dim(d) is None for d in range(257, 520))
 
 
+def test_forward_tile_layout_by_head_dim():
+    """72 and 80 take the split layout (one swizzled 64-column box and the
+    columns past it as 8-column chunks); 64, 96, 128 and 256 whole
+    swizzled boxes; a padded head dim its instance's layout."""
+    assert {d: fa.fwd_tile_layout(d) for d in fa.HEAD_DIMS} == {
+        64: "swizzled", 72: "split", 80: "split", 96: "swizzled",
+        128: "swizzled", 256: "swizzled"}
+    for d in range(1, 257):
+        assert fa.fwd_tile_layout(d) == fa.fwd_tile_layout(
+            fa.kernel_head_dim(d)), d
+    assert fa.fwd_tile_layout(68) == "split" and fa.fwd_tile_layout(36) == "swizzled"
+    with pytest.raises(ValueError, match="257"):
+        fa.fwd_tile_layout(257)
+
+
+def test_forward_tile_layout_mirrors_the_kernel_rule(tmp_path):
+    """``fwd_tile_layout`` against the rule the kernel is compiled with
+    (``csrc/flash_fwd_layout.cuh``, plain C++ built here by the host
+    compiler): split exactly where the rule leaves columns past the whole
+    boxes, and those at most one k16 step of 8-column chunks."""
+    import shutil
+    import subprocess
+
+    from topiaxl_torch.ops import _cuda
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.fail("no host C++ compiler (g++) to read the kernel's rule")
+    main = tmp_path / "rule.cpp"
+    main.write_text(
+        '#include <cstdio>\n#include "flash_fwd_layout.cuh"\n'
+        f"const int dims[] = {{{', '.join(map(str, fa.HEAD_DIMS))}}};\n"
+        "int main() {\n"
+        "  for (int d : dims)\n"
+        '    std::printf("%d %d %d %d\\n", d, fwd_box_cols(d), '
+        "fwd_tail_cols(d), fwd_block_n(d));\n}\n")
+    exe = tmp_path / "rule"
+    subprocess.run([cxx, "-std=c++17", "-I", str(_cuda.CSRC), str(main), "-o",
+                    str(exe)], check=True, capture_output=True)
+    rows = [tuple(map(int, line.split())) for line in
+            subprocess.run([str(exe)], check=True, capture_output=True,
+                           text=True).stdout.splitlines()]
+    assert [r[0] for r in rows] == list(fa.HEAD_DIMS)
+    for d, box, tail, block_n in rows:
+        assert fa.fwd_tile_layout(d) == ("split" if tail else "swizzled"), d
+        assert box in (32, 64) and (d - tail) % box == 0 and tail in (0, 8, 16)
+        assert block_n == fa.fwd_key_tile(d)
+
+
 def _qkv(d, seed=0, sq=37, sk=53):
     g = torch.Generator().manual_seed(seed)
     return (torch.randn((2, sq, 3, d), generator=g),

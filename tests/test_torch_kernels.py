@@ -22,6 +22,9 @@ exact, bf16 within 1e-3 of max|plain| (f32 sums in another order), with
 planted faults (coefficients +1, one product fewer, a pad of ones) above,
 also where several blocks share an output tile (their partial sums
 reduced in a fixed order, so two launches give the same bits).
+Head dim 72's split tile layout at the chain's shapes (self-attention,
+cross-attention over 1370 keys, a ragged Sq of 1000): o at the forward's
+bar, the lse at its bar, the launch counted under ``split``.
 Every head dim up to 256 (80, 96, 128 and 256 on their own instances,
 the others zero-padded by the launchers) at the same bars, with a scale
 computed from the padded head dim (a planted fault) above the forward's.
@@ -104,6 +107,38 @@ def test_flash_matches_plain(dev, B, Sq, Sk, H, D, scale):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert _rel_err(got, ref) <= ATTN_REL_BAR
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H", [
+    (2, 2048, 2048, 16),   # the chain's self-attention
+    (1, 2048, 1370, 16),   # its cross-attention: a last key tile of 90 keys
+    (1, 1000, 2048, 16),   # ragged Sq
+])
+def test_flash_split_layout_at_72_matches_plain(dev, B, Sq, Sk, H):
+    """Head dim 72 on the split tile layout (one 64-column box with the
+    128-byte swizzle and one 8-column chunk): o and lse against the plain
+    version, with q, k and v strided views of one qkv (self) or of q and kv
+    tensors (cross, ragged), whose strides go into the tensor maps; one
+    launch counted under ``split``."""
+    from topiaxl_torch.ops import flash_attention as fa
+
+    D = 72
+    if Sq == Sk:
+        q, k, v = _randn(dev, B, Sq, 3, H, D, seed=71).unbind(2)
+        scale = D ** -0.5
+    else:
+        q = _randn(dev, B, Sq, 3, H, D, seed=71)[:, :, 0]
+        k, v = _randn(dev, B, Sk, 2, H, D, seed=72).unbind(2)
+        scale = 1.0 / D
+    assert fa.fwd_tile_layout(D) == "split"
+    before = dict(_cuda.fwd_layouts)
+    o, lse = fa._forward(q, k, v, scale, return_lse=True)
+    assert _cuda.fwd_layouts == dict(before, split=before["split"] + 1)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, scale, return_lse=True)
+    torch.cuda.synchronize()
+    assert o.shape == o_ref.shape and o.dtype == torch.bfloat16
+    assert _rel_err(o, o_ref) <= ATTN_REL_BAR
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_BAR
 
 
 @pytest.mark.parametrize("Sk,D", [(63, 72), (700, 64), (1025, 72), (1370, 72),

@@ -172,13 +172,48 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     assert _cuda.launches == before
 
 
+def test_forward_layout_counter_on_the_cpu_path():
+    """The per-layout count of flash forwards: the CPU path launches nothing
+    and counts nothing; a launch counted with its layout adds to
+    ``launches`` and ``fwd_layouts``; a capture's tally holds the layout
+    under ``"<kernel>.<layout>"``, which ``add_launches`` takes back and
+    adds again as a graph replay does; ``reset_launch_counts`` zeroes it."""
+    saved = dict(_cuda.launches), dict(_cuda.fwd_layouts)
+    try:
+        before = dict(_cuda.launches), dict(_cuda.fwd_layouts)
+        q, k, v = (torch.from_numpy(t) for t in
+                   _qkv(np.random.default_rng(3), 1, 9, 11, 2, 72))
+        flash_attention(q, k, v, 72 ** -0.5)
+        assert (dict(_cuda.launches), dict(_cuda.fwd_layouts)) == before
+        _cuda.reset_launch_counts()
+        assert set(_cuda.fwd_layouts.values()) == {0}
+        with _cuda.tally() as counts:
+            _cuda.count_launch("flash_attn_fwd", layout="split")
+            _cuda.count_launch("flash_attn_fwd", layout="swizzled")
+            _cuda.count_launch("ln_modulate")
+        assert counts == {"flash_attn_fwd": 2, "flash_attn_fwd.split": 1,
+                          "flash_attn_fwd.swizzled": 1, "ln_modulate": 1}
+        assert _cuda.fwd_layouts == {"split": 1, "swizzled": 1}
+        _cuda.add_launches({key: -n for key, n in counts.items()})
+        assert set(_cuda.fwd_layouts.values()) == {0}
+        assert set(_cuda.launches.values()) == {0}
+        for _ in range(3):
+            _cuda.add_launches(counts)
+        assert _cuda.fwd_layouts == {"split": 3, "swizzled": 3}
+        assert _cuda.launches["flash_attn_fwd"] == 6
+    finally:
+        _cuda.launches.update(saved[0])
+        _cuda.fwd_layouts.update(saved[1])
+
+
 def test_kernel_sources_build_key():
     """The build is keyed on the sources: every .cu file and shared header
     is found, and editing nothing gives the same directory."""
     names = [p.name for p in _cuda.sources()]
     assert names == ["flash_attn_bwd.cu", "flash_attn_bwd_sm90.cu",
                      "flash_attn_fwd.cu", "ln_modulate.cu", "mma_probe.cu"]
-    assert [p.name for p in _cuda.headers()] == ["sm90.cuh"]
+    assert [p.name for p in _cuda.headers()] == ["flash_fwd_layout.cuh",
+                                                 "sm90.cuh"]
     assert _cuda.build_dir() == _cuda.build_dir()
     assert _cuda.build_dir().parent.name == "topiaxl_torch_kernels"
 

@@ -23,7 +23,7 @@
 //     setmaxnreg moves the producer's registers to the consumers;
 //   * S = Q K^T runs on wgmma m64n128k16 (m64n64k16 at head dim 256) with
 //     both operands in shared memory (K-major over D); O += P V on wgmma
-//     m64n{72,64}k16 with P from registers and V read MN-major
+//     m64nDk16 with P from registers and V read MN-major
 //     (transposed) from its [key, D] tile; the accumulator layout is
 //     mma.sync's, so the online softmax works on the S registers in place;
 //   * overlap: in its turn a warpgroup issues S of tile j and P V of tile
@@ -32,27 +32,39 @@
 //     products. (Running the softmax of tile j while P V of tile j - 1 is
 //     still in flight, waiting for S alone, makes ptxas serialise the
 //     wgmmas (C7514) and measured slower on the H100.)
-//   * up to head dim 80 (the DiT's 72, DINOv2's 64) tiles live in shared
-//     memory in wgmma's no-swizzle core-matrix layout (sm90.cuh), loaded by
-//     TMA one 8-column chunk at a time, so head dim 72 (9 chunks) needs no
-//     swizzle span; Q K^T contracts over 80, with the 10th chunk of Q and
-//     K zeroed once and never loaded;
-//   * above 80 (96, 128, 256) the tiles are swizzled (sm90.cuh): 64-column
-//     boxes with the 128-byte swizzle at 128 and 256, 32-column boxes with
-//     the 64-byte one at 96, so a tile arrives in D / 64 (D / 32) TMA boxes
-//     of whole 128-byte (64-byte) rows where the chunked layout took D / 8
-//     boxes of 16-byte rows, each costing a request per row and half a
-//     32-byte sector; the same descriptors read Q and K K-major and V
-//     MN-major. There the O rescale is skipped when no row of the warp
-//     moved its maximum (after the first tiles, most tiles);
-//   * one instance per head dim 64, 72, 80, 96, 128 and 256 (P V on wgmma
-//     m64nDk16, at 256 two m64n128 halves sharing the P fragments, each
-//     half of O its own accumulator chain); at 128 the S, O and P registers
-//     (64 + 64 + 32 a thread) still fit the consumers' 240, and shared
-//     memory holds Q and two K/V stages in 160 KiB; at 256 O alone takes
-//     128 registers a thread, so the K/V tiles hold 64 keys (S and P 32 +
-//     16; a 128-key S tile beside O would take 224 of the 240) and Q and
-//     two stages take 192 KiB;
+//   * the tiles live in shared memory as swizzled TMA boxes (sm90.cuh; the
+//     rule in flash_fwd_layout.cuh): 64-column boxes with the 128-byte
+//     swizzle at 64, 72, 80, 128 and 256, 32-column boxes with the 64-byte
+//     one at 96, so a tile arrives in a few boxes of whole 128-byte
+//     (64-byte) rows, where 8-column chunks took D / 8 boxes of 16-byte
+//     rows, each costing a request per row and half a 32-byte sector. Head
+//     dims 72 and 80 take the "split" layout: one 64-column box, then the 8
+//     (16) columns past it as one (two) 8-column chunks in wgmma's
+//     no-swizzle core-matrix layout. At 72 the tail's 16-byte rows are
+//     narrower than the narrowest swizzle span (32 bytes), and a second
+//     64-column box would hold 56 columns of zeros a row, so the tail stays
+//     one chunk: 2 TMA boxes a tile where there were 9 (0.1225 ms at
+//     2x2048x2048x16, 31.9% of its bound, where the 9 chunks took 0.1458 ms,
+//     26.8%, on an H100 80GB HBM3 at 700 W, with the same bits; the softmax,
+//     not the loads, holds it now). 80 shares the code; its two chunks could
+//     be one 32-byte-swizzled box, which no cell measures. Q K^T runs its
+//     first four k16 steps on the box's descriptors and the fifth on the
+//     tail, which at 72 pairs the chunk with a padding chunk of Q and of K
+//     zeroed once and never loaded; P V splits into m64n64k16 over V's box
+//     and m64n{8,16}k16 over its tail, each on its own accumulator
+//     registers, sharing the P fragments. The same descriptors read Q and K
+//     K-major and V MN-major;
+//   * every tile rescales O: skipping that where no row of the warp moved
+//     its maximum (a warp vote and a branch) measured slower at 72 and 128
+//     on the H100, with the same bits;
+//   * one instance per head dim 64, 72, 80, 96, 128 and 256 (P V at 72 and
+//     80 split as above, at 256 two m64n128 halves sharing the P
+//     fragments, each half of O its own accumulator chain); at 128 the S,
+//     O and P registers (64 + 64 + 32 a thread) still fit the consumers'
+//     240, and shared memory holds Q and two K/V stages in 160 KiB; at 256
+//     O alone takes 128 registers a thread, so the K/V tiles hold 64 keys
+//     (S and P 32 + 16; a 128-key S tile beside O would take 224 of the
+//     240) and Q and two stages take 192 KiB;
 //   * the [B, S, H, D] strides go into the tensor maps (encoded on the
 //     host per launch), so the DiT's qkv.unbind(2) views are read
 //     without a copy; rows past Sq or Sk arrive as zeros from TMA and
@@ -62,6 +74,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_layout.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -73,39 +86,27 @@ constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr float kNegBig = -1e30f;
 
-// keys per K/V tile: 128 up to head dim 128; 64 at 256, where O (128
-// registers a thread) beside S and P of a 128-key tile would spill
-__host__ __device__ constexpr int fwd_block_n(int D) {
-  return D <= 128 ? 128 : 64;
-}
-
-// above head dim 80 the tiles use the swizzled layout (sm90.cuh): boxes
-// of 64 columns with the 128-byte swizzle where D is a multiple of 64
-// (128, 256), of 32 columns with the 64-byte one otherwise (96); up to 80
-// the chunked no-swizzle layout, which head dim 72 needs
-__host__ __device__ constexpr bool fwd_swizzled(int D) { return D > 80; }
-__host__ __device__ constexpr int fwd_box_cols(int D) {
-  return !fwd_swizzled(D) ? 8 : D % 64 == 0 ? 64 : 32;
-}
-
 template <int D>
 struct Fwd {
-  static constexpr bool kSw = fwd_swizzled(D);
   static constexpr int kSwCols = fwd_box_cols(D);   // columns per TMA box
-  static constexpr int kSwBytes = 2 * kSwCols;       // swizzle span (kSw)
+  static constexpr int kSwBytes = 2 * kSwCols;       // swizzle span
+  static constexpr int kTail = fwd_tail_cols(D);     // columns in chunks
+  static constexpr int kBoxCols = D - kTail;         // columns in boxes
   static constexpr int kBlockN = fwd_block_n(D);
-  static constexpr int kChunks = D / 8;            // 8-column chunks of D
+  static constexpr int kChunks = D / 8;            // 8-column units of D
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps of Q K^T
-  static constexpr int kChunksP = 2 * kSteps;      // Q, K chunks with padding
+  static constexpr int kChunksP = 2 * kSteps;      // Q, K units with padding
   static constexpr int kQElems = kChunksP * kBlockM * 8;
   static constexpr int kKElems = kChunksP * kBlockN * 8;
   static constexpr int kVElems = kChunks * kBlockN * 8;
   static constexpr int kBarOffset =
       2 * (kQElems + kStages * (kKElems + kVElems));
   static constexpr int kSmem = kBarOffset + 8 * (1 + 4 * kStages);
-  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
-  static_assert(!kSw || (D % kSwCols == 0 && kChunksP == kChunks),
-                "a swizzled head dim is a multiple of its box and of 16");
+  static_assert(D % 8 == 0 && kBoxCols % kSwCols == 0 && kTail <= 16,
+                "whole boxes, then at most one k16 step of 8-column chunks");
+  static_assert((2 * kQElems) % 1024 == 0 && (2 * kKElems) % 1024 == 0 &&
+                    (2 * kVElems) % 1024 == 0,
+                "every tile, so every swizzled box, 1024-byte aligned");
 };
 
 // byte offset of k16 step kk of a K-major swizzled tile of kRows rows: box
@@ -116,22 +117,27 @@ __host__ __device__ constexpr uint32_t sw_k_offset(int kk) {
   return (kk / kPerBox) * kRows * Fwd<D>::kSwBytes + (kk % kPerBox) * 32;
 }
 
-// rows [row0, row0 + kRows) of head (b, h) into a tile: 8-column chunks,
-// or above head dim 80 kSwCols-column swizzled boxes
+// rows [row0, row0 + kRows) of head (b, h) into a tile: its swizzled
+// boxes from `map`, then the tail's 8-column chunks from `tail_map`
 template <int D, int kRows>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const CUtensorMap* map,
+                                          const CUtensorMap* tail_map,
                                           uint64_t* bar, int row0, int h,
                                           int b) {
-  if constexpr (Fwd<D>::kSw) {
-    tma_load_tile_sw<D, kRows, Fwd<D>::kSwCols>(dst, map, bar, row0, h, b);
-  } else {
-    tma_load_tile<D, kRows>(dst, map, bar, row0, h, b);
+  using T = Fwd<D>;
+  tma_load_tile_sw<T::kBoxCols, kRows, T::kSwCols>(dst, map, bar, row0, h, b);
+#pragma unroll
+  for (int c = T::kBoxCols; c < D; c += 8) {
+    tma_load_4d(dst + kRows * c, tail_map, bar, c, row0, h, b);
   }
 }
 
 // O += P V for K/V tile j, once its V has arrived: P from registers, V
-// MN-major B (8 keys per core matrix along K, the chunks along N)
+// MN-major B. The boxes: LBO one box (kSwCols columns along N), SBO 8 keys,
+// a k16 step 16 keys; at 256 two m64n128 halves, the second two boxes
+// along. The tail's chunks (72, 80): LBO 8 keys, SBO one chunk, a k16 step
+// 16 keys, into the last kTail / 2 accumulator registers
 template <int D>
 __device__ __forceinline__ void issue_pv(
     float (&acc)[D / 2], const uint32_t (&p)[Fwd<D>::kBlockN / 16][4],
@@ -140,30 +146,29 @@ __device__ __forceinline__ void issue_pv(
   constexpr int kBlockN = T::kBlockN;
   const int st = j % kStages;
   mbar_wait(&v_full[st], (j / kStages) & 1);
-  if constexpr (T::kSw) {
-    // V MN-major with the swizzle: LBO one box (kSwCols columns along N),
-    // SBO 8 keys, a k16 step 16 keys; at 256 two m64n128 halves, the
-    // second two boxes along
-    constexpr uint32_t kBox = kBlockN * T::kSwBytes;
-    const uint64_t v_desc = make_desc_sw<T::kSwBytes>(
-        Vs + st * T::kVElems, kBox, 8 * T::kSwBytes);
+  const __nv_bfloat16* vs = Vs + st * T::kVElems;
+  constexpr uint32_t kBox = kBlockN * T::kSwBytes;
+  const uint64_t v_desc =
+      make_desc_sw<T::kSwBytes>(vs, kBox, 8 * T::kSwBytes);
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t off = (kk * 16 * T::kSwBytes) >> 4;
-      if constexpr (D == 256) {
-        wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(&acc[0]), p[kk],
-                         v_desc + off, 1);
-        wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(&acc[64]), p[kk],
-                         v_desc + off + ((2 * kBox) >> 4), 1);
-      } else {
-        wgmma_rs<D, 1>(acc, p[kk], v_desc + off, 1);
-      }
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    const uint32_t off = (kk * 16 * T::kSwBytes) >> 4;
+    if constexpr (D == 256) {
+      wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(&acc[0]), p[kk],
+                       v_desc + off, 1);
+      wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(&acc[64]), p[kk],
+                       v_desc + off + ((2 * kBox) >> 4), 1);
+    } else {
+      wgmma_rs<T::kBoxCols, 1>(
+          *reinterpret_cast<float(*)[T::kBoxCols / 2]>(&acc[0]), p[kk],
+          v_desc + off, 1);
     }
-  } else {
-    const uint64_t v_desc = make_desc(Vs + st * T::kVElems, 128, kBlockN * 16);
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      wgmma_rs<D, 1>(acc, p[kk], v_desc + ((kk * 256) >> 4), 1);
+    if constexpr (T::kTail > 0) {
+      const uint64_t vt_desc =
+          make_desc(vs + kBlockN * T::kBoxCols, 128, kBlockN * 16);
+      wgmma_rs<T::kTail, 1>(
+          *reinterpret_cast<float(*)[T::kTail / 2]>(&acc[T::kBoxCols / 2]),
+          p[kk], vt_desc + ((kk * 256) >> 4), 1);
     }
   }
   wgmma_commit();
@@ -174,6 +179,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap qtail,
+                 const __grid_constant__ CUtensorMap ktail,
+                 const __grid_constant__ CUtensorMap vtail,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int H, int Sq, int Sk, long long osb, long long oss,
                  long long osh, float scale_log2) {
@@ -194,9 +202,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.y - b * H;
   const int m0 = blockIdx.x * kBlockM;
   const int n_tiles = (Sk + kBlockN - 1) / kBlockN;
-  if constexpr (T::kSw) check_smem_align(smem);
+  check_smem_align(smem);
 
-  // the padding chunks of Q and of every K stage: zero once, never loaded
+  // the padding chunk of Q and of every K stage (72): zero once, never
+  // loaded
   if constexpr (T::kChunksP > T::kChunks) {
     constexpr int kPadQ = (T::kChunksP - T::kChunks) * kBlockM;   // uint4s
     constexpr int kPadK = (T::kChunksP - T::kChunks) * kBlockN;
@@ -229,18 +238,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     setmaxnreg_dec<24>();
     if (tid == 256) {
       mbar_arrive_expect_tx(q_full, T::kChunks * kBlockM * 16);
-      load_tile<D, kBlockM>(Qs, &qmap, q_full, m0, h, b);
+      load_tile<D, kBlockM>(Qs, &qmap, &qtail, q_full, m0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         const uint32_t ph = (j / kStages) & 1;
         mbar_wait(&k_empty[st], ph ^ 1);
         mbar_arrive_expect_tx(&k_full[st], T::kChunks * kBlockN * 16);
-        load_tile<D, kBlockN>(Ks + st * T::kKElems, &kmap, &k_full[st],
-                              j * kBlockN, h, b);
+        load_tile<D, kBlockN>(Ks + st * T::kKElems, &kmap, &ktail,
+                              &k_full[st], j * kBlockN, h, b);
         mbar_wait(&v_empty[st], ph ^ 1);
         mbar_arrive_expect_tx(&v_full[st], T::kChunks * kBlockN * 16);
-        load_tile<D, kBlockN>(Vs + st * T::kVElems, &vmap, &v_full[st],
-                              j * kBlockN, h, b);
+        load_tile<D, kBlockN>(Vs + st * T::kVElems, &vmap, &vtail,
+                              &v_full[st], j * kBlockN, h, b);
       }
     }
   } else {
@@ -250,16 +259,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     const int lane = tid & 31;
     const int g = lane >> 2;
     const int tg = lane & 3;
-    // Q: K-major A, this warpgroup's 64 rows; chunk stride along D (or,
-    // swizzled, 64 rows into each box)
-    const uint64_t q_desc = [&] {
-      if constexpr (T::kSw) {
-        return make_desc_sw<T::kSwBytes>(Qs + wg * 64 * T::kSwCols, 16,
-                                         8 * T::kSwBytes);
-      } else {
-        return make_desc(Qs + wg * 64 * 8, kBlockM * 16, 128);
-      }
-    }();
+    // Q: K-major A, this warpgroup's 64 rows into each box
+    const uint64_t q_desc = make_desc_sw<T::kSwBytes>(
+        Qs + wg * 64 * T::kSwCols, 16, 8 * T::kSwBytes);
 
     float s[kBlockN / 2];          // S tile: kBlockN / 8 column tiles x 4
     float acc[D / 2];              // O: D / 8 column tiles x 4
@@ -278,24 +280,22 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(acc);
       fence_regs(p);
       wgmma_fence();
-      if constexpr (T::kSw) {
-        const uint64_t k_desc = make_desc_sw<T::kSwBytes>(
-            Ks + st * T::kKElems, 16, 8 * T::kSwBytes);
+      const __nv_bfloat16* ks = Ks + st * T::kKElems;
+      const uint64_t k_desc =
+          make_desc_sw<T::kSwBytes>(ks, 16, 8 * T::kSwBytes);
 #pragma unroll
-        for (int kk = 0; kk < T::kSteps; ++kk) {
-          wgmma_ss<kBlockN, 0, 0>(s, q_desc + (sw_k_offset<D, kBlockM>(kk) >> 4),
-                                  k_desc + (sw_k_offset<D, kBlockN>(kk) >> 4),
-                                  kk > 0);
-        }
-      } else {
-        const uint64_t k_desc =
-            make_desc(Ks + st * T::kKElems, kBlockN * 16, 128);
-#pragma unroll
-        for (int kk = 0; kk < T::kSteps; ++kk) {
-          wgmma_ss<kBlockN, 0, 0>(s, q_desc + ((kk * 2 * kBlockM * 16) >> 4),
-                                  k_desc + ((kk * 2 * kBlockN * 16) >> 4),
-                                  kk > 0);
-        }
+      for (int kk = 0; kk < T::kBoxCols / 16; ++kk) {
+        wgmma_ss<kBlockN, 0, 0>(s, q_desc + (sw_k_offset<D, kBlockM>(kk) >> 4),
+                                k_desc + (sw_k_offset<D, kBlockN>(kk) >> 4),
+                                kk > 0);
+      }
+      if constexpr (T::kTail > 0) {
+        // the last k16 step: the tail's chunks (at 72 beside the zeroed
+        // padding chunk), no swizzle: LBO one chunk along D, SBO 8 rows
+        wgmma_ss<kBlockN, 0, 0>(
+            s, make_desc(Qs + kBlockM * T::kBoxCols + wg * 64 * 8,
+                         kBlockM * 16, 128),
+            make_desc(ks + kBlockN * T::kBoxCols, kBlockN * 16, 128), 1);
       }
       wgmma_commit();
       if (j > 0) issue_pv<D>(acc, p, Vs, v_full, j - 1);
@@ -338,14 +338,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         l_run[(i >> 1) & 1] += pv;
       }
 
-      // rescale O to the new row maxima (swizzled form: skipped where no
-      // row of the warp moved its maximum); P of tile j takes the A
-      // registers
-      if (!T::kSw || __any_sync(0xffffffffu,
-                                alpha[0] != 1.f || alpha[1] != 1.f)) {
+      // rescale O to the new row maxima; P of tile j takes the A registers
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      }
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
@@ -394,16 +389,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int D>
-int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, __nv_bfloat16* o, float* lse, int B, int H,
-           int Sq, int Sk, long long osb, long long oss, long long osh,
-           float scale_log2, cudaStream_t st) {
+int launch(const CUtensorMap (&maps)[6], __nv_bfloat16* o, float* lse,
+           int B, int H, int Sq, int Sk, long long osb, long long oss,
+           long long osh, float scale_log2, cudaStream_t st) {
   constexpr int smem = Fwd<D>::kSmem;
   const int err = allow_smem<flash_fwd_kernel<D>>(smem);
   if (err != 0) return err;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
   flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(
-      qm, km, vm, o, lse, H, Sq, Sk, osb, oss, osh, scale_log2);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], o, lse, H, Sq, Sk,
+      osb, oss, osh, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,42 +421,49 @@ extern "C" int topiaxl_flash_attn_fwd(
   if (D != 64 && D != 72 && D != 80 && D != 96 && D != 128 && D != 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CUtensorMap qm, km, vm;
+  // the maps of q, k and v for their swizzled boxes, then for the tail's
+  // 8-column chunks (72, 80; without a tail those go unread)
+  CUtensorMap maps[6];
+  const void* bases[3] = {q, k, v};
+  const int extents[3] = {Sq, Sk, Sk};
+  const long long strides[3][3] = {
+      {qsb, qss, qsh}, {ksb, kss, ksh}, {vsb, vss, vsh}};
   const int box = fwd_box_cols(D);
-  const int sw = fwd_swizzled(D) ? 2 * box : 0;
-  int err = encode_bshd(&qm, q, false, B, Sq, H, D, qsb, qss, qsh, box,
-                        kBlockM, sw);
-  if (err == 0) {
-    err = encode_bshd(&km, k, false, B, Sk, H, D, ksb, kss, ksh, box,
-                      fwd_block_n(D), sw);
+  const bool tail = fwd_tail_cols(D) > 0;
+  for (int t = 0; t < 3; ++t) {
+    const int rows = t == 0 ? kBlockM : fwd_block_n(D);
+    const long long* sd = strides[t];
+    int err = encode_bshd(&maps[t], bases[t], false, B, extents[t], H, D,
+                          sd[0], sd[1], sd[2], box, rows, 2 * box);
+    if (err == 0 && tail) {
+      err = encode_bshd(&maps[3 + t], bases[t], false, B, extents[t], H, D,
+                        sd[0], sd[1], sd[2], 8, rows);
+    }
+    if (err != 0) return err;
+    if (!tail) maps[3 + t] = maps[t];
   }
-  if (err == 0) {
-    err = encode_bshd(&vm, v, false, B, Sk, H, D, vsb, vss, vsh, box,
-                      fwd_block_n(D), sw);
-  }
-  if (err != 0) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch<64>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+      return launch<64>(maps, op, lp, B, H, Sq, Sk, osb, oss, osh,
                         scale_log2, st);
     case 72:
-      return launch<72>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+      return launch<72>(maps, op, lp, B, H, Sq, Sk, osb, oss, osh,
                         scale_log2, st);
     case 80:
-      return launch<80>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+      return launch<80>(maps, op, lp, B, H, Sq, Sk, osb, oss, osh,
                         scale_log2, st);
     case 96:
-      return launch<96>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+      return launch<96>(maps, op, lp, B, H, Sq, Sk, osb, oss, osh,
                         scale_log2, st);
     case 128:
-      return launch<128>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+      return launch<128>(maps, op, lp, B, H, Sq, Sk, osb, oss, osh,
                          scale_log2, st);
     default:
-      return launch<256>(qm, km, vm, op, lp, B, H, Sq, Sk, osb, oss, osh,
+      return launch<256>(maps, op, lp, B, H, Sq, Sk, osb, oss, osh,
                          scale_log2, st);
   }
 }

@@ -24,7 +24,7 @@
 // byte offset (SBO) the stride along M or N (PTX ISA, wgmma matrix
 // descriptor, canonical no-swizzle layouts).
 //
-// Swizzled layout (the forward above head dim 80, the backward at 256): a
+// Swizzled layout (the forward, the backward at 256): a
 // [rows, D] bf16 tile is kept as D / C boxes of [rows][C] (C = 64
 // columns with the 128-byte swizzle, 32 with the 64-byte one), each box
 // one TMA load of C columns by `rows` rows, 1024-byte aligned. Inside a
@@ -35,7 +35,9 @@
 // into the box row (the hardware swizzles the address). MN-major
 // (contraction along rows): LBO = one box (the next C columns along N),
 // SBO = 8 rows, a k16 step 16 rows (PTX ISA, wgmma matrix descriptor;
-// CUTLASS make_gmma_desc).
+// CUTLASS make_gmma_desc). The forward at head dims 72 and 80 keeps the
+// columns past its last whole box as chunks of the chunked layout after
+// the boxes (flash_fwd_layout.cuh).
 //
 // wgmma accumulator layout (m64nN, f32): warp w of the warpgroup holds
 // rows 16 w + g and 16 w + g + 8 (g = lane / 4); for each 8-column tile i
@@ -363,6 +365,34 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 }
 
 template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
@@ -520,7 +550,11 @@ template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 64) {
+  if constexpr (N == 8) {
+    wgmma_rs_n8<kTransB>(d, a, db, scale_d);
+  } else if constexpr (N == 16) {
+    wgmma_rs_n16<kTransB>(d, a, db, scale_d);
+  } else if constexpr (N == 64) {
     wgmma_rs_n64<kTransB>(d, a, db, scale_d);
   } else if constexpr (N == 72) {
     wgmma_rs_n72<kTransB>(d, a, db, scale_d);

@@ -15,14 +15,18 @@ import. A failed build raises.
 
 Every wrapper adds one to ``launches[<kernel>]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went
-through the kernels (``reset_launch_counts`` zeroes them). A count is
+through the kernels (``reset_launch_counts`` zeroes them). The flash
+forward's launches are also counted by their tile layout in
+``fwd_layouts`` (``ops/flash_attention.py:fwd_tile_layout``: a flagship
+chain's 1,400 launches at head dim 72 under ``"split"``). A count is
 one call of a kernel's C entry point: one ``flash_attn_bwd`` at head dim
 256 starts two kernels, a delta pass and then the single pass
 (``csrc/flash_attn_bwd_sm90.cu``), and counts once. A CUDA graph
 replays its kernels without running the wrappers, so what captures a
 graph tallies the launches its own thread makes during the capture
-(``tally``), takes them back and adds them at each replay
-(``add_launches``; ``pipelines/chain_graph.py``).
+(``tally``, where a layout counts as ``"<kernel>.<layout>"``), takes them
+back and adds them at each replay (``add_launches``;
+``pipelines/chain_graph.py``).
 
 Every wrapper launches on ``stream_of(t)``, the current stream of its
 tensors' card: inside a capture that is the capture stream, so the
@@ -53,6 +57,8 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
             "flash_attn_bwd_dkv": 0, "ln_modulate": 0,
             "ln_modulate_residual": 0, "mma_rate_loop": 0,
             "dot_form_chain": 0, "dot_form_accum": 0}
+# flash forward launches by tile layout, beside ``launches``
+fwd_layouts = {"split": 0, "swizzled": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -85,15 +91,22 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    for table in (launches, fwd_layouts):
+        for name in table:
+            table[name] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, layout: str | None = None) -> None:
+    """One launch of kernel ``name``; the flash forward also names its tile
+    ``layout``, counted in ``fwd_layouts``."""
     launches[name] += 1
+    if layout is not None:
+        fwd_layouts[layout] += 1
     counts = getattr(_tallies, "counts", None)
     if counts is not None:
         counts[name] += 1
+        if layout is not None:
+            counts[f"{name}.{layout}"] += 1
 
 
 @contextlib.contextmanager
@@ -108,9 +121,14 @@ def tally():
 
 
 def add_launches(counts: dict) -> None:
-    """Add ``counts`` (name -> launches, negative to take back)."""
-    for name, n in counts.items():
-        launches[name] += n
+    """Add ``counts`` (name, or ``"<kernel>.<layout>"``, -> launches,
+    negative to take back)."""
+    for key, n in counts.items():
+        _, _, layout = key.partition(".")
+        if layout:
+            fwd_layouts[layout] += n
+        else:
+            launches[key] += n
 
 
 def sources() -> list[Path]:

@@ -86,6 +86,18 @@ def fwd_key_tile(d: int) -> int:
     return 64 if kernel_head_dim(d) == HEAD_DIMS[-1] else KEY_TILE
 
 
+def fwd_tile_layout(d: int) -> str:
+    """The forward kernel's shared-memory tile layout at head dim ``d`` (its
+    instance's), the rule of ``csrc/flash_fwd_layout.cuh`` mirrored:
+    ``"split"`` at 72 and 80 (one 64-column box with the 128-byte swizzle,
+    then the 8 or 16 columns past it as 8-column chunks), ``"swizzled"`` at
+    64, 96, 128 and 256 (whole boxes, 32 columns with the 64-byte swizzle at
+    96). ``_cuda.fwd_layouts`` counts the launches by it."""
+    inst = _instance(d)
+    box = 64 if inst % 64 <= 16 else 32
+    return "split" if inst % box else "swizzled"
+
+
 def _instance(d: int) -> int:
     inst = kernel_head_dim(d)
     if inst is None:
@@ -310,7 +322,7 @@ def _forward(q, k, v, scale, return_lse):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(scale), _cuda.stream_of(q))
     _cuda.check(rc, "flash_attn_fwd")
-    _cuda.count_launch("flash_attn_fwd")
+    _cuda.count_launch("flash_attn_fwd", layout=fwd_tile_layout(D))
     return o, lse
 
 
