@@ -162,6 +162,21 @@ seconds, wall ms graphed and eager and the idle shares. Every serving
 phase, serve_assets, app and bench print the captures and replays their
 chains made (the CLI: one capture a run, a replay for each later image).
 
+After flash_head_dims, ss_flow runs the kernels of TRELLIS's
+sparse-structure flow transformer at its training shapes (batch 8, 16
+heads of 64): the QK-norm forward and backward (``csrc/qk_rmsnorm.cu``) on
+q read in place from a fused qkv tensor at 8 x 4096 x 16 x 64, flash #1
+at 8 x 4096 x {4096, 1374} x 16 x 64, the two-pass pair (#5, #6) at 4096
+keys and the single pass (#4) at 1374, each against its plain version
+(the attention on the batch's first two rows, which the plain version's
+f32 logits fit), a planted fault above each bar, ms beside the bound
+(bytes for the QK norm, operations for flash). After train_long,
+ss_flow_train runs ``cli.train`` on ``configs/trellis_ss_flow.yml`` at the
+published widths for three steps (synthetic stream, batch 8): each step's
+exact launches (``SS_FLOW_LAUNCHES``), finite losses, step seconds and
+peak memory. Their rows print as ``{"ss_flow": ...}`` before the kernels
+line.
+
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
 seconds. After stage 2 come four phases of the renderer, U^2-Net and
@@ -217,13 +232,16 @@ FLAGSHIP = os.path.join(ROOT, "configs", "inference_dit.yml")
 
 # the probes run on no path of the system but their own
 NO_PROBES = {"mma_rate_loop": 0, "dot_form_chain": 0, "dot_form_accum": 0}
+# the QK norm runs on TRELLIS's flow transformer only (models/ss_flow.py)
+NO_QK_NORM = {"qk_rmsnorm": 0, "qk_rmsnorm_bwd": 0}
 # per image at the flagship config: DINOv2's 12 blocks + 25 DDIM steps x
 # 28 DiT blocks x (self + cross); 25 x (28 blocks + final layer); 25 x 28 x 2;
 # serving runs no backward kernel
 EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                      "ln_modulate": 25 * 29,
-                     "ln_modulate_residual": 25 * 56, **NO_PROBES}
+                     "ln_modulate_residual": 25 * 56, **NO_PROBES,
+                     **NO_QK_NORM}
 # the same image's flash forwards by tile layout (flash_attention.
 # fwd_tile_layout): the chain's 1,400 at head dim 72 split (a swizzled
 # 64-column box and one 8-column chunk), DINOv2's 12 at 64 one swizzled box
@@ -245,7 +263,8 @@ def train_launches(remat=False, depth: int = 28) -> dict:
     return {"flash_attn_fwd": 2 * depth * again,
             "flash_attn_bwd": 2 * depth, "flash_attn_bwd_dq": 0,
             "flash_attn_bwd_dkv": 0, "ln_modulate": depth * ln_again + 1,
-            "ln_modulate_residual": 2 * depth * ln_again, **NO_PROBES}
+            "ln_modulate_residual": 2 * depth * ln_again, **NO_PROBES,
+            **NO_QK_NORM}
 
 
 TRAIN_LAUNCHES = train_launches()
@@ -255,7 +274,16 @@ TRAIN_REMAT_LAUNCHES = train_launches(True)
 TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 2,
                        "flash_attn_bwd_dq": 2, "flash_attn_bwd_dkv": 2,
                        "ln_modulate": 3, "ln_modulate_residual": 4,
-                       **NO_PROBES}
+                       **NO_PROBES, **NO_QK_NORM}
+# one training step of TRELLIS's flow transformer (24 blocks, 16 heads of
+# 64): flash forwards for self-attention (4096 keys) and cross-attention
+# (1374), the pair for the former's backward and the single pass for the
+# latter's, the QK norm on q and k, the LN kernels three a block
+SS_FLOW_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 24,
+                    "flash_attn_bwd_dq": 24, "flash_attn_bwd_dkv": 24,
+                    "ln_modulate": 24, "ln_modulate_residual": 48,
+                    "qk_rmsnorm": 48, "qk_rmsnorm_bwd": 48, **NO_PROBES}
+SS_FLOW_CONFIG = os.path.join(ROOT, "configs", "trellis_ss_flow.yml")
 # one training step, card (bf16 compute, f32 master weights, kernels)
 # against the CPU (f32, plain versions) at full width, depth 2: the loss
 # and the global gradient norm relative to the CPU's, and the cosine of
@@ -554,7 +582,8 @@ def ptxas_summary(build_log: str) -> list[str]:
             name = line.split("'")[1]
             for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
                           "flash_bwd_wide_kernel", "flash_bwd_dq_kernel",
-                          "ln_modulate_kernel",
+                          "ln_modulate_kernel", "qk_rmsnorm_fwd_kernel",
+                          "qk_rmsnorm_bwd_kernel",
                           "mma_probe_kernel", "reduce_splits_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
@@ -2384,7 +2413,7 @@ def phase_train_remat_policies(tmp: str) -> None:
     for label, mode in REMAT_MODES:
         res = runs[label]
         want = train_launches(mode)
-        got = [{k: st["launches"][k] for k in KERNELS} for st in res["steps"]]
+        got = [{k: st["launches"][k] for k in want} for st in res["steps"]]
         st = res["steps"]
         log(f"  {label}: steps {st[0]['seconds']:.3f} / {st[1]['seconds']:.3f}"
             f" / {st[2]['seconds']:.3f} s (cudaMalloc calls "
@@ -2421,6 +2450,146 @@ def phase_train_long(tmp: str) -> dict:
             "train.log_every_n_steps=1", f"root_data_dir={tmp}/train_long"]
     total, _ = run_trainer(args, TRAIN_LONG_LAUNCHES, [1, 2])
     return total
+
+
+def phase_ss_flow() -> dict:
+    """TRELLIS's flow transformer's kernels at its training shapes: the QK
+    norm forward and backward, flash #1, the pair and #4 at head dim 64,
+    each against its plain version with a planted fault, ms beside its
+    bound and the plain version's. Returns the rows."""
+    import torch
+
+    from topiaxl_torch.ops import flash_attention as fa
+    from topiaxl_torch.ops import qk_norm as Q
+
+    card_id = card_line()
+    g = torch.Generator("cuda").manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    rows = {}
+    B, N, M, H, D = 8, 4096, 1374, 16, 64
+    scale = D ** 0.5
+    q = randn(B, N, 3, H, D).unbind(2)[0]
+    gamma = 1 + 0.1 * torch.randn((H, D), generator=g, device="cuda")
+    dy = randn(B, N, H, D)
+    y, (dx, dgam) = Q._forward(q, gamma, scale), Q._backward(q, dy, gamma, scale)
+    y_ref = Q.qk_rms_norm_plain(q, gamma, scale)
+    dx_ref, dg_ref = Q.qk_rms_norm_bwd_plain(q, dy, gamma, scale)
+    fault, _ = Q.qk_rms_norm_bwd_plain(q, dy, torch.ones_like(gamma), scale)
+    torch.cuda.synchronize()
+    errs = {"qk_rmsnorm": rel_err(y, y_ref),
+            "qk_rmsnorm_bwd": max(rel_err(dx, dx_ref), rel_err(dgam, dg_ref))}
+    bars = {"qk_rmsnorm": 2 ** -8, "qk_rmsnorm_bwd": 2 ** -7}
+    faults = {"qk_rmsnorm": rel_err(Q.qk_rms_norm_plain(
+        q, torch.ones_like(gamma), scale), y_ref),
+        "qk_rmsnorm_bwd": rel_err(fault, dx_ref)}
+    elems = B * N * H * D
+    calls = {"qk_rmsnorm": (lambda: Q._forward(q, gamma, scale),
+                            lambda: Q.qk_rms_norm_plain(q, gamma, scale),
+                            2 * 2 * elems + 4 * H * D),
+             "qk_rmsnorm_bwd": (lambda: Q._backward(q, dy, gamma, scale),
+                                lambda: Q.qk_rms_norm_bwd_plain(
+                                    q, dy, gamma, scale),
+                                3 * 2 * elems + 8 * H * D)}
+    for name, (kern, plain, nbytes) in calls.items():
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
+        bound_ms, bound_by = bound(10 * elems, nbytes, PEAK_F32_FLOPS)
+        log(f"  {name} {B}x{N}x{H}x{D} (q in place in qkv): max rel err "
+            f"{errs[name]:.3e} (bar {bars[name]:.3e}; gains-left-out fault "
+            f"{faults[name]:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}; share "
+            f"{bound_ms / ms:.1%}), library: none (no single PyTorch call "
+            f"computes it) ({card_id})")
+        if not errs[name] <= bars[name] < faults[name]:
+            raise AssertionError(f"{name}: error {errs[name]}, fault "
+                                 f"{faults[name]}, bar {bars[name]}")
+        rows[name] = dict(at=f"{B}x{N}x{H}x{D}", ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_rel_err=errs[name])
+    del q, dy, y, dx, fault
+    for tag, Sk in (("self", N), ("cross", M)):
+        sc = D ** -0.5
+        if tag == "self":
+            qq, k, v = randn(B, N, 3, H, D).unbind(2)
+            qq = qq.contiguous()
+        else:
+            qq, k, v = randn(B, N, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
+        do = randn(B, N, H, D)
+        o, lse = fa._forward(qq, k, v, sc, return_lse=True)
+        grads = fa.flash_attention_backward(qq, k, v, o, lse, do, sc)
+        two = slice(0, 2)
+        o_ref = fa.flash_attention_plain(qq[two], k[two], v[two], sc)
+        refs = fa.flash_attention_bwd_plain(qq[two], k[two], v[two], o[two],
+                                            lse[two], do[two], sc)
+        bad = fa.flash_attention_bwd_plain(qq[two], k[two], v[two], o[two],
+                                           lse[two], do[two], sc,
+                                           with_delta=False)
+        torch.cuda.synchronize()
+        f_err = rel_err(o[two], o_ref)
+        b_err = max(rel_err(a[two], r) for a, r in zip(grads, refs))
+        b_fault = max(rel_err(a, r) for a, r in zip(bad[:2], refs[:2]))
+        form = fa.bwd_form(Sk, D)
+        f_ms = cuda_ms(lambda: fa._forward(qq, k, v, sc, return_lse=True), 20)
+        b_ms = cuda_ms(lambda: fa.flash_attention_backward(
+            qq, k, v, o, lse, do, sc), 10)
+        ops_f = 4 * B * H * N * Sk * D
+        f_bound, _ = bound(ops_f, 2 * B * H * D * (2 * N + 2 * Sk))
+        b_bound, _ = bound(2 * ops_f, 2 * B * H * D * (4 * N + 4 * Sk))
+        shape = f"{B}x{N}x{Sk}x{H}x{D}"
+        log(f"  ss_flow {tag} {shape}: flash_attn_fwd max rel err "
+            f"{f_err:.3e} (bar {ATTN_REL_BAR}), {f_ms:.4f} ms, bound "
+            f"{f_bound:.4f} ms (operations; share {f_bound / f_ms:.1%}); "
+            f"backward ({form}) max rel err {b_err:.3e} (bar "
+            f"{ATTN_BWD_REL_BAR}; no-delta fault {b_fault:.3e}), {b_ms:.4f} "
+            f"ms, bound {b_bound:.4f} ms (share {b_bound / b_ms:.1%}) "
+            f"({card_id})")
+        if not (f_err <= ATTN_REL_BAR and b_err <= ATTN_BWD_REL_BAR
+                < b_fault):
+            raise AssertionError(f"ss_flow {tag}: forward {f_err}, backward "
+                                 f"{b_err}, fault {b_fault}")
+        rows[f"flash_{tag}"] = dict(at=shape, fwd_ms=f_ms, fwd_bound_ms=f_bound,
+                                    bwd_form=form, bwd_ms=b_ms,
+                                    bwd_bound_ms=b_bound)
+        del qq, k, v, do, o, lse, grads, refs, bad
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ss_flow_train(tmp: str) -> dict:
+    """``cli.train`` on TRELLIS's flow transformer at its published widths:
+    three steps, each step's launches ``SS_FLOW_LAUNCHES``; step seconds
+    and peak memory."""
+    import torch
+
+    from topiaxl_torch.cli.train import main
+    from topiaxl_torch.ops import _cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    recs = PerStep()
+    _cuda.reset_launch_counts()
+    rc = main([SS_FLOW_CONFIG, "train.synthetic=true", "train.max_steps=3",
+               "train.log_every_n_steps=1", "train.ckpt_every_n_steps=1000",
+               f"root_data_dir={tmp}/ss_flow"], metrics_out=recs)
+    if rc != 0 or [r["step"] for r in recs] != [1, 2, 3]:
+        raise AssertionError(f"ss_flow cli.train returned {rc} after steps "
+                             f"{[r['step'] for r in recs]}")
+    prev = dict.fromkeys(_cuda.launches, 0)
+    for rec in recs:
+        per = {k: rec["launches"][k] - prev[k] for k in prev}
+        prev = rec["launches"]
+        log(f"  ss_flow step {rec['step']}: {rec['seconds']:.3f} s, loss "
+            f"{rec['loss']:.5f}, grad norm {rec['grad_norm']:.5f}; launches "
+            f"{per}")
+        if per != SS_FLOW_LAUNCHES or not np.isfinite(
+                [rec["loss"], rec["grad_norm"]]).all():
+            raise AssertionError(f"ss_flow step {rec['step']}: launches "
+                                 f"{per} != {SS_FLOW_LAUNCHES} or metrics "
+                                 f"{rec}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  ss_flow: peak memory {peak:.2f} GB ({card_line()})")
+    return {"step_s": [r["seconds"] for r in recs], "peak_gb": peak}
 
 
 def phase_train_parity():
@@ -2469,7 +2638,7 @@ def phase_train_parity():
     ref_loss, ref = step(cpu, "cpu")
     expect = {"flash_attn_fwd": 4, "flash_attn_bwd": 4, "flash_attn_bwd_dq": 0,
               "flash_attn_bwd_dkv": 0, "ln_modulate": 3,
-              "ln_modulate_residual": 4, **NO_PROBES}
+              "ln_modulate_residual": 4, **NO_PROBES, **NO_QK_NORM}
     if launches != expect:
         raise AssertionError(f"parity step launches {launches} != {expect}")
     gnorm = lambda g: torch.sqrt(sum((v.double() ** 2).sum()  # noqa: E731
@@ -3329,7 +3498,7 @@ TP_GEN_LAUNCHES = {"flash_attn_fwd": TP_GEN_STEPS * 2 * TP_GEN_DEPTH,
                    "flash_attn_bwd_dkv": 0,
                    "ln_modulate": TP_GEN_STEPS * (TP_GEN_DEPTH + 1),
                    "ln_modulate_residual": TP_GEN_STEPS * 2 * TP_GEN_DEPTH,
-                   **NO_PROBES}
+                   **NO_PROBES, **NO_QK_NORM}
 
 
 # the ranks of the tp, pp and restore phases: argv[1] is the repository,
@@ -4031,6 +4200,8 @@ def main() -> int:
     with Phase("flash_head_dims"):
         for name, rows in phase_flash_head_dims().items():
             results[name]["head_dims"] = rows
+    with Phase("ss_flow"):
+        ss_flow = phase_ss_flow()
     with Phase("probes"):
         results.update(phase_probes())
     with Phase("probe_path"):
@@ -4071,6 +4242,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("train_long"):
             train_long = phase_train_long(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("ss_flow_train"):
+            ss_flow["train"] = phase_ss_flow_train(tmp)
     with Phase("train_parity"):
         phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4116,6 +4290,7 @@ def main() -> int:
                     launches=launches[name], **results[name])
                for name, (src, rep) in KERNELS.items()]
     log(f"ring launches (kernels line: main paths only): {ring_launches}")
+    print(json.dumps({"ss_flow": ss_flow}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s (limit 1200 s)")
     print(json.dumps({"kernels": kernels}))

@@ -26,10 +26,16 @@ written under one mesh resumes under any other). Without ``torchrun``
 the run is one process on one device, every rank on a mesh of one.
 
 The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
-or ``topiaxl.DiTAdditivePosEmb``). ``model.generator.remat=true``, or the
-reference's ``gradient_checkpointing: true``, recomputes each block in
-the backward instead of keeping its activations (less memory, a slower
-step); a remat policy by name keeps some of them: ``flash`` the flash
+or ``topiaxl.DiTAdditivePosEmb``), or TRELLIS's sparse-structure flow
+transformer (``SparseStructureFlowModel``, ``configs/trellis_ss_flow.yml``)
+trained under ``diffusion.name: rectified_flow`` (``diffusion/flow.py``:
+logit-normal times, velocity MSE) and ``scheduler.class_name: constant``
+(AdamW at ``optimizer.lr`` throughout); its x is a [8, 16, 16, 16] latent
+grid a sample, and the dropped rows' conditioning is zeros.
+``model.generator.remat=true``, or the reference's
+``gradient_checkpointing: true``, recomputes each block in the backward
+instead of keeping its activations (less memory, a slower step); a remat
+policy by name keeps some of them: ``flash`` the flash
 forwards' outputs, ``flash_mlp`` those and fc1's pre-activation, ``dots``
 those and every matmul's output, ``dots_plus`` those and the LN streams
 (``models/dit.py:REMAT_POLICIES``). ``scan_blocks: true`` trains the
@@ -103,7 +109,9 @@ def _train(cfg, mesh, device, metrics_out) -> int:
 
     from ..core.checkpoint import CheckpointManager
     from ..core.profiling import MetricLogger, StepMeter
+    from ..diffusion import flow
     from ..diffusion.schedule import create_diffusion
+    from ..models.dit import DiT
     from ..pipelines import data as D
     from ..parallel.sharding import dit_param_rules, shard_params
     from ..pipelines.train import (
@@ -135,20 +143,29 @@ def _train(cfg, mesh, device, metrics_out) -> int:
     dit = build_dit(cfg.model.generator, device,
                     torch.Generator(device=device).manual_seed(seed)).train()
     if tp:
+        if not isinstance(dit, DiT):
+            raise ValueError("train.mesh.tp splits the DiT's heads; "
+                             f"{type(dit).__name__} has no tp rules")
         shard_params(dit, mesh, dit_param_rules())
     if fsdp:
         shard_model(dit, mesh, device.type)
-    diffusion = create_diffusion(
-        timestep_respacing=None, noise_schedule=cfg.diffusion.noise_schedule,
-        diffusion_steps=cfg.diffusion.diffusion_steps,
-        parameterization=cfg.diffusion.parameterization,
-        learn_sigma=cfg.model.generator.get("learn_sigma", True),
-        device=device)
+    if cfg.diffusion.get("name") == "rectified_flow":
+        diffusion = flow.from_config(cfg.diffusion)
+    else:
+        diffusion = create_diffusion(
+            timestep_respacing=None,
+            noise_schedule=cfg.diffusion.noise_schedule,
+            diffusion_steps=cfg.diffusion.diffusion_steps,
+            parameterization=cfg.diffusion.parameterization,
+            learn_sigma=cfg.model.generator.get("learn_sigma", True),
+            device=device)
+    constant = cfg.scheduler.get("class_name") == "constant"
     optimizer = make_optimizer(
         lr=float(cfg.optimizer.lr),
         weight_decay=float(cfg.optimizer.get("weight_decay", 0.0)),
-        warmup_iters=int(cfg.scheduler.warmup_iters),
-        max_iters=int(cfg.scheduler.max_iters))
+        warmup_iters=int(cfg.scheduler.get("warmup_iters", 0)),
+        max_iters=int(cfg.scheduler.max_iters),
+        schedule="constant" if constant else "cosine_warmup")
     sampler = cfg.train.get("timestep_sampler", "uniform")
     state = create_train_state(
         dit, lsm_timesteps=diffusion.num_timesteps if sampler == "lsm" else None)
@@ -169,7 +186,8 @@ def _train(cfg, mesh, device, metrics_out) -> int:
         stream = D.synthetic_batches(
             global_bs, dit.seq_length, dit.in_channels,
             cond_seq=int(cfg.train.get("cond_seq", 1370)),
-            cond_ch=dit.condition_channels, seed=seed + state.step)
+            cond_ch=dit.condition_channels, seed=seed + state.step,
+            shape=getattr(dit, "input_shape", None))
     else:
         ds = D.TokenShardDataset(cfg.train.data_glob, global_bs,
                                  shuffle_seed=seed)

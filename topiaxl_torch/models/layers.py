@@ -37,6 +37,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..ops.int8 import QuantDense
+from ..ops.qk_norm import qk_rms_norm
 from ..parallel.collectives import copy_to_tp, reduce_from_tp
 
 META = torch.device("meta")
@@ -224,14 +225,35 @@ class Mlp(nn.Module):
                             self.tp_group)
 
 
+class MultiHeadRMSNorm(nn.Module):
+    """Per-head RMS norm of queries or keys [B, N, H, D] (TRELLIS's
+    ``MultiHeadRMSNorm``, key ``gamma`` [H, D], ones at init): each head's
+    vector over its L2 norm, times ``gamma[h] * sqrt(D)``, in f32
+    (``ops/qk_norm.py``)."""
+
+    def __init__(self, head_dim: int, num_heads: int, param_dtype=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.scale = head_dim ** 0.5
+        self.gamma = nn.Parameter(torch.empty(num_heads, head_dim, device=META,
+                                              dtype=param_dtype or dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return qk_rms_norm(x, self.gamma.float(), self.scale)
+
+
 class SelfAttention(nn.Module):
     """Fused-QKV self-attention (keys ``qkv``, ``proj``; both W8A8 when
     ``quant``). ``backend`` and ``group`` go to ``multi_head_attention``:
-    ``parallel/context.py`` sets "ring" and the token axis's group."""
+    ``parallel/context.py`` sets "ring" and the token axis's group.
+    ``qk_rms_norm`` normalises q and k per head (``q_rms_norm``,
+    ``k_rms_norm``: ``MultiHeadRMSNorm``) between the projection and the
+    attention, as TRELLIS's attention does."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_bias: bool = True, dtype=torch.bfloat16,
-                 param_dtype=None, quant: bool = False):
+                 param_dtype=None, quant: bool = False,
+                 qk_rms_norm: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.backend, self.group = "auto", None
@@ -241,6 +263,12 @@ class SelfAttention(nn.Module):
                          param_dtype=param_dtype)
         self.proj = dense(dim, dim, bias=proj_bias, dtype=dtype,
                           param_dtype=param_dtype)
+        self.qk_rms_norm = qk_rms_norm
+        if qk_rms_norm:
+            self.q_rms_norm = MultiHeadRMSNorm(dim // num_heads, num_heads,
+                                               param_dtype, dtype)
+            self.k_rms_norm = MultiHeadRMSNorm(dim // num_heads, num_heads,
+                                               param_dtype, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
@@ -248,6 +276,8 @@ class SelfAttention(nn.Module):
         heads = self.num_heads // self.tp_parts
         qkv = self.qkv(copy_to_tp(x, self.tp_group))
         q, k, v = qkv.reshape(B, N, 3, heads, hd).unbind(2)
+        if self.qk_rms_norm:
+            q, k = self.q_rms_norm(q), self.k_rms_norm(k)
         out = multi_head_attention(q, k, v, scale=hd ** -0.5,
                                    backend=self.backend, group=self.group)
         return row_parallel(self.proj, out.reshape(B, N, heads * hd),
@@ -257,9 +287,10 @@ class SelfAttention(nn.Module):
 class CrossAttention(nn.Module):
     """Cross-attention with separate q/k/v projections.
 
-    Reproduces the reference's double scaling: q is pre-scaled by
-    ``head_dim**-0.5`` on top of the attention's own, so the effective
+    By default reproduces the reference's double scaling: q is pre-scaled
+    by ``head_dim**-0.5`` on top of the attention's own, so the effective
     scale is ``head_dim**-1`` (the released checkpoints were trained so).
+    ``scale`` given replaces it (``head_dim**-0.5`` for TRELLIS).
 
     With ``quant`` the per-step ``to_q`` and ``proj`` run W8A8; ``to_k`` and
     ``to_v`` run once per asset and stay float, as in the JAX package.
@@ -267,9 +298,11 @@ class CrossAttention(nn.Module):
 
     def __init__(self, dim: int, cond_dim: int, num_heads: int,
                  qkv_bias: bool = True, proj_bias: bool = True,
-                 dtype=torch.bfloat16, param_dtype=None, quant: bool = False):
+                 dtype=torch.bfloat16, param_dtype=None, quant: bool = False,
+                 scale: float | None = None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.scale = (dim // num_heads) ** -1.0 if scale is None else scale
         self.tp_group, self.tp_parts = None, 1
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         dense = _dense(quant)
@@ -303,7 +336,7 @@ class CrossAttention(nn.Module):
         hd = self.dim // self.num_heads
         heads = self.num_heads // self.tp_parts
         q = self.to_q(copy_to_tp(x, self.tp_group)).reshape(B, N, heads, hd)
-        out = multi_head_attention(q, k, v, scale=float(hd) ** -1.0)
+        out = multi_head_attention(q, k, v, scale=self.scale)
         return row_parallel(self.proj, out.reshape(B, N, heads * hd),
                             self.tp_group)
 

@@ -68,11 +68,16 @@ class TokenShardDataset:
 
 def synthetic_batches(batch_size: int, seq: int = 2048, ch: int = 68,
                       cond_seq: int = 1370, cond_ch: int = 768,
-                      seed: int = 0) -> Iterator[dict]:
+                      seed: int = 0, shape: tuple | None = None
+                      ) -> Iterator[dict]:
+    """x [B, seq, ch] (or [B, *shape]: one sample's shape, such as a
+    TRELLIS latent grid's) and y [B, cond_seq, cond_ch], standard
+    normal."""
     rng = np.random.default_rng(seed)
+    x_shape = (batch_size, *(shape or (seq, ch)))
     while True:
         yield {
-            "x": rng.standard_normal((batch_size, seq, ch)).astype("f"),
+            "x": rng.standard_normal(x_shape).astype("f"),
             "y": rng.standard_normal((batch_size, cond_seq, cond_ch)).astype("f"),
         }
 

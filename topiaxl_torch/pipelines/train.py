@@ -8,6 +8,12 @@ train step draws timesteps, the cond-drop mask and the noise over the
 full batch, runs ``grad_accum`` microbatches forward and backward
 (gradients accumulate in ``.grad``), then applies ``fused_adamw_ema_update``.
 
+The objective is the DiT's Gaussian diffusion (``diffusion/gaussian.py``:
+its hybrid loss, uniform or LSM timesteps) or a rectified flow
+(``diffusion/flow.py``: TRELLIS's velocity MSE on logit-normal times,
+for ``models/ss_flow.py``), whichever object the step is given; the two
+share everything else below.
+
 The model holds f32 master weights (``DiT(param_dtype=torch.float32)``);
 Adam moments and EMA are f32 tensors keyed by parameter name. The update
 runs in place on the parameters, moments, EMA and gradients, where the
@@ -64,6 +70,7 @@ from torch import nn
 
 from ..core.profiling import span
 from ..diffusion import Diffusion, gaussian
+from ..diffusion.flow import RectifiedFlow
 from ..diffusion.timestep_sampler import (
     LossSecondMomentState,
     lsm_sample,
@@ -97,10 +104,19 @@ def cosine_warmup_schedule(base_lr: float, warmup_iters: int,
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.0,
                    warmup_iters: int = 3000, max_iters: int = 200000,
-                   grad_clip: Optional[float] = 1.0) -> dict:
+                   grad_clip: Optional[float] = 1.0,
+                   schedule: str = "cosine_warmup") -> dict:
     """The hyperparameters of clip-by-global-norm + AdamW (optax's b1,
-    b2, eps) with the cosine warmup schedule."""
-    return dict(sched=cosine_warmup_schedule(lr, warmup_iters, max_iters),
+    b2, eps) with the cosine warmup schedule, or with ``schedule=
+    "constant"`` the rate ``lr`` at every step (TRELLIS's trainer)."""
+    if schedule == "constant":
+        sched = lambda step: float(np.float32(lr))  # noqa: E731
+    elif schedule == "cosine_warmup":
+        sched = cosine_warmup_schedule(lr, warmup_iters, max_iters)
+    else:
+        raise ValueError(f"schedule={schedule!r}: expected 'cosine_warmup' "
+                         f"or 'constant'")
+    return dict(sched=sched,
                 weight_decay=weight_decay, grad_clip=grad_clip, b1=0.9,
                 b2=0.999, eps=1e-8)
 
@@ -289,14 +305,27 @@ def _step_generators(seed: int, step: int, device):
     return dev, torch.Generator().manual_seed(s)
 
 
-def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
-                         noise, drop, grad_accum: int = 1, forward=None):
+def training_losses(diffusion: Diffusion | RectifiedFlow, model_fn, x, t,
+                    noise) -> dict:
+    """The objective's per-row loss terms (``loss_total`` first): the
+    rectified flow's velocity MSE, or the Gaussian diffusion's hybrid
+    loss."""
+    if isinstance(diffusion, RectifiedFlow):
+        return diffusion.training_losses(model_fn, x, t, noise)
+    return gaussian.training_losses(diffusion, model_fn, x, t, noise=noise)
+
+
+def accumulate_gradients(model, diffusion: Diffusion | RectifiedFlow, x, y, t,
+                         weights, noise, drop, grad_accum: int = 1,
+                         forward=None):
     """Forward and backward of ``grad_accum`` equal microbatches, the
     gradients summed into the parameters' ``.grad`` (undivided, as the JAX
     package's ``accum_grads`` returns them). ``drop`` ([B] bool or None)
     marks the rows whose conditioning is the null embedding: inside the
     model's forward for the single pass, before the loop and outside the
-    gradient for ``grad_accum > 1``. ``forward`` (default ``model``) runs
+    gradient for ``grad_accum > 1`` (a model without a null embedding,
+    which zeroes the dropped rows' conditioning, drops inside its forward
+    either way). ``forward`` (default ``model``) runs
     the model: a ``DistributedDataParallel`` wrapper syncs the gradients
     in the last microbatch's backward only. Returns (the mean of the
     microbatch losses, the per-row loss terms, detached)."""
@@ -304,7 +333,8 @@ def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
     B = x.shape[0]
     if B % grad_accum:
         raise ValueError(f"batch {B} not divisible by grad_accum={grad_accum}")
-    if grad_accum > 1 and drop is not None:
+    if grad_accum > 1 and drop is not None and hasattr(
+            model, "null_cond_embedding"):
         null = full(model.null_cond_embedding.detach()).to(y.dtype)
         y = torch.where(drop[:, None, None], null[None, None, :], y)
         drop = None
@@ -322,8 +352,8 @@ def accumulate_gradients(model, diffusion: Diffusion, x, y, t, weights,
         with (contextlib.nullcontext() if last or not hasattr(
                 forward, "no_sync") else forward.no_sync()):
             with span("train.forward"):
-                terms = gaussian.training_losses(diffusion, model_fn, x[sl],
-                                                 t[sl], noise=noise[sl])
+                terms = training_losses(diffusion, model_fn, x[sl], t[sl],
+                                        noise[sl])
                 loss = (terms["loss_total"] * weights[sl]).mean()
             with span("train.backward"):
                 loss.backward()
@@ -344,7 +374,8 @@ def mesh_groups(mesh) -> dict:
             "tp": mesh.group("tp"), "fsdp": mesh.group("fsdp")}
 
 
-def make_train_step(model, diffusion: Diffusion, optimizer: dict,
+def make_train_step(model, diffusion: Diffusion | RectifiedFlow,
+                    optimizer: dict,
                     ema_decay: float = 0.9999,
                     timestep_sampler: str = "uniform", grad_accum: int = 1,
                     mesh=None):
@@ -354,13 +385,19 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
     rank's rows of the global batch when ``mesh`` is given (every rank
     holding as many). It may carry the uniform sampler's draws for these
     rows, 't' [B], 'drop' [B] bool and 'noise' [B, N, C] (another
-    framework's, for parity), which replace the step's own. Metrics are
+    framework's, for parity), which replace the step's own; under a
+    ``RectifiedFlow`` 't' is the flow time in (0, 1) and the step draws it
+    from the flow's schedule (``timestep_sampler`` is not read). Metrics are
     device scalars (loss, loss_mse, grad_norm[, loss_vb]), averaged over
     the ranks. Across ranks a model that ``shard_model`` did not shard is
     wrapped in ``DistributedDataParallel`` here, which is collective. A
     model that ``shard_params`` split over ``tp`` trains tensor-parallel;
     a mesh with an ``sp`` axis runs the model through ``make_cp_forward``
     (not with FSDP2)."""
+    if isinstance(diffusion, RectifiedFlow) and timestep_sampler == "lsm":
+        raise ValueError("timestep_sampler='lsm' weighs the Gaussian "
+                         "diffusion's timesteps; a rectified flow draws "
+                         "its own")
     parts, index, forward = 1, 0, model
     data_group = norm_group = tp_group = None
     layout = getattr(model, "tp_layout", None)
@@ -400,7 +437,8 @@ def make_train_step(model, diffusion: Diffusion, optimizer: dict,
         grad_accum=grad_accum)
 
 
-def build_train_step(model, diffusion: Diffusion, optimizer: dict, forward,
+def build_train_step(model, diffusion: Diffusion | RectifiedFlow,
+                     optimizer: dict, forward,
                      split: tuple[int, int], data_group, norm: dict,
                      ema_decay: float = 0.9999,
                      timestep_sampler: str = "uniform", grad_accum: int = 1,
@@ -428,7 +466,10 @@ def build_train_step(model, diffusion: Diffusion, optimizer: dict, forward,
         with span("train.draws"):
             gen, cpu_gen = _step_generators(seed, state.step, device)
             # every draw over the global batch, then this rank's rows
-            if timestep_sampler == "lsm" and state.sampler_state is not None:
+            if isinstance(diffusion, RectifiedFlow):
+                t = diffusion.sample_t(B * parts, gen, device)[rows]
+                weights = torch.ones_like(t)
+            elif timestep_sampler == "lsm" and state.sampler_state is not None:
                 t, weights = lsm_sample(state.sampler_state, B * parts,
                                         cpu_gen)
                 t, weights = t[rows].to(device), weights[rows].to(device)

@@ -12,6 +12,13 @@ Keys as the JAX factories read them, with the same defaults;
 ``gradient_checkpointing: true`` maps to the DiT's ``remat=True``, a
 remat policy by name (``remat: flash``, ...) passes through, and
 ``precision`` is dropped (``dtype`` sets the compute type).
+TRELLIS's ``SparseStructureFlowModel`` (``topiaxl.SparseStructureFlowModel``)
+takes the keys of its published JSON (``resolution``, ``model_channels``,
+``num_blocks``, ...); ``use_fp16`` computes in bf16 (the port's compute
+dtype), and the options the port does not implement (a patch size other
+than 1, ``pe_mode`` other than ``ape``, ``share_mod``,
+``qk_rms_norm_cross``) raise. ``cond_drop_prob`` is the trainer's
+``p_uncond``.
 ``scan_blocks: true`` builds the unrolled DiT: JAX's scan over the blocks
 is the same math in a layout that compiles faster on the TPU, and the
 port has no stacked layout (``core/weights.py`` reads JAX's stacked
@@ -72,6 +79,32 @@ def make_dit_additive(device=None, generator=None, param_dtype=None, **kw):
 
     return DiTAdditivePosEmb(**_dit_kwargs(kw), param_dtype=param_dtype,
                              device=device, generator=generator)
+
+
+@register("topiaxl.SparseStructureFlowModel", "SparseStructureFlowModel")
+def make_ss_flow(device=None, generator=None, param_dtype=None, **kw):
+    from .models.ss_flow import SparseStructureFlowModel
+
+    unsupported = {"patch_size": 1, "pe_mode": "ape", "share_mod": False,
+                   "qk_rms_norm_cross": False}
+    for key, only in unsupported.items():
+        if kw.get(key, only) != only:
+            raise ValueError(f"SparseStructureFlowModel: {key}={kw[key]!r} is "
+                             f"not implemented (only {only!r})")
+    kw.pop("use_checkpoint", None)
+    kw.setdefault("dtype", "bf16" if kw.pop("use_fp16", True) else "fp32")
+    channels = kw.get("model_channels", 1024)
+    heads = kw.get("num_heads") or channels // kw.get("num_head_channels", 64)
+    return SparseStructureFlowModel(
+        resolution=kw.get("resolution", 16),
+        in_channels=kw.get("in_channels", 8), model_channels=channels,
+        cond_channels=kw.get("cond_channels", 1024),
+        out_channels=kw.get("out_channels", 8),
+        num_blocks=kw.get("num_blocks", 24), num_heads=heads,
+        mlp_ratio=kw.get("mlp_ratio", 4.0),
+        qk_rms_norm=bool(kw.get("qk_rms_norm", False)),
+        cond_drop_prob=kw.get("cond_drop_prob", 0.0), dtype=_dtype(kw),
+        param_dtype=param_dtype, device=device, generator=generator)
 
 
 @register("topiaxl.VAE3D", "models.vae3d_dib.VAE")
