@@ -65,7 +65,8 @@ the script exits non-zero without a result line):
     (the flash output kept without its graph to q, k, v); and one
     depth-2 ``cli.train`` step with ``model.generator.remat=flash``.
 15. train_long: the same trainer at 4096 prims (depth 2, batch 2): the
-    self-attention's 4096 keys take the two-pass backward pair.
+    self-attention's 4096 keys take the single pass, as every key length
+    at head dim 72 does.
 16. train_parity: one full-width, depth-2 training step's loss and
     gradients on the card (bf16, kernels) against the CPU (f32, plain),
     and a control step whose attention backward leaves out delta, which
@@ -97,8 +98,8 @@ the script exits non-zero without a result line):
     planted fault, its ms and peak memory.
 22. ring: ring attention over P token blocks emulated in one process
     (``ops/ring_attention.py``'s ``LocalRing``: the ranks' code with the
-    rotation in memory) at the flagship shape (P = 2, 4; the single-pass
-    backward) and at 8192 prims (P = 2; the two-pass pair), against one
+    rotation in memory) at the flagship shape (P = 2, 4) and at 8192
+    prims (P = 2), every block's backward the single pass, against one
     flash forward and backward over the whole sequence, with the
     block's-own-lse fault, its launches of #1 and #4-#6 and its ms.
 23. dp: ``cli.train`` with ``train.mesh.dp=-1`` over two ranks on the
@@ -147,7 +148,11 @@ from PERF.md, not measured by the run), the backward form the shape rule
 takes (``bwd_form``; ``flash_attention_backward`` launches that form and
 no other, within the bar), and the redesigned forms' own planted faults:
 the forward above 80 with its second O column half left
-unrescaled, the 256 backward's dQ without its first 64-key block; and
+unrescaled, the 256 backward's dQ without its first 64-key block. Then
+the single pass (its overlapped loop) beside the pair at head dim 72 on
+the flagship trainer's 8 x 2048 x {2048, 1370} x 16 and at 2 x 4096 x 4096
+x 16 (``bwd_side_by_side``: both within the bar, the wrapper's one launch
+under the ``overlapped`` loop, the single pass faster past 2048 keys); and
 the ring over two blocks at head dims 36 and 80. Its rows go into each
 kernel's entry of the kernels line under ``head_dims``. The kernels
 phase prints the flagship rows (D 64 / 72) beside PERF.md's, and the
@@ -166,15 +171,16 @@ After flash_head_dims, ss_flow runs the kernels of TRELLIS's
 sparse-structure flow transformer at its training shapes (batch 8, 16
 heads of 64): the QK-norm forward and backward (``csrc/qk_rmsnorm.cu``) on
 q read in place from a fused qkv tensor at 8 x 4096 x 16 x 64, flash #1
-at 8 x 4096 x {4096, 1374} x 16 x 64, the two-pass pair (#5, #6) at 4096
-keys and the single pass (#4) at 1374, each against its plain version
-(the attention on the batch's first two rows, which the plain version's
-f32 logits fit), a planted fault above each bar, ms beside the bound
-(bytes for the QK norm, operations for flash). After train_long,
-ss_flow_train runs ``cli.train`` on ``configs/trellis_ss_flow.yml`` at the
-published widths for three steps (synthetic stream, batch 8): each step's
-exact launches (``SS_FLOW_LAUNCHES``), finite losses, step seconds and
-peak memory. Their rows print as ``{"ss_flow": ...}`` before the kernels
+at 8 x 4096 x {4096, 1374} x 16 x 64, and the single pass (#4) beside
+the pair (#5, #6) at both (the rule takes the single pass), each against
+its plain version (the attention on the batch's first two rows, which the
+plain version's f32 logits fit), a planted fault above each bar, ms
+beside the bound (bytes for the QK norm, operations for flash). After
+train_long, ss_flow_train runs ``cli.train`` on
+``configs/trellis_ss_flow.yml`` at the published widths for three steps
+(synthetic stream, batch 8): each step's exact launches
+(``SS_FLOW_LAUNCHES``) and single-pass backwards by loop (48
+``overlapped``), finite losses, step seconds and peak memory. Their rows print as ``{"ss_flow": ...}`` before the kernels
 line.
 
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
@@ -204,9 +210,11 @@ Phase 3 also runs the flash forward at one tp = 2 rank's 8 heads
 with 8 heads. It also holds the forward's output and lse, the three backward
 kernels and the LN kernels against their plain versions at the training
 shapes (batch 8 for the flagship, 4096 prims at batch 2), with planted
-faults that must land above each bar; the two-pass pair must repeat its
-gradients bit for bit, and the single pass is timed at the pair's 4096
-keys beside it.
+faults that must land above each bar; past 2048 keys the two-pass pair,
+off the rule's route at head dim 72, is checked and timed beside the
+single pass and must repeat its gradients bit for bit. The flagship
+trainer's steps also count their single-pass backwards by loop (56
+``overlapped``).
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -269,20 +277,25 @@ def train_launches(remat=False, depth: int = 28) -> dict:
 
 TRAIN_LAUNCHES = train_launches()
 TRAIN_REMAT_LAUNCHES = train_launches(True)
-# at 4096 prims and depth 2 the self-attention (4096 keys) takes the
-# two-pass pair, the cross-attention (1370 keys) the single pass
-TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 2,
-                       "flash_attn_bwd_dq": 2, "flash_attn_bwd_dkv": 2,
+# a flagship step's single-pass backwards by loop (flash_attention.
+# bwd_loop): all 56 at head dim 72, the overlapped loop
+TRAIN_BWD_LOOPS = {"overlapped": 56, "serial": 0}
+# at 4096 prims and depth 2 the self-attention (4096 keys) and the
+# cross-attention (1370 keys) take the single pass, as at every key length
+# at head dim 72
+TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 4,
+                       "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                        "ln_modulate": 3, "ln_modulate_residual": 4,
                        **NO_PROBES, **NO_QK_NORM}
 # one training step of TRELLIS's flow transformer (24 blocks, 16 heads of
 # 64): flash forwards for self-attention (4096 keys) and cross-attention
-# (1374), the pair for the former's backward and the single pass for the
-# latter's, the QK norm on q and k, the LN kernels three a block
-SS_FLOW_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 24,
-                    "flash_attn_bwd_dq": 24, "flash_attn_bwd_dkv": 24,
+# (1374), the single pass (its overlapped loop) for both backwards, the QK
+# norm on q and k, the LN kernels three a block
+SS_FLOW_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 48,
+                    "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                     "ln_modulate": 24, "ln_modulate_residual": 48,
                     "qk_rmsnorm": 48, "qk_rmsnorm_bwd": 48, **NO_PROBES}
+SS_FLOW_BWD_LOOPS = {"overlapped": 48, "serial": 0}
 SS_FLOW_CONFIG = os.path.join(ROOT, "configs", "trellis_ss_flow.yml")
 # one training step, card (bf16 compute, f32 master weights, kernels)
 # against the CPU (f32, plain versions) at full width, depth 2: the loss
@@ -581,6 +594,7 @@ def ptxas_summary(build_log: str) -> list[str]:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             for short in ("flash_fwd_kernel", "flash_bwd_sm90_kernel",
+                          "flash_bwd_overlap_kernel",
                           "flash_bwd_wide_kernel", "flash_bwd_dq_kernel",
                           "ln_modulate_kernel", "qk_rmsnorm_fwd_kernel",
                           "qk_rmsnorm_bwd_kernel",
@@ -652,12 +666,12 @@ def rel_err(got, ref) -> float:
 def check_flash_backward(results: dict, randn) -> None:
     """The forward's output and lse and the three backward kernels against
     the plain versions at the training shapes: the flagship's self- and
-    cross-attention at batch 8 (single pass), the 4096-prim trainer's at
-    batch 2 (two-pass pair and single pass), and a ragged two-pass shape
-    whose padded q rows and keys the pair must mask. The pair must give
-    bitwise-equal gradients in two launches; at the trainer's 4096 keys
-    the single pass, which the shape rule does not take there, is checked
-    and timed on the same inputs as the pair's yardstick."""
+    cross-attention at batch 8, the 4096-prim trainer's at batch 2, and a
+    ragged shape past 2048 keys whose padded q rows and keys the kernels
+    must mask, each through the shape rule (the single pass at head dim
+    72). Past 2048 keys the two-pass pair, which the rule no longer takes
+    at 72, is checked and timed on the same inputs as the single pass's
+    yardstick, and must give bitwise-equal gradients in two launches."""
     import torch
 
     from topiaxl_torch.ops import flash_attention as fa
@@ -667,7 +681,7 @@ def check_flash_backward(results: dict, randn) -> None:
              ("dit_self_tp2", 8, 2048, 2048, 8, 72, 72 ** -0.5, True),
              ("long_self", 2, 4096, 4096, 16, 72, 72 ** -0.5, True),
              ("long_cross", 2, 4096, 1370, 16, 72, 72 ** -1.0, False),
-             ("ragged_pair", 1, 1000, 2049, 16, 72, 72 ** -0.5, False)]
+             ("ragged", 1, 1000, 2049, 16, 72, 72 ** -0.5, False)]
     flash = results["flash_attn_fwd"]
     lse_max = 0.0
     for tag, B, Sq, Sk, H, D, scale, fused in cases:
@@ -715,16 +729,6 @@ def check_flash_backward(results: dict, randn) -> None:
         rels = [rel_err(a, b) for a, b in zip(got, ref)]
         errs = [(a.float() - b.float()).abs().max().item()
                 for a, b in zip(got, ref)]
-        if form == "two_pass":
-            # the pair writes each gradient once, with no atomics
-            again = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
-            same = [torch.equal(a, b) for a, b in zip(got, again)]
-            log(f"  backward {tag}: the pair's dq/dk/dv bitwise equal across "
-                f"two launches: {same}")
-            if not all(same):
-                raise AssertionError(f"backward {tag}: the pair is not "
-                                     f"deterministic ({same})")
-            del again
         del got
         # planted faults: no delta (moves dq, dk); padded keys unmasked in
         # forward and backward (moves dv, at shapes with padded keys)
@@ -735,6 +739,11 @@ def check_flash_backward(results: dict, randn) -> None:
             if Sk % fa.KEY_TILE else None)
         names = (["flash_attn_bwd"] if form == "fused"
                  else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+        yardstick = form == "fused" and Sk > fa.FUSED_BWD_MAX_KEYS
+        if yardstick:
+            names += ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
+        # each kernel's (max abs, max rel) error: the rule's form's
+        errors = dict.fromkeys(names, (max(errs), max(rels)))
         dq_acc = torch.zeros_like(q, dtype=torch.float32)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -747,17 +756,15 @@ def check_flash_backward(results: dict, randn) -> None:
             n, q, k, v, o, lse, do, *outs[n], scale), 10) for n in names}
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, o, lse, do, scale), 3)
-        flops = 10 * B * H * Sq * Sk * D   # five Sq x Sk x D products
-        # each kernel's own bound, each input read once and each output
-        # written once: the single pass reads q, o, dO, k, v (bf16) and lse
-        # (f32), does five products and writes dq as f32 scratch and dk,
-        # dv; the dq pass reads the same, does three products (S, dP, dQ)
-        # and writes bf16 dq and delta (f32); the dk/dv pass reads q, dO,
-        # k, v, lse and delta, does four and writes dk, dv
+        # the whole backward's bound: its four products (dP, dV, dQ, dK; S
+        # recomputed is not counted), each input read once and each output
+        # written once (portbench/counts.py:attention_bwd); a pass alone:
+        # the products it runs, the dq pass three (S, dP, dQ) writing bf16
+        # dq and delta, the dk/dv pass four reading delta, writing dk, dv
         n_q, n_k, n_r = B * Sq * H * D, B * Sk * H * D, B * H * Sq
+        flops = 8 * B * H * Sq * Sk * D
         bounds = {"flash_attn_bwd": bound(
-                      flops, 2 * (3 * n_q + 2 * n_k) + 4 * n_r + 4 * n_q
-                      + 4 * n_k),
+                      flops, 2 * (4 * n_q + 4 * n_k) + 4 * n_r),
                   "flash_attn_bwd_dq": bound(
                       6 * B * H * Sq * Sk * D,
                       2 * (3 * n_q + 2 * n_k) + 4 * n_r + 2 * n_q + 4 * n_r),
@@ -765,33 +772,40 @@ def check_flash_backward(results: dict, randn) -> None:
                       8 * B * H * Sq * Sk * D,
                       2 * (2 * n_q + 2 * n_k) + 8 * n_r + 4 * n_k)}
         lib_ms, how = sdpa_backward_ms(q, k, v, do, scale, 10)
-        if tag == "long_self":
-            # the single pass on the pair's inputs: a yardstick for the
-            # pair (the shape rule does not send 4096 keys to it)
-            dq_acc.zero_()
-            fa._bwd_launch("flash_attn_bwd", q, k, v, o, lse, do, None,
-                           dq_acc, dk, dv, scale)
+        if yardstick:
+            # the pair on the single pass's inputs, its yardstick past 2048
+            # keys: within the bar, and bitwise equal across two launches
+            # (it writes each gradient once, with no atomics)
+            def pair():
+                for n in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+                    fa._bwd_launch(n, q, k, v, o, lse, do, *outs[n], scale)
+                return dq.clone(), dk.clone(), dv.clone()
+            first, again = pair(), pair()
             torch.cuda.synchronize()
-            one_rels = [rel_err(a, b) for a, b in zip(
-                (dq_acc.to(q.dtype), dk, dv), ref)]
-            one_ms = cuda_ms(lambda: fa._bwd_launch(
-                "flash_attn_bwd", q, k, v, o, lse, do, None, dq_acc, dk, dv,
-                scale), 10)
-            one_bound = bounds["flash_attn_bwd"]
-            log(f"  single pass flash_attn_bwd at {tag} {shape} (yardstick, "
-                f"not the shape rule's route): max rel err dq/dk/dv "
-                f"{one_rels[0]:.3e}/{one_rels[1]:.3e}/{one_rels[2]:.3e} (bar "
-                f"{ATTN_BWD_REL_BAR}), {one_ms:.4f} ms (bound "
-                f"{one_bound[0]:.4f} ms, {one_bound[1]}; share "
-                f"{one_bound[0] / one_ms:.1%}), pair / single pass "
-                f"{sum(times.values()) / one_ms:.2f}")
-            if not max(one_rels) <= ATTN_BWD_REL_BAR:
-                raise AssertionError(f"single pass at {tag}: rel errors "
-                                     f"{one_rels}")
+            pair_rels = [rel_err(a, b) for a, b in zip(first, ref)]
+            pair_abs = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(first, ref))
+            for n in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+                errors[n] = (pair_abs, max(pair_rels))
+            same = [torch.equal(a, b) for a, b in zip(first, again)]
+            pair_ms = times["flash_attn_bwd_dq"] + times["flash_attn_bwd_dkv"]
+            log(f"  the pair at {tag} {shape} (yardstick, not the shape "
+                f"rule's route): max rel err dq/dk/dv "
+                f"{pair_rels[0]:.3e}/{pair_rels[1]:.3e}/{pair_rels[2]:.3e} "
+                f"(bar {ATTN_BWD_REL_BAR}), dq/dk/dv bitwise equal across "
+                f"two launches: {same}; {pair_ms:.4f} ms (share of the "
+                f"backward's bound {bounds['flash_attn_bwd'][0] / pair_ms:.1%}"
+                f"), pair / single pass "
+                f"{pair_ms / times['flash_attn_bwd']:.2f}")
+            if not (max(pair_rels) <= ATTN_BWD_REL_BAR and all(same)):
+                raise AssertionError(f"the pair at {tag}: rel errors "
+                                     f"{pair_rels}, repeats {same}")
+            del first, again
         del ref
         fault_msg = (f"unmasked-padding fault dq/dk/dv {unmasked[0]:.3e}/"
                      f"{unmasked[1]:.3e}/{unmasked[2]:.3e}"
                      if unmasked else "no padded keys")
+        rule_ms = sum(times[n] for n in names[:2 if form == "two_pass" else 1])
         log(f"  backward {tag} {shape} ({form}): max rel err dq/dk/dv "
             f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} (bar "
             f"{ATTN_BWD_REL_BAR}; no-delta fault dq/dk {no_delta[0]:.3e}/"
@@ -799,11 +813,10 @@ def check_flash_backward(results: dict, randn) -> None:
             + ", ".join(f"{n} {t:.4f} ms (bound {bounds[n][0]:.4f} ms, "
                         f"{bounds[n][1]}; share {bounds[n][0] / t:.1%})"
                         for n, t in times.items())
-            + f" ({flops / sum(times.values()) / 1e9:.1f} TFLOP/s), plain "
-            f"backward {plain_ms:.4f} ms, " + (
-                f"PyTorch flash backward {lib_ms:.4f} ms ({how}; "
-                f"kernels/library {sum(times.values()) / lib_ms:.2f})"
-                if lib_ms else how))
+            + f" (the rule's form {flops / rule_ms / 1e9:.1f} TFLOP/s of the "
+            f"backward's four products), plain backward {plain_ms:.4f} ms, "
+            + (f"PyTorch flash backward {lib_ms:.4f} ms ({how}; "
+               f"kernels/library {rule_ms / lib_ms:.2f})" if lib_ms else how))
         if form == "fused":
             vs_recorded("flash_attn_bwd", tag, times["flash_attn_bwd"])
         for name, rel in zip(("dq", "dk", "dv"), rels):
@@ -820,8 +833,8 @@ def check_flash_backward(results: dict, randn) -> None:
         for n in names:
             entry = results.setdefault(n, {"max_abs_err": 0.0,
                                            "max_rel_err": 0.0})
-            entry["max_abs_err"] = max(entry["max_abs_err"], max(errs))
-            entry["max_rel_err"] = max(entry["max_rel_err"], max(rels))
+            entry["max_abs_err"] = max(entry["max_abs_err"], errors[n][0])
+            entry["max_rel_err"] = max(entry["max_rel_err"], errors[n][1])
             if "ms" not in entry:
                 # library_ms: the whole backward in one call (the pair's
                 # two kernels together compute what it computes)
@@ -835,12 +848,13 @@ def check_flash_backward(results: dict, randn) -> None:
 
 # the flagship rows of PERF.md's kernel table (ms on an H100 80GB HBM3 at
 # 700 W): the D 64 / 72 instances, the forward's on swizzled tiles (the
-# split layout at 72); the kernels phase prints each reading beside them
+# split layout at 72), the backward's single pass in its overlapped loop;
+# the kernels phase prints each reading beside them
 FLAGSHIP_MS = {("flash_attn_fwd", "dit_self"): 0.1225,
                ("flash_attn_fwd", "dit_cross"): 0.0450,
                ("flash_attn_fwd", "dinov2"): 0.0238,
-               ("flash_attn_bwd", "dit_self"): 1.4142,
-               ("flash_attn_bwd", "dit_cross"): 0.9736}
+               ("flash_attn_bwd", "dit_self"): 0.9357,
+               ("flash_attn_bwd", "dit_cross"): 0.6462}
 FLAGSHIP_TOL = 0.04
 
 
@@ -977,6 +991,11 @@ def phase_kernels() -> dict:
 HEAD_DIM_CASES = (80, 96, 128, 36, 88, 256, 160, 200)
 HEAD_DIM_SHAPES = (("self", 2, 2048, 2048, 16), ("cross", 2, 2048, 1370, 16))
 HEAD_DIM_LONG = ("long", 2, 4096, 4096, 16)
+# the overlapped loop at head dim 72 beside the pair: the flagship
+# trainer's self- and cross-attention, and 4096 keys
+OVERLAP_72_SHAPES = (("dit_self", 8, 2048, 2048, 16),
+                     ("dit_cross", 8, 2048, 1370, 16),
+                     ("long_self", 2, 4096, 4096, 16))
 # the forms before the redesign of the wide heads (forward above 80,
 # flash_bwd_wide_kernel at 129-256), ms of forward / single pass / pair on
 # an H100 80GB HBM3 at 700 W as PERF.md records them (this phase, before
@@ -1037,6 +1056,77 @@ def padded_bwd_launch(form: str, q, k, v, o, lse, do, scale: float):
 
     launch()
     return (dq[..., :D].to(q.dtype), dk[..., :D], dv[..., :D]), launch, parts
+
+
+def bwd_side_by_side(tag: str, q, k, v, o, lse, do, scale: float,
+                     nb: int) -> dict:
+    """The single pass (#4) and the pair (#5 then #6) on the same inputs at
+    an instance whose single pass runs the overlapped loop (64, 72), where
+    the rule takes the single pass at every key length: each against the
+    plain backward on the first ``nb`` batch rows (whose f32 logits fit)
+    within ``ATTN_BWD_REL_BAR``, the plain backward without delta above
+    it; ms of each (a CUDA graph of 5 calls) beside the backward's bound
+    (its four products, ``portbench/counts.py:attention_bwd``'s basis);
+    the wrapper's launches, one ``flash_attn_bwd`` counted under the
+    ``"overlapped"`` loop. Past 2048 keys the single pass must be the
+    faster: its ms and the pair's are ``bwd_form``'s evidence. Returns the
+    row."""
+    import torch
+
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.ops import flash_attention as fa
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    shape = f"{B}x{Sq}x{Sk}x{H}x{D}"
+    part = [t[:nb] for t in (q, k, v, o, lse, do)]
+    ref = fa.flash_attention_bwd_plain(*part, scale)
+    fault = max(rel_err(a, r) for a, r in zip(fa.flash_attention_bwd_plain(
+        *part, scale, with_delta=False)[:2], ref[:2]))
+    forms = {}
+    for form in ("fused", "pair"):
+        got, launch, _ = padded_bwd_launch(form, q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        forms[form] = ([rel_err(a[:nb], r) for a, r in zip(got, ref)],
+                       cuda_ms(launch, 5))
+        del got, launch
+    names = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    before = dict(_cuda.launches), dict(_cuda.bwd_loops)
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    rule_rel = max(rel_err(a[:nb], r) for a, r in zip(grads, ref))
+    launched = {n: _cuda.launches[n] - before[0][n] for n in names}
+    loops = {n: c - before[1][n] for n, c in _cuda.bwd_loops.items()}
+    del grads, ref
+    bound_ms, bound_by = bound(8 * B * H * Sq * Sk * D,
+                               2 * B * H * D * (4 * Sq + 4 * Sk) + 4 * B * H * Sq)
+    (one_rels, one_ms), (pair_rels, pair_ms) = forms["fused"], forms["pair"]
+    form = fa.bwd_form(Sk, D)
+    log(f"  backward forms at {tag} {shape}: single pass dq/dk/dv "
+        f"{'/'.join(f'{r:.3e}' for r in one_rels)} {one_ms:.4f} ms (share "
+        f"{bound_ms / one_ms:.1%}), pair {'/'.join(f'{r:.3e}' for r in pair_rels)} "
+        f"{pair_ms:.4f} ms (share {bound_ms / pair_ms:.1%}), pair / single "
+        f"pass {pair_ms / one_ms:.2f}; bound {bound_ms:.4f} ms ({bound_by}, "
+        f"four products); max rel err on the first {nb} rows (bar "
+        f"{ATTN_BWD_REL_BAR}; no-delta fault {fault:.3e}); the rule takes "
+        f"{form} (through the wrapper: max rel err {rule_rel:.3e}, launches "
+        f"{launched}, loops {loops}) ({card_line()})")
+    if not (max(one_rels + pair_rels + [rule_rel]) <= ATTN_BWD_REL_BAR < fault):
+        raise AssertionError(f"backward forms at {tag}: single pass "
+                             f"{one_rels}, pair {pair_rels}, rule {rule_rel}, "
+                             f"fault {fault}")
+    if (form != "fused" or launched != dict(zip(names, (1, 0, 0)))
+            or loops != {"overlapped": 1, "serial": 0}):
+        raise AssertionError(f"backward forms at {tag}: the rule's {form} "
+                             f"launched {launched}, loops {loops}")
+    if Sk > fa.FUSED_BWD_MAX_KEYS and not one_ms < pair_ms:
+        raise AssertionError(f"backward forms at {tag}: the rule takes the "
+                             f"single pass past {fa.FUSED_BWD_MAX_KEYS} keys, "
+                             f"but it read {one_ms} ms against the pair's "
+                             f"{pair_ms}")
+    return dict(at=shape, single_pass_ms=one_ms, pair_ms=pair_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_rel_err=max(one_rels), pair_max_rel_err=max(pair_rels))
 
 
 def phase_flash_head_dims() -> dict:
@@ -1146,16 +1236,18 @@ def phase_flash_head_dims() -> dict:
             plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, o, lse, do, scale), 2)
             lib_bwd, lib_how = sdpa_backward_ms(q, k, v, do, scale, 5)
+            # the whole backward (either form): its four products (dP, dV,
+            # dQ, dK; portbench/counts.py:attention_bwd); a pass alone: the
+            # products it runs
             n_q, n_k, n_r = B * Sq * H * D, B * Sk * H * D, B * H * Sq
             bounds = {
-                "fused": bound(10 * B * H * Sq * Sk * D,
-                               2 * (3 * n_q + 2 * n_k) + 4 * n_r + 4 * n_q
-                               + 4 * n_k),
+                "fused": bound(8 * B * H * Sq * Sk * D,
+                               2 * (4 * n_q + 4 * n_k) + 4 * n_r),
                 "dq": bound(6 * B * H * Sq * Sk * D,
                             2 * (3 * n_q + 2 * n_k) + 8 * n_r + 2 * n_q),
                 "dkv": bound(8 * B * H * Sq * Sk * D,
                              2 * (2 * n_q + 2 * n_k) + 8 * n_r + 4 * n_k)}
-            pair_bound = bounds["dq"][0] + bounds["dkv"][0]
+            pair_bound = bounds["fused"][0]
             fault_msg = (f"; padded-scale fault o {fault:.3e}, grads "
                          f"{bwd_fault:.3e}" if fault is not None
                          else "; own instance") + "".join(
@@ -1222,6 +1314,22 @@ def phase_flash_head_dims() -> dict:
                     max_rel_err=max(forms["pair"][0])))
             del q, k, v, do, o, lse, o_ref, lse_ref, ref, qp, kp, vp
             torch.cuda.empty_cache()
+    # the overlapped loop at head dim 72 beside the pair, on the flagship
+    # trainer's shapes and past 2048 keys
+    for tag, B, Sq, Sk, H in OVERLAP_72_SHAPES:
+        D = 72
+        scale = 1.0 / D if Sq != Sk else D ** -0.5
+        if Sq == Sk:
+            q, k, v = randn(B, Sq, 3, H, D).unbind(2)
+        else:
+            q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
+        do = randn(B, Sq, H, D)
+        o, lse = fa._forward(q, k, v, scale, return_lse=True)
+        row = bwd_side_by_side(tag, q, k, v, o, lse, do, scale, nb=2)
+        rows["flash_attn_bwd"].append(dict(row, instance=D, bwd_form="fused",
+                                           ms=row["single_pass_ms"]))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     # the ring's per-block launches at a padded and a new head dim
     for D in (36, 80):
         q, k, v, do = (randn(1, 2200, 4, D) for _ in range(4))
@@ -2209,19 +2317,35 @@ def phase_dit(quant: bool = False):
 
 
 class PerStep(list):
-    """Snapshots the launch counters as each step's metrics (or each
-    asset's record) arrive."""
+    """Snapshots the launch counters (and the single-pass backward's
+    launches by loop) as each step's metrics (or each asset's record)
+    arrive."""
 
     def append(self, rec):
         from topiaxl_torch.ops import _cuda
 
-        super().append(dict(rec, launches=dict(_cuda.launches)))
+        super().append(dict(rec, launches=dict(_cuda.launches),
+                            bwd_loops=dict(_cuda.bwd_loops)))
 
 
-def run_trainer(args: list, expected: dict, steps: list) -> dict:
+def step_loops(recs: list, expected: dict) -> None:
+    """Each step's single-pass backwards by loop must be ``expected``."""
+    prev = dict.fromkeys(expected, 0)
+    for rec in recs:
+        per = {k: rec["bwd_loops"][k] - prev[k] for k in expected}
+        prev = rec["bwd_loops"]
+        if per != expected:
+            raise AssertionError(f"step {rec['step']}: backward loops {per} "
+                                 f"!= {expected}")
+    log(f"  every step's single-pass backwards by loop: {expected}")
+
+
+def run_trainer(args: list, expected: dict, steps: list,
+                loops: dict | None = None) -> dict:
     """``cli.train.main`` with the counters zeroed first; checks each
-    step's launches, finite metrics and the step numbers; returns the
-    run's total launches and its records."""
+    step's launches (and, given ``loops``, its single-pass backwards by
+    loop), finite metrics and the step numbers; returns the run's total
+    launches and its records."""
     import torch
 
     from topiaxl_torch.cli.train import main
@@ -2247,6 +2371,8 @@ def run_trainer(args: list, expected: dict, steps: list) -> dict:
         vals = [rec[k] for k in ("loss", "loss_mse", "loss_vb", "grad_norm")]
         if not np.isfinite(vals).all():
             raise AssertionError(f"step {rec['step']}: metrics {vals}")
+    if loops is not None:
+        step_loops(recs, loops)
     torch.cuda.synchronize()
     return total, recs
 
@@ -2259,7 +2385,7 @@ def phase_train(tmp: str) -> dict:
             "train.keep_ckpts=1", f"root_data_dir={tmp}/train"]
     torch.cuda.reset_peak_memory_stats()
     total, recs = run_trainer(args + ["train.max_steps=6"], TRAIN_LAUNCHES,
-                              list(range(1, 7)))
+                              list(range(1, 7)), TRAIN_BWD_LOOPS)
     peak = torch.cuda.max_memory_allocated()
     warm = sorted(r["seconds"] for r in recs[1:])
     median = warm[len(warm) // 2]
@@ -2448,15 +2574,17 @@ def phase_train_long(tmp: str) -> dict:
     args = [FLAGSHIP, "model.num_prims=4096", "model.generator.depth=2",
             "train.synthetic=true", "train.batch_size=2", "train.max_steps=2",
             "train.log_every_n_steps=1", f"root_data_dir={tmp}/train_long"]
-    total, _ = run_trainer(args, TRAIN_LONG_LAUNCHES, [1, 2])
+    total, _ = run_trainer(args, TRAIN_LONG_LAUNCHES, [1, 2],
+                           {"overlapped": 4, "serial": 0})
     return total
 
 
 def phase_ss_flow() -> dict:
     """TRELLIS's flow transformer's kernels at its training shapes: the QK
-    norm forward and backward, flash #1, the pair and #4 at head dim 64,
-    each against its plain version with a planted fault, ms beside its
-    bound and the plain version's. Returns the rows."""
+    norm forward and backward, flash #1, and the single pass (#4) beside
+    the pair (#5, #6) at head dim 64 (``bwd_side_by_side``), each against
+    its plain version with a planted fault, ms beside its bound and the
+    plain version's. Returns the rows."""
     import torch
 
     from topiaxl_torch.ops import flash_attention as fa
@@ -2518,41 +2646,31 @@ def phase_ss_flow() -> dict:
             qq, k, v = randn(B, N, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
         do = randn(B, N, H, D)
         o, lse = fa._forward(qq, k, v, sc, return_lse=True)
-        grads = fa.flash_attention_backward(qq, k, v, o, lse, do, sc)
         two = slice(0, 2)
         o_ref = fa.flash_attention_plain(qq[two], k[two], v[two], sc)
-        refs = fa.flash_attention_bwd_plain(qq[two], k[two], v[two], o[two],
-                                            lse[two], do[two], sc)
-        bad = fa.flash_attention_bwd_plain(qq[two], k[two], v[two], o[two],
-                                           lse[two], do[two], sc,
-                                           with_delta=False)
         torch.cuda.synchronize()
         f_err = rel_err(o[two], o_ref)
-        b_err = max(rel_err(a[two], r) for a, r in zip(grads, refs))
-        b_fault = max(rel_err(a, r) for a, r in zip(bad[:2], refs[:2]))
-        form = fa.bwd_form(Sk, D)
         f_ms = cuda_ms(lambda: fa._forward(qq, k, v, sc, return_lse=True), 20)
-        b_ms = cuda_ms(lambda: fa.flash_attention_backward(
-            qq, k, v, o, lse, do, sc), 10)
         ops_f = 4 * B * H * N * Sk * D
         f_bound, _ = bound(ops_f, 2 * B * H * D * (2 * N + 2 * Sk))
-        b_bound, _ = bound(2 * ops_f, 2 * B * H * D * (4 * N + 4 * Sk))
         shape = f"{B}x{N}x{Sk}x{H}x{D}"
         log(f"  ss_flow {tag} {shape}: flash_attn_fwd max rel err "
             f"{f_err:.3e} (bar {ATTN_REL_BAR}), {f_ms:.4f} ms, bound "
-            f"{f_bound:.4f} ms (operations; share {f_bound / f_ms:.1%}); "
-            f"backward ({form}) max rel err {b_err:.3e} (bar "
-            f"{ATTN_BWD_REL_BAR}; no-delta fault {b_fault:.3e}), {b_ms:.4f} "
-            f"ms, bound {b_bound:.4f} ms (share {b_bound / b_ms:.1%}) "
+            f"{f_bound:.4f} ms (operations; share {f_bound / f_ms:.1%}) "
             f"({card_id})")
-        if not (f_err <= ATTN_REL_BAR and b_err <= ATTN_BWD_REL_BAR
-                < b_fault):
-            raise AssertionError(f"ss_flow {tag}: forward {f_err}, backward "
-                                 f"{b_err}, fault {b_fault}")
+        if not f_err <= ATTN_REL_BAR:
+            raise AssertionError(f"ss_flow {tag}: forward {f_err}")
+        del o_ref
+        # the backward: the single pass (its overlapped loop) beside the
+        # pair, the rule's form through the wrapper
+        back = bwd_side_by_side(f"ss_flow {tag}", qq, k, v, o, lse, do, sc,
+                                nb=2)
         rows[f"flash_{tag}"] = dict(at=shape, fwd_ms=f_ms, fwd_bound_ms=f_bound,
-                                    bwd_form=form, bwd_ms=b_ms,
-                                    bwd_bound_ms=b_bound)
-        del qq, k, v, do, o, lse, grads, refs, bad
+                                    bwd_form=fa.bwd_form(Sk, D),
+                                    bwd_ms=back["single_pass_ms"],
+                                    bwd_pair_ms=back["pair_ms"],
+                                    bwd_bound_ms=back["bound_ms"])
+        del qq, k, v, do, o, lse
         torch.cuda.empty_cache()
     return rows
 
@@ -2587,6 +2705,7 @@ def phase_ss_flow_train(tmp: str) -> dict:
             raise AssertionError(f"ss_flow step {rec['step']}: launches "
                                  f"{per} != {SS_FLOW_LAUNCHES} or metrics "
                                  f"{rec}")
+    step_loops(recs, SS_FLOW_BWD_LOOPS)
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"  ss_flow: peak memory {peak:.2f} GB ({card_line()})")
     return {"step_s": [r["seconds"] for r in recs], "peak_gb": peak}
@@ -4281,7 +4400,7 @@ def main() -> int:
 
     # launches: serving for the forward and LN kernels, the flagship
     # trainer for the single-pass backward, the 4096-prim trainer for the
-    # two-pass pair
+    # two-pass pair (0: at head dim 72 the rule takes the single pass)
     launches.update(flash_attn_bwd=train["flash_attn_bwd"],
                     flash_attn_bwd_dq=train_long["flash_attn_bwd_dq"],
                     flash_attn_bwd_dkv=train_long["flash_attn_bwd_dkv"],

@@ -171,18 +171,21 @@ def test_zero_padding_the_head_dim_changes_no_output(d):
 def test_backward_form_is_measured_at_the_256_instance():
     """Head dims 129-256 take the single pass at every key length: on the
     card it beat the pair there at 2048, 1370 and 4096 keys (head dims
-    160, 200 and 256). Every other head dim keeps JAX's rule, the single
-    pass up to 2048 keys and the pair above."""
+    160, 200 and 256). So do head dims 1-72 (the 64 and 72 instances,
+    whose overlapped loop beat the pair at 4096 keys). Head dims 73-128
+    keep JAX's rule, the single pass up to 2048 keys and the pair
+    above."""
     for d, sk in ((256, 4096), (160, 4096), (200, 4096), (256, 2048),
-                  (256, 1370)):
+                  (256, 1370), (64, 4096), (72, 4096), (36, 8192)):
         assert fa.bwd_form(sk, d) == "fused", (sk, d)
     assert fa.bwd_form(4096, 128) == "two_pass"
+    assert fa.bwd_form(4096, 80) == "two_pass"
     for d in range(1, 300):
-        wide = 128 < d <= 256
+        single = d <= 72 or 128 < d <= 256
         for sk in (1, 700, 1370, fa.FUSED_BWD_MAX_KEYS):
             assert fa.bwd_form(sk, d) == "fused", (sk, d)
         for sk in (fa.FUSED_BWD_MAX_KEYS + 1, 4096, 8192):
-            want = "fused" if wide else "two_pass"
+            want = "fused" if single else "two_pass"
             assert fa.bwd_form(sk, d) == want, (sk, d)
 
 

@@ -44,6 +44,7 @@ from topiaxl_torch.ops import _cuda
 from topiaxl_torch.ops.flash_attention import (
     KEY_TILE,
     bwd_form,
+    bwd_loop,
     flash_attention,
     flash_attention_backward,
     flash_attention_bwd_plain,
@@ -159,16 +160,17 @@ def test_flash_masks_ragged_keys(dev, Sk, D):
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,D,scale", [
-    (2, 65, 63, 3, 72, 72 ** -0.5),      # ragged both, fused
-    (1, 200, 1370, 2, 72, 1.0 / 72),     # cross-attention-like, fused
-    (1, 130, 2100, 2, 72, 72 ** -0.5),   # two-pass, ragged
-    (2, 64, 2048, 1, 64, 64 ** -0.5),    # the last fused length
-    (1, 130, 700, 2, 64, 64 ** -0.5),    # fused, D 64, ragged both
-    (1, 2048, 2048, 2, 72, 72 ** -0.5),  # fused, many q tiles per block
-    (2, 300, 1374, 3, 64, 64 ** -0.5),   # fused, D 64, ragged keys
-    (1, 130, 2100, 2, 64, 64 ** -0.5),   # two-pass, D 64
-    (1, 200, 2177, 2, 72, 72 ** -0.5),   # two-pass, Sq % 128, Sk % 128
-    (3, 100, 2300, 2, 72, 72 ** -0.5),   # two-pass, B 3
+    (2, 65, 63, 3, 72, 72 ** -0.5),      # ragged both
+    (1, 200, 1370, 2, 72, 1.0 / 72),     # cross-attention-like
+    (1, 130, 2100, 2, 72, 72 ** -0.5),   # past 2048 keys, ragged
+    (2, 64, 2048, 1, 64, 64 ** -0.5),    # one q tile, 16 key blocks
+    (1, 130, 700, 2, 64, 64 ** -0.5),    # D 64, ragged both
+    (1, 2048, 2048, 2, 72, 72 ** -0.5),  # many q tiles per block
+    (2, 300, 1374, 3, 64, 64 ** -0.5),   # D 64, ragged keys
+    (1, 130, 2100, 2, 64, 64 ** -0.5),   # past 2048 keys, D 64
+    (1, 200, 2177, 2, 72, 72 ** -0.5),   # Sq % 128, Sk % 128
+    (3, 100, 2300, 2, 72, 72 ** -0.5),   # B 3
+    (1, 130, 2100, 2, 80, 80 ** -0.5),   # the pair (80 keeps JAX's rule)
 ])
 def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
     qkv = _randn(dev, B, Sq, 3, H, D, seed=11)
@@ -176,14 +178,17 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
     kv = _randn(dev, B, Sk, 2, H, D, seed=12)
     k, v = (t.requires_grad_() for t in kv.unbind(2))
     do = _randn(dev, B, Sq, H, D, seed=13)
-    before = dict(_cuda.launches)
+    before = dict(_cuda.launches), dict(_cuda.bwd_loops)
     o = flash_attention(q, k, v, scale)
     lse = o.grad_fn.saved_tensors[4]
     o.backward(do)
     names = (["flash_attn_bwd"] if bwd_form(Sk, D) == "fused"
              else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
     for name in ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-        assert _cuda.launches[name] == before[name] + (name in names)
+        assert _cuda.launches[name] == before[0][name] + (name in names)
+    loop = bwd_loop(D) if "flash_attn_bwd" in names else None
+    assert _cuda.bwd_loops == {n: c + (n == loop)
+                               for n, c in before[1].items()}
     args = (q.detach(), k.detach(), v.detach(), o.detach(), lse, do, scale)
     ref = flash_attention_bwd_plain(*args)
     fault = flash_attention_bwd_plain(*args, with_delta=False)
@@ -195,7 +200,7 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
             assert _rel_err(f, r) > ATTN_BWD_REL_BAR, name
 
 
-@pytest.mark.parametrize("Sk", [700, 2100])      # single pass; the pair
+@pytest.mark.parametrize("Sk", [700, 2100])      # below and past 2048 keys
 @pytest.mark.parametrize("D", [16, 36, 80, 88, 96, 120, 128, 160, 200, 256])
 def test_flash_head_dims_match_plain(dev, D, Sk):
     """Every head dim up to 256: 80, 96, 128 and 256 on their own instances,
@@ -261,7 +266,8 @@ def test_ring_takes_every_head_dim(dev, D):
 @pytest.mark.parametrize("P,N", [(2, 512), (4, 1024), (2, 4400)])
 def test_ring_over_local_blocks_matches_one_launch(dev, P, N):
     """P blocks of N / P tokens (the last case 2200 keys a block, ragged:
-    the two-pass pair): P * P forward and P * P backward launches."""
+    the single pass, as at head dim 72 at every key length): P * P
+    forward and P * P backward launches."""
     from topiaxl_torch.ops import flash_attention as fa
     from topiaxl_torch.ops.ring_attention import (LocalRing, ring_backward,
                                                   ring_forward)
@@ -297,8 +303,9 @@ def test_ring_over_local_blocks_matches_one_launch(dev, P, N):
 
 def test_two_pass_backward_repeats_bit_for_bit(dev):
     """The pair writes each gradient once, with no atomics: two launches
-    of each pass on the same inputs give bitwise-equal dq, dk and dv."""
-    B, Sq, Sk, H, D, scale = 2, 300, 2300, 3, 72, 72 ** -0.5
+    of each pass on the same inputs give bitwise-equal dq, dk and dv (at
+    head dim 80, where the rule takes the pair past 2048 keys)."""
+    B, Sq, Sk, H, D, scale = 2, 300, 2300, 3, 80, 80 ** -0.5
     q = _randn(dev, B, Sq, 3, H, D, seed=34)[:, :, 0]
     k, v = _randn(dev, B, Sk, 2, H, D, seed=35).unbind(2)
     do = _randn(dev, B, Sq, H, D, seed=36)
@@ -325,8 +332,8 @@ def test_two_pass_backward_repeats_bit_for_bit(dev):
 def test_flash_backward_masks_ragged_keys(dev, Sq, Sk):
     """Every real logit is well below 0, so zero-padded keys left unmasked
     would take most of the softmax mass and shrink every gradient, dv
-    included: the single pass and the two-pass pair must mask them (and
-    the ragged q rows)."""
+    included: the single pass must mask them (and the ragged q rows), past
+    2048 keys too."""
     assert Sk % KEY_TILE and Sq % 64
     q = _randn(dev, 1, Sq, 2, 72, seed=30).abs().requires_grad_()
     k = (-_randn(dev, 1, Sk, 2, 72, seed=31).abs()).requires_grad_()

@@ -27,6 +27,7 @@ from topiaxl_torch.ops.flash_attention import (
     FUSED_BWD_MAX_KEYS,
     KEY_TILE,
     bwd_form,
+    bwd_loop,
     flash_attention,
     flash_attention_backward,
     flash_attention_bwd_delta,
@@ -188,8 +189,8 @@ def test_forward_layout_counter_on_the_cpu_path():
         _cuda.reset_launch_counts()
         assert set(_cuda.fwd_layouts.values()) == {0}
         with _cuda.tally() as counts:
-            _cuda.count_launch("flash_attn_fwd", layout="split")
-            _cuda.count_launch("flash_attn_fwd", layout="swizzled")
+            _cuda.count_launch("flash_attn_fwd", tag="split")
+            _cuda.count_launch("flash_attn_fwd", tag="swizzled")
             _cuda.count_launch("ln_modulate")
         assert counts == {"flash_attn_fwd": 2, "flash_attn_fwd.split": 1,
                           "flash_attn_fwd.swizzled": 1, "ln_modulate": 1}
@@ -204,6 +205,53 @@ def test_forward_layout_counter_on_the_cpu_path():
     finally:
         _cuda.launches.update(saved[0])
         _cuda.fwd_layouts.update(saved[1])
+
+
+def test_backward_loop_counter_on_the_cpu_path():
+    """The single-pass backward's launches by loop: the CPU path launches
+    and counts nothing; ``bwd_loop`` names the overlapped loop at the 64
+    and 72 instances (the head dims zero-padded to them too) and the
+    serial one at 80-256; a launch counted with its loop adds to
+    ``launches`` and ``bwd_loops`` and leaves ``fwd_layouts`` alone; a
+    capture's tally holds it under ``"flash_attn_bwd.<loop>"``, which
+    ``add_launches`` takes back and adds again as a graph replay does;
+    ``reset_launch_counts`` zeroes it."""
+    saved = (dict(_cuda.launches), dict(_cuda.fwd_layouts),
+             dict(_cuda.bwd_loops))
+    try:
+        rng = np.random.default_rng(4)
+        q, k, v = map(torch.from_numpy, _qkv(rng, 1, 9, 11, 2, 72))
+        o, lse = flash_attention_plain(q, k, v, 0.2, return_lse=True)
+        before = (dict(_cuda.launches), dict(_cuda.bwd_loops))
+        flash_attention_backward(q, k, v, o, lse, torch.ones_like(q), 0.2)
+        assert (dict(_cuda.launches), dict(_cuda.bwd_loops)) == before
+        for d in range(1, 257):
+            want = "overlapped" if d <= 72 else "serial"
+            assert bwd_loop(d) == want, d
+        _cuda.reset_launch_counts()
+        assert set(_cuda.bwd_loops.values()) == {0}
+        with _cuda.tally() as counts:
+            _cuda.count_launch("flash_attn_bwd", tag=bwd_loop(72))
+            _cuda.count_launch("flash_attn_bwd", tag=bwd_loop(64))
+            _cuda.count_launch("flash_attn_bwd", tag=bwd_loop(128))
+            _cuda.count_launch("flash_attn_bwd_dq")
+        assert counts == {"flash_attn_bwd": 3, "flash_attn_bwd.overlapped": 2,
+                          "flash_attn_bwd.serial": 1, "flash_attn_bwd_dq": 1}
+        assert _cuda.bwd_loops == {"overlapped": 2, "serial": 1}
+        assert set(_cuda.fwd_layouts.values()) == {0}
+        _cuda.add_launches({key: -n for key, n in counts.items()})
+        assert set(_cuda.bwd_loops.values()) == {0}
+        assert set(_cuda.launches.values()) == {0}
+        for _ in range(2):
+            _cuda.add_launches(counts)
+        assert _cuda.bwd_loops == {"overlapped": 4, "serial": 2}
+        assert _cuda.launches["flash_attn_bwd"] == 6
+        _cuda.reset_launch_counts()
+        assert set(_cuda.bwd_loops.values()) == {0}
+    finally:
+        _cuda.launches.update(saved[0])
+        _cuda.fwd_layouts.update(saved[1])
+        _cuda.bwd_loops.update(saved[2])
 
 
 def test_kernel_sources_build_key():
@@ -517,13 +565,16 @@ def test_flash_lse_matches_jax_kernel():
 
 def test_backward_form_is_a_shape_rule():
     """The single pass while the whole KV is one block of at most 2048
-    keys (the DiT's self- and cross-attention), the two-pass pair above,
-    at every head dim up to 128 (JAX's rule)."""
+    keys (the DiT's self- and cross-attention) at every head dim; above
+    2048 keys the single pass at 64 and 72 (its overlapped loop, measured
+    faster than the pair there), the two-pass pair at 80-128 (JAX's
+    rule)."""
     for d in (64, 72, 80, 128):
         assert (bwd_form(2048, d) == bwd_form(1370, d) == bwd_form(1, d)
                 == "fused")
+        want = "fused" if d <= 72 else "two_pass"
         assert (bwd_form(FUSED_BWD_MAX_KEYS + 1, d) == bwd_form(4096, d)
-                == "two_pass")
+                == want), d
 
 
 def test_backward_without_delta_fault():

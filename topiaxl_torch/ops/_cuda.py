@@ -15,16 +15,19 @@ import. A failed build raises.
 
 Every wrapper adds one to ``launches[<kernel>]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went
-through the kernels (``reset_launch_counts`` zeroes them). The flash
-forward's launches are also counted by their tile layout in
-``fwd_layouts`` (``ops/flash_attention.py:fwd_tile_layout``: a flagship
-chain's 1,400 launches at head dim 72 under ``"split"``). A count is
+through the kernels (``reset_launch_counts`` zeroes them). Two kernels
+also count their launches by a tag: the flash forward by its tile layout
+in ``fwd_layouts`` (``ops/flash_attention.py:fwd_tile_layout``: a
+flagship chain's 1,400 launches at head dim 72 under ``"split"``), the
+single-pass flash backward by its loop in ``bwd_loops``
+(``ops/flash_attention.py:bwd_loop``: a flagship training step's 56
+launches at head dim 72 under ``"overlapped"``). A count is
 one call of a kernel's C entry point: one ``flash_attn_bwd`` at head dim
 256 starts two kernels, a delta pass and then the single pass
 (``csrc/flash_attn_bwd_sm90.cu``), and counts once. A CUDA graph
 replays its kernels without running the wrappers, so what captures a
 graph tallies the launches its own thread makes during the capture
-(``tally``, where a layout counts as ``"<kernel>.<layout>"``), takes them
+(``tally``, where a tag counts as ``"<kernel>.<tag>"``), takes them
 back and adds them at each replay (``add_launches``;
 ``pipelines/chain_graph.py``).
 
@@ -58,8 +61,11 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
             "ln_modulate_residual": 0, "mma_rate_loop": 0,
             "dot_form_chain": 0, "dot_form_accum": 0, "qk_rmsnorm": 0,
             "qk_rmsnorm_bwd": 0}
-# flash forward launches by tile layout, beside ``launches``
+# flash forward launches by tile layout, single-pass flash backward
+# launches by loop, beside ``launches``
 fwd_layouts = {"split": 0, "swizzled": 0}
+bwd_loops = {"overlapped": 0, "serial": 0}
+_TAGS = {"flash_attn_fwd": fwd_layouts, "flash_attn_bwd": bwd_loops}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -100,22 +106,23 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for table in (launches, fwd_layouts):
+    for table in (launches, fwd_layouts, bwd_loops):
         for name in table:
             table[name] = 0
 
 
-def count_launch(name: str, layout: str | None = None) -> None:
+def count_launch(name: str, tag: str | None = None) -> None:
     """One launch of kernel ``name``; the flash forward also names its tile
-    ``layout``, counted in ``fwd_layouts``."""
+    layout, the single-pass flash backward its loop, as ``tag``, counted in
+    ``fwd_layouts`` or ``bwd_loops``."""
     launches[name] += 1
-    if layout is not None:
-        fwd_layouts[layout] += 1
+    if tag is not None:
+        _TAGS[name][tag] += 1
     counts = getattr(_tallies, "counts", None)
     if counts is not None:
         counts[name] += 1
-        if layout is not None:
-            counts[f"{name}.{layout}"] += 1
+        if tag is not None:
+            counts[f"{name}.{tag}"] += 1
 
 
 @contextlib.contextmanager
@@ -130,12 +137,12 @@ def tally():
 
 
 def add_launches(counts: dict) -> None:
-    """Add ``counts`` (name, or ``"<kernel>.<layout>"``, -> launches,
+    """Add ``counts`` (name, or ``"<kernel>.<tag>"``, -> launches,
     negative to take back)."""
     for key, n in counts.items():
-        _, _, layout = key.partition(".")
-        if layout:
-            fwd_layouts[layout] += n
+        name, _, tag = key.partition(".")
+        if tag:
+            _TAGS[name][tag] += n
         else:
             launches[key] += n
 

@@ -35,13 +35,12 @@ gradient: the backward without delta (moves dq, dk) and the pair with
 padded keys left unmasked (``flash_attention_bwd_unmasked``, moves dv
 too).
 
-Which backward runs is a shape rule (``bwd_form``): up to head dim 128
-JAX's (``_select_fused_chunk``), the single-pass kernel when the whole
-KV is one block of at most ``FUSED_BWD_MAX_KEYS`` keys (the DiT's self-
-and cross-attention), the two-pass dq + dk/dv pair otherwise; at head
-dims 129-256 (the 256 instance) the single pass at every key length,
-the form ``chip_smoke.py``'s ``flash_head_dims`` phase measured faster
-on the card there.
+Which backward runs is a shape rule (``bwd_form``): the single pass at
+every key length on the instances where ``chip_smoke.py`` measured it
+faster than the pair, 64 and 72 (its overlapped loop, ``bwd_loop``) and
+256 (head dims 129-256); at 80-128 JAX's (``_select_fused_chunk``), the
+single-pass kernel when the whole KV is one block of at most
+``FUSED_BWD_MAX_KEYS`` keys, the two-pass dq + dk/dv pair otherwise.
 
 Head dims: each kernel has an instance for every D in ``HEAD_DIMS``. The
 launchers take any D from 1 to 256: they zero-pad q, k, v (and o, dO)
@@ -111,17 +110,40 @@ def _pad_d(t: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
 
 
+# the instances whose single pass runs the overlapped loop
+# (csrc/flash_attn_bwd_sm90.cu: flash_bwd_overlap_kernel)
+OVERLAPPED_HEAD_DIMS = (64, 72)
+
+
+def bwd_loop(d: int) -> str:
+    """The single-pass backward's loop at head dim ``d`` (its instance's),
+    the rule of ``csrc/flash_attn_bwd_sm90.cu:overlapped`` mirrored:
+    ``"overlapped"`` at 64 and 72 (the warpgroups' turns overlap one's
+    products with the other's exponentials and dQ reduce-adds),
+    ``"serial"`` at 80, 96, 128 and 256. ``_cuda.bwd_loops`` counts the
+    launches by it."""
+    return "overlapped" if _instance(d) in OVERLAPPED_HEAD_DIMS else "serial"
+
+
 def bwd_form(sk: int, d: int) -> str:
     """``"fused"`` (one pass, dq reduced into f32) or ``"two_pass"`` (dq pass +
-    dk/dv pass) for a key length ``sk`` and head dim ``d``: JAX's rule
-    (the single pass up to ``FUSED_BWD_MAX_KEYS`` keys) up to head dim
-    128; the single pass at every key length on the 256 instance (head
-    dims 129-256), by measurement: on an H100 80GB HBM3 at 700 W,
-    chip_smoke.py's flash_head_dims phase read the single pass at 1.3379 /
-    0.9978 / 5.0480 ms and the pair at 1.5439 / 1.0948 / 5.6649 ms at
-    2 x {2048, 2048, 4096} x {2048, 1370, 4096} x 16 x 256, and the same
-    order at head dims 160 and 200."""
-    if kernel_head_dim(d) == HEAD_DIMS[-1]:
+    dk/dv pass) for a key length ``sk`` and head dim ``d``. The single pass
+    at every key length on the instances where the card measured it faster
+    than the pair (H100 80GB HBM3 at 700 W):
+
+    - 64 and 72, the overlapped loop: chip_smoke.py's ss_flow phase read
+      the single pass at 3.0938 / 1.0865 ms and the pair at 5.9692 /
+      2.1563 ms at 8 x 4096 x {4096, 1374} x 16 x 64, its flash_head_dims
+      phase 0.9253 / 0.6431 / 0.8827 ms against 1.7462 / 1.2331 / 1.6785
+      ms at 8 x 2048 x {2048, 1370} x 16 x 72 and 2 x 4096 x 4096 x 16 x 72;
+    - 256 (head dims 129-256): the flash_head_dims phase read the single
+      pass at 1.3379 / 0.9978 / 5.0480 ms and the pair at 1.5439 / 1.0948 /
+      5.6649 ms at 2 x {2048, 2048, 4096} x {2048, 1370, 4096} x 16 x 256,
+      and the same order at head dims 160 and 200.
+
+    At 80-128 JAX's rule: the single pass up to ``FUSED_BWD_MAX_KEYS``
+    keys, the pair above."""
+    if kernel_head_dim(d) in (*OVERLAPPED_HEAD_DIMS, HEAD_DIMS[-1]):
         return "fused"
     return "two_pass" if sk > FUSED_BWD_MAX_KEYS else "fused"
 
@@ -322,7 +344,7 @@ def _forward(q, k, v, scale, return_lse):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(scale), _cuda.stream_of(q))
     _cuda.check(rc, "flash_attn_fwd")
-    _cuda.count_launch("flash_attn_fwd", layout=fwd_tile_layout(D))
+    _cuda.count_launch("flash_attn_fwd", tag=fwd_tile_layout(D))
     return o, lse
 
 
@@ -337,7 +359,8 @@ def _bwd_launch(name, q, k, v, o, lse, do, delta, dq, dk, dv, scale):
             *v.stride()[:3], *o.stride()[:3], *do.stride()[:3],
             float(scale), _cuda.stream_of(q))
     _cuda.check(rc, name)
-    _cuda.count_launch(name)
+    _cuda.count_launch(name, tag=bwd_loop(D) if name == "flash_attn_bwd"
+                       else None)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, scale: float):

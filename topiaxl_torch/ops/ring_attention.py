@@ -23,9 +23,9 @@ each travelling with f32 dK / dV accumulators that end with their owner
 after one more hop. Every block runs ``flash_attention_backward`` against
 the merged output and lse, never a block's own (the kernels derive
 delta = rowsum(dO * O) from the o they are given): on the card the
-single-pass kernel (#4) for blocks of at most 2048 keys and the dq +
-dk/dv pair (#5, #6) above, as the JAX rule says. The blocks' dQ are
-summed in f32.
+form ``bwd_form`` takes, the single-pass kernel (#4) at head dims up to
+72 and 129-256 and for blocks of at most 2048 keys, the dq + dk/dv pair
+(#5, #6) above that at 80-128. The blocks' dQ are summed in f32.
 
 ``LocalRing`` runs the same code with P ranks held in one process (the
 rotation is a list rotation): the card's check of the ring against one
