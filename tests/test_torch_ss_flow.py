@@ -259,7 +259,8 @@ def test_the_objective_draws_and_drops():
     conditioning; the step's own draws come from its generator when the
     batch gives none."""
     f = RectifiedFlow()
-    t = f.sample_t(200_000, torch.Generator().manual_seed(0))
+    t, w = f.sample_times(200_000, torch.Generator().manual_seed(0))
+    assert torch.equal(w, torch.ones_like(t))
     assert 0 < float(t.min()) and float(t.max()) < 1
     z = torch.logit(t.double())
     assert abs(float(z.mean()) - 1.0) < 0.01 and abs(float(z.std()) - 1.0) < 0.01

@@ -548,7 +548,7 @@ def test_token_shards_and_prefetch(tmp_path):
     assert rows[0].shape[0] == rows[1].shape[0] == 5
     out = list(prefetch_to_device(ds.epoch(1), "cpu"))
     assert len(out) == 3 and isinstance(out[0]["x"], torch.Tensor)
-    syn = next(synthetic_batches(2, seq=8, ch=4, cond_seq=3, cond_ch=6))
+    syn = next(synthetic_batches(2, shape=(8, 4), cond_seq=3, cond_ch=6))
     assert syn["x"].shape == (2, 8, 4) and syn["y"].shape == (2, 3, 6)
 
 

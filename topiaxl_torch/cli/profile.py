@@ -22,10 +22,10 @@ and measures, on synthetic inputs (``pipelines/synthetic.py``):
   ``mc_resolution`` and ``decimate`` (texture 1024, ``pos_scale`` 1.0),
   with the box and the LSCM unwrap in turn, twice each, so that the
   second pair shows the warm times;
-- ``train_step``: one training step of ``topiaxl_torch.cli.train`` (the
-  config's ``model.generator`` with f32 master weights, its remat mode
-  included, e.g. ``model.generator.remat=flash``; a synthetic batch of
-  ``train.batch_size``: forward, backward, fused AdamW + EMA).
+- ``train_step``: one training step of ``topiaxl_torch.cli.train`` (its
+  ``train_recipe``, and the config's ``model.generator`` with f32 master
+  weights, its remat mode included, e.g. ``model.generator.remat=flash``; a
+  synthetic batch of ``train.batch_size``: forward, backward, AdamW + EMA).
 
 For each device region: wall ms per call (perf_counter around
 synchronised calls, no profiler attached), device ms per call (the sum
@@ -128,25 +128,18 @@ def profile_region(name: str, fn, repeats: int, top: int = 8) -> dict:
 
 
 def profile_train_step(cfg, device) -> dict:
-    """One step of the trainer on one synthetic batch, repeated."""
-    from ..diffusion.schedule import create_diffusion
+    """``cli.train``'s step for this config on a synthetic batch, repeated."""
     from ..pipelines.data import synthetic_batches
-    from ..pipelines.train import (
-        create_train_state, make_optimizer, make_train_step)
-    from .train import build_dit
+    from ..pipelines.train import create_train_state, make_train_step
+    from .train import build_dit, train_recipe
 
-    g = cfg.model.generator
-    dit = build_dit(g, device, torch.Generator(device=device).manual_seed(0))
-    diffusion = create_diffusion(
-        timestep_respacing=None, noise_schedule=cfg.diffusion.noise_schedule,
-        diffusion_steps=cfg.diffusion.diffusion_steps,
-        parameterization=cfg.diffusion.parameterization, device=device)
-    state = create_train_state(dit)
-    step = make_train_step(dit, diffusion, make_optimizer(
-        lr=float(cfg.optimizer.lr), warmup_iters=int(cfg.scheduler.warmup_iters),
-        max_iters=int(cfg.scheduler.max_iters)))
+    dit = build_dit(cfg.model.generator, device,
+                    torch.Generator(device=device).manual_seed(0))
+    objective, optimizer, step_args, lsm = train_recipe(cfg, device)
+    state = create_train_state(dit, lsm)
+    step = make_train_step(dit, objective, optimizer, **step_args)
     batch = next(synthetic_batches(
-        int(cfg.train.batch_size), dit.seq_length, dit.in_channels,
+        int(cfg.train.batch_size), dit.input_shape,
         cond_seq=int(cfg.train.get("cond_seq", 1370)),
         cond_ch=dit.condition_channels))
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}

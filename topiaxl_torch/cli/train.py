@@ -27,11 +27,11 @@ the run is one process on one device, every rank on a mesh of one.
 
 The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
 or ``topiaxl.DiTAdditivePosEmb``), or TRELLIS's sparse-structure flow
-transformer (``SparseStructureFlowModel``, ``configs/trellis_ss_flow.yml``)
-trained under ``diffusion.name: rectified_flow`` (``diffusion/flow.py``:
-logit-normal times, velocity MSE) and ``scheduler.class_name: constant``
-(AdamW at ``optimizer.lr`` throughout); its x is a [8, 16, 16, 16] latent
-grid a sample, and the dropped rows' conditioning is zeros.
+transformer (``SparseStructureFlowModel``, ``configs/trellis_ss_flow.yml``:
+a [8, 16, 16, 16] latent grid a sample). ``train_recipe``, which
+``cli.profile`` calls too, reads the objective (``diffusion.name:
+rectified_flow``, ``diffusion/flow.py``, or else the Gaussian diffusion) and
+the schedule (``scheduler.class_name: constant``, or else cosine warm-up).
 ``model.generator.remat=true``, or the reference's
 ``gradient_checkpointing: true``, recomputes each block in the backward
 instead of keeping its activations (less memory, a slower step); a remat
@@ -80,6 +80,42 @@ def build_dit(g, device, generator: torch.Generator):
                  param_dtype=torch.float32)
 
 
+def train_recipe(cfg, device) -> tuple:
+    """(the objective, the optimizer spec, ``make_train_step``'s
+    ``timestep_sampler``, ``grad_accum`` and ``ema_decay``,
+    ``create_train_state``'s ``lsm_timesteps``) of a config's
+    ``diffusion``, ``optimizer``, ``scheduler``, ``train`` and
+    ``model.generator.learn_sigma``: the one reader of ``diffusion.name``
+    and ``scheduler.class_name``."""
+    from ..diffusion import flow
+    from ..diffusion.schedule import create_diffusion
+    from ..pipelines.train import make_optimizer
+
+    d, sched, t = cfg.diffusion, cfg.scheduler, cfg.train
+    sampler = t.get("timestep_sampler", "uniform")
+    if d.get("name") == "rectified_flow":
+        objective = flow.from_config(d)
+    else:
+        objective = create_diffusion(
+            timestep_respacing=None, noise_schedule=d.noise_schedule,
+            diffusion_steps=d.diffusion_steps,
+            parameterization=d.parameterization,
+            learn_sigma=cfg.model.generator.get("learn_sigma", True),
+            device=device)
+    constant = sched.get("class_name") == "constant"
+    optimizer = make_optimizer(
+        lr=float(cfg.optimizer.lr),
+        weight_decay=float(cfg.optimizer.get("weight_decay", 0.0)),
+        warmup_iters=int(sched.get("warmup_iters", 0)),
+        max_iters=int(sched.max_iters),
+        schedule="constant" if constant else "cosine_warmup")
+    step_args = dict(timestep_sampler=sampler,
+                     grad_accum=int(t.get("grad_accum", 1)),
+                     ema_decay=float(t.get("ema_decay", 0.9999)))
+    return (objective, optimizer, step_args,
+            objective.num_timesteps if sampler == "lsm" else None)
+
+
 def main(argv=None, metrics_out: list | None = None) -> int:
     """Run the CLI; ``metrics_out`` (a list) receives each step's metrics
     as floats, with the step and its wall seconds."""
@@ -109,14 +145,12 @@ def _train(cfg, mesh, device, metrics_out) -> int:
 
     from ..core.checkpoint import CheckpointManager
     from ..core.profiling import MetricLogger, StepMeter
-    from ..diffusion import flow
-    from ..diffusion.schedule import create_diffusion
     from ..models.dit import DiT
     from ..pipelines import data as D
     from ..parallel.sharding import dit_param_rules, shard_params
     from ..pipelines.train import (
-        DATA_AXES, create_train_state, make_optimizer, make_train_step,
-        mesh_groups, shard_model)
+        DATA_AXES, create_train_state, make_train_step, mesh_groups,
+        shard_model)
 
     fsdp = mesh.shape.get("fsdp", 1) > 1
     tp = mesh.shape.get("tp", 1) > 1
@@ -149,26 +183,8 @@ def _train(cfg, mesh, device, metrics_out) -> int:
         shard_params(dit, mesh, dit_param_rules())
     if fsdp:
         shard_model(dit, mesh, device.type)
-    if cfg.diffusion.get("name") == "rectified_flow":
-        diffusion = flow.from_config(cfg.diffusion)
-    else:
-        diffusion = create_diffusion(
-            timestep_respacing=None,
-            noise_schedule=cfg.diffusion.noise_schedule,
-            diffusion_steps=cfg.diffusion.diffusion_steps,
-            parameterization=cfg.diffusion.parameterization,
-            learn_sigma=cfg.model.generator.get("learn_sigma", True),
-            device=device)
-    constant = cfg.scheduler.get("class_name") == "constant"
-    optimizer = make_optimizer(
-        lr=float(cfg.optimizer.lr),
-        weight_decay=float(cfg.optimizer.get("weight_decay", 0.0)),
-        warmup_iters=int(cfg.scheduler.get("warmup_iters", 0)),
-        max_iters=int(cfg.scheduler.max_iters),
-        schedule="constant" if constant else "cosine_warmup")
-    sampler = cfg.train.get("timestep_sampler", "uniform")
-    state = create_train_state(
-        dit, lsm_timesteps=diffusion.num_timesteps if sampler == "lsm" else None)
+    objective, optimizer, step_args, lsm = train_recipe(cfg, device)
+    state = create_train_state(dit, lsm)
 
     ckpt = CheckpointManager(os.path.join(out_dir, "ckpts"),
                              max_to_keep=int(cfg.train.get("keep_ckpts", 3)))
@@ -184,10 +200,9 @@ def _train(cfg, mesh, device, metrics_out) -> int:
     if cfg.train.get("synthetic") or not cfg.train.get("data_glob"):
         logger.warning("using synthetic data stream")
         stream = D.synthetic_batches(
-            global_bs, dit.seq_length, dit.in_channels,
-            cond_seq=int(cfg.train.get("cond_seq", 1370)),
+            global_bs, cond_seq=int(cfg.train.get("cond_seq", 1370)),
             cond_ch=dit.condition_channels, seed=seed + state.step,
-            shape=getattr(dit, "input_shape", None))
+            shape=dit.input_shape)
     else:
         ds = D.TokenShardDataset(cfg.train.data_glob, global_bs,
                                  shuffle_seed=seed)
@@ -199,12 +214,8 @@ def _train(cfg, mesh, device, metrics_out) -> int:
     batches = D.prefetch_to_device(
         ({k: v[rows] for k, v in b.items()} for b in stream), device)
 
-    step_fn = make_train_step(
-        dit, diffusion, optimizer,
-        ema_decay=float(cfg.train.get("ema_decay", 0.9999)),
-        timestep_sampler=sampler,
-        grad_accum=int(cfg.train.get("grad_accum", 1)),
-        mesh=mesh if mesh.size > 1 else None)
+    step_fn = make_train_step(dit, objective, optimizer, **step_args,
+                              mesh=mesh if mesh.size > 1 else None)
     meter = StepMeter()
     log_every = int(cfg.train.log_every_n_steps)
     mlog = (MetricLogger(os.path.join(out_dir, "metrics.jsonl"),

@@ -10,8 +10,8 @@ With data x0, noise eps and a time t in (0, 1):
 the model is called on (x_t, 1000 t) and trained on the mean squared
 error of its prediction against v. Times are drawn logit-normal:
 ``t = sigmoid(N(mean, std))`` (``t_schedule: {name: logit_normal, mean,
-std}``). ``pipelines/train.py`` takes this objective where a config's
-``diffusion.name`` is ``rectified_flow`` (``from_config``).
+std}``). ``cli/train.py:train_recipe`` takes this objective where a
+config's ``diffusion.name`` is ``rectified_flow`` (``from_config``).
 """
 
 from __future__ import annotations
@@ -26,12 +26,15 @@ class RectifiedFlow:
     sigma_min: float = 1e-5
     t_mean: float = 1.0
     t_std: float = 1.0
+    # continuous times: no timestep for the LSM sampler to weigh
+    num_timesteps = None
 
-    def sample_t(self, n: int, generator: torch.Generator,
-                 device=None) -> torch.Tensor:
-        """[n] f32 logit-normal times in (0, 1) from ``generator``."""
+    def sample_times(self, n: int, generator: torch.Generator, device=None):
+        """[n] f32 logit-normal times in (0, 1) from ``generator``, and
+        unit weights."""
         z = torch.randn(n, generator=generator, device=device)
-        return torch.sigmoid(z * self.t_std + self.t_mean)
+        t = torch.sigmoid(z * self.t_std + self.t_mean)
+        return t, torch.ones_like(t)
 
     def noised(self, x0: torch.Tensor, t: torch.Tensor,
                noise: torch.Tensor) -> torch.Tensor:

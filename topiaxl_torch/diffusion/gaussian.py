@@ -317,15 +317,12 @@ def vb_terms_bpd(diffusion: Diffusion, model_fn: ModelFn, x_start, x_t, t,
 
 
 def training_losses(diffusion: Diffusion, model_fn: ModelFn, x_start, t,
-                    noise=None, generator: torch.Generator | None = None):
+                    noise):
     """Per-example training losses {loss_total, loss_mse[, loss_vb]}
-    (reference gaussian_diffusion.py:733-806). ``t`` indexes the chain
-    (unspaced for training, so it is the original timestep); the noise
-    is drawn from ``generator`` when not given."""
+    (reference gaussian_diffusion.py:733-806) on the given noise. ``t``
+    indexes the chain (unspaced for training, so it is the original
+    timestep)."""
     tables = diffusion.tables
-    if noise is None:
-        noise = torch.randn(x_start.shape, generator=generator,
-                            device=x_start.device, dtype=x_start.dtype)
     x_t = q_sample(tables, x_start, t, noise)
     terms = {}
     if diffusion.loss_type in ("kl", "rescaled_kl"):

@@ -15,6 +15,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .timestep_sampler import uniform_sample
+
 
 def get_named_beta_schedule(schedule_name: str, num_diffusion_timesteps: int) -> np.ndarray:
     """Named beta schedules (reference gaussian_diffusion.py:99-142)."""
@@ -169,6 +171,15 @@ class Diffusion:
     @property
     def num_timesteps(self) -> int:
         return self.tables.num_timesteps
+
+    def sample_times(self, n: int, generator: torch.Generator, device=None):
+        """[n] uniform timesteps (long) and unit weights (f32)."""
+        return uniform_sample(self.num_timesteps, n, generator, device)
+
+    def training_losses(self, model_fn, x, t, noise) -> dict:
+        """``gaussian.training_losses``' per-row terms."""
+        from . import gaussian
+        return gaussian.training_losses(self, model_fn, x, t, noise)
 
 
 def create_diffusion(timestep_respacing=None, noise_schedule: str = "linear",

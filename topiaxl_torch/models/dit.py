@@ -22,8 +22,8 @@ against K/V stacked as [cond; null].
 
 Training path: ``forward(x, t, y, drop)`` (``topiaxl/models/dit.py:
 424-453``) replaces the dropped samples' conditioning by the null
-embedding, then runs each block on its own cross-attention K/V with
-gradients; ``cond_drop_mask`` draws the mask from an explicit generator.
+embedding (``drop_cond``), then runs each block on its own cross-attention
+K/V with gradients; ``cond_drop_mask`` draws the mask from a generator.
 Train with ``param_dtype=torch.float32`` (f32 master weights, bf16
 compute). ``remat=True`` (the JAX package's ``remat=True``, the
 reference's ``gradient_checkpointing``) runs each block, its
@@ -63,6 +63,7 @@ from torch.utils.checkpoint import (
 
 from ..ops.fused_ln import ln_modulate, ln_modulate_residual
 from ..ops.int8 import quantize_state_dict_like
+from ..parallel.collectives import full
 from .layers import (
     CrossAttention,
     Mlp,
@@ -235,6 +236,7 @@ class DiT(nn.Module):
         self.remat = remat
         self.seq_length = seq_length
         self.in_channels = in_channels
+        self.input_shape = (seq_length, in_channels)   # one sample's x
         self.condition_channels = condition_channels
         self.hidden_size = hidden_size
         self.depth = depth
@@ -317,13 +319,20 @@ class DiT(nn.Module):
         u = torch.rand(batch, generator=generator, device=device)
         return u < self.cond_drop_prob
 
+    def drop_cond(self, y, drop: torch.Tensor | None):
+        """y [B, M, C_cond], the rows where ``drop`` ([B] bool or None) is
+        True the null embedding (reference dit_crossattn.py:193-196), read
+        whole where FSDP2 shards it."""
+        if drop is None:
+            return y
+        null = full(self.null_cond_embedding).to(y.dtype)[None, None, :]
+        return torch.where(drop.to(y.device)[:, None, None], null, y)
+
     def forward(self, x, t, y, drop: torch.Tensor | None = None):
         """Training forward: x [B, N, C_in], t [B], y [B, M, C_cond] ->
-        [B, N, C_out] f32. Samples where ``drop`` is True see the null
-        embedding as their conditioning (reference dit_crossattn.py:193-196)."""
-        if drop is not None:
-            null = self.null_cond_embedding.to(y.dtype)[None, None, :]
-            y = torch.where(drop.to(y.device)[:, None, None], null, y)
+        [B, N, C_out] f32; the rows where ``drop`` is True see
+        ``drop_cond``'s null conditioning."""
+        y = self.drop_cond(y, drop)
         remat = self.remat and self.training and torch.is_grad_enabled()
         h = self.embed_tokens(x)
         t_emb = self.t_embedder(t)

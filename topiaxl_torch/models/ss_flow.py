@@ -30,8 +30,8 @@ shift ``norm2.bias`` and scale ``norm2.weight - 1``; and after the
 cross-attention with gate 1 and the MLP's modulation.
 
 Conditioning: ``forward(x, t, y, drop)`` takes y [B, M, cond_channels];
-rows where ``drop`` is True see zeros (TRELLIS's image conditioning has no
-learned null embedding: its negative condition is ``zeros_like(cond)``).
+rows where ``drop`` is True see zeros (``drop_cond``; TRELLIS's image
+conditioning has no null embedding: its negative is ``zeros_like(cond)``).
 
 Parameters follow the port's layer names (``self_attn.qkv`` / ``.proj``,
 ``cross_attn.to_q`` / ``.to_k`` / ``.to_v`` / ``.proj``, ``mlp.fc1`` /
@@ -142,6 +142,7 @@ class SparseStructureFlowModel(nn.Module):
         self.condition_channels = cond_channels
         self.hidden_size = model_channels
         self.seq_length = resolution ** 3
+        self.input_shape = (in_channels,) + (resolution,) * 3  # one sample's x
         self.cond_drop_prob = cond_drop_prob
         self.dtype = dtype
         self.input_layer = linear(in_channels, model_channels)
@@ -156,11 +157,6 @@ class SparseStructureFlowModel(nn.Module):
         materialize_(self, device, generator,
                      SparseStructureFlowModel.init_weights)
         self._register_load_state_dict_pre_hook(self._from_trellis_hook)
-
-    @property
-    def input_shape(self) -> tuple:
-        """One sample's x: [in_channels, R, R, R]."""
-        return (self.in_channels,) + (self.resolution,) * 3
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -183,14 +179,19 @@ class SparseStructureFlowModel(nn.Module):
     # the DiT's draw of the rows whose conditioning drops
     cond_drop_mask = DiT.cond_drop_mask
 
+    def drop_cond(self, y, drop: torch.Tensor | None):
+        """y [B, M, cond_channels], zero where ``drop`` ([B] bool or None)."""
+        if drop is None:
+            return y
+        return torch.where(drop.to(y.device)[:, None, None],
+                           torch.zeros((), dtype=y.dtype, device=y.device), y)
+
     def forward(self, x, t, y, drop: torch.Tensor | None = None):
         """x [B, in_channels, R, R, R], t [B] (flow time x 1000), y [B, M,
-        cond_channels] -> [B, out_channels, R, R, R] f32. Rows where
-        ``drop`` is True see zero conditioning."""
+        cond_channels] -> [B, out_channels, R, R, R] f32; the rows where
+        ``drop`` is True see ``drop_cond``'s zeros."""
         B = x.shape[0]
-        if drop is not None:
-            y = torch.where(drop.to(y.device)[:, None, None],
-                            torch.zeros((), dtype=y.dtype, device=y.device), y)
+        y = self.drop_cond(y, drop)
         h = x.float().reshape(B, self.in_channels, -1).transpose(1, 2)
         h = self.input_layer(h) + self.pos_emb[None]
         t_emb = self.t_embedder(t)

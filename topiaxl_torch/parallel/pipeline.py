@@ -287,9 +287,7 @@ def make_pp_forward(model, mesh, n_micro: int):
         B = x.shape[0]
         if B % n_micro:
             raise ValueError(f"batch {B} not divisible by n_micro={n_micro}")
-        if drop is not None:
-            null = model.null_cond_embedding.to(y.dtype)[None, None, :]
-            y = torch.where(drop.to(y.device)[:, None, None], null, y)
+        y = model.drop_cond(y, drop)
         h = model.embed_tokens(x)
         t_emb = model.embed_t(t)
         sched = _Schedule(model, n_micro)

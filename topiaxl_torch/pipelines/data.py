@@ -66,15 +66,13 @@ class TokenShardDataset:
                 z.close()
 
 
-def synthetic_batches(batch_size: int, seq: int = 2048, ch: int = 68,
+def synthetic_batches(batch_size: int, shape: tuple = (2048, 68),
                       cond_seq: int = 1370, cond_ch: int = 768,
-                      seed: int = 0, shape: tuple | None = None
-                      ) -> Iterator[dict]:
-    """x [B, seq, ch] (or [B, *shape]: one sample's shape, such as a
-    TRELLIS latent grid's) and y [B, cond_seq, cond_ch], standard
-    normal."""
+                      seed: int = 0) -> Iterator[dict]:
+    """x [B, *shape] (one sample's shape, a model's ``input_shape``) and y
+    [B, cond_seq, cond_ch], standard normal."""
     rng = np.random.default_rng(seed)
-    x_shape = (batch_size, *(shape or (seq, ch)))
+    x_shape = (batch_size, *shape)
     while True:
         yield {
             "x": rng.standard_normal(x_shape).astype("f"),

@@ -4,15 +4,15 @@
 The reference recipe (configs/inference_dit.yml:77-95): AdamW lr 1e-4 wd
 0 with clip-by-global-norm 1, cosine schedule with 3k warmup,
 v-prediction MSE + VB (learned-range sigma), cond-drop 0.1, EMA. One
-train step draws timesteps, the cond-drop mask and the noise over the
+train step draws the times, the cond-drop mask and the noise over the
 full batch, runs ``grad_accum`` microbatches forward and backward
 (gradients accumulate in ``.grad``), then applies ``fused_adamw_ema_update``.
-
-The objective is the DiT's Gaussian diffusion (``diffusion/gaussian.py``:
-its hybrid loss, uniform or LSM timesteps) or a rectified flow
-(``diffusion/flow.py``: TRELLIS's velocity MSE on logit-normal times,
-for ``models/ss_flow.py``), whichever object the step is given; the two
-share everything else below.
+It knows neither its model nor its objective: the objective draws the
+times and weights (``sample_times``) and gives the per-row loss terms
+(``training_losses``: the Gaussian diffusion's hybrid loss, or TRELLIS's
+velocity MSE, ``diffusion/flow.py``); the model draws the mask
+(``cond_drop_mask``) and says what a dropped row's conditioning is
+(``drop_cond``).
 
 The model holds f32 master weights (``DiT(param_dtype=torch.float32)``);
 Adam moments and EMA are f32 tensors keyed by parameter name. The update
@@ -37,10 +37,10 @@ over the ``fsdp`` group); Adam moments and EMA
 shard with their parameters; the loss metrics are averaged over the
 ranks; the LSM history gathers every rank's (t, loss). The cond-drop follows
 the JAX package: the single pass (``grad_accum == 1``) drops inside the
-model's forward, so the null embedding gets the dropped rows' gradient;
-with ``grad_accum > 1`` the dropped rows take the null embedding before
+model's forward, so a null embedding gets the dropped rows' gradient;
+with ``grad_accum > 1`` the dropped rows take the null conditioning before
 the microbatch loop and outside the gradient (``train.py:210-214``), so
-the null embedding gets none from them.
+it gets none from them.
 
 Tensor parallelism (a model that ``parallel/sharding.py:shard_params``
 split over ``tp``): every ``tp`` rank of a data slice holds the same rows
@@ -69,13 +69,10 @@ import torch
 from torch import nn
 
 from ..core.profiling import span
-from ..diffusion import Diffusion, gaussian
-from ..diffusion.flow import RectifiedFlow
 from ..diffusion.timestep_sampler import (
     LossSecondMomentState,
     lsm_sample,
     lsm_update,
-    uniform_sample,
 )
 from ..parallel.collectives import all_mean, full, local
 
@@ -305,27 +302,16 @@ def _step_generators(seed: int, step: int, device):
     return dev, torch.Generator().manual_seed(s)
 
 
-def training_losses(diffusion: Diffusion | RectifiedFlow, model_fn, x, t,
-                    noise) -> dict:
-    """The objective's per-row loss terms (``loss_total`` first): the
-    rectified flow's velocity MSE, or the Gaussian diffusion's hybrid
-    loss."""
-    if isinstance(diffusion, RectifiedFlow):
-        return diffusion.training_losses(model_fn, x, t, noise)
-    return gaussian.training_losses(diffusion, model_fn, x, t, noise=noise)
-
-
-def accumulate_gradients(model, diffusion: Diffusion | RectifiedFlow, x, y, t,
-                         weights, noise, drop, grad_accum: int = 1,
-                         forward=None):
-    """Forward and backward of ``grad_accum`` equal microbatches, the
-    gradients summed into the parameters' ``.grad`` (undivided, as the JAX
-    package's ``accum_grads`` returns them). ``drop`` ([B] bool or None)
-    marks the rows whose conditioning is the null embedding: inside the
-    model's forward for the single pass, before the loop and outside the
-    gradient for ``grad_accum > 1`` (a model without a null embedding,
-    which zeroes the dropped rows' conditioning, drops inside its forward
-    either way). ``forward`` (default ``model``) runs
+def accumulate_gradients(model, diffusion, x, y, t, weights, noise, drop,
+                         grad_accum: int = 1, forward=None):
+    """Forward and backward of ``grad_accum`` equal microbatches of the
+    objective ``diffusion``'s loss, the gradients summed into the
+    parameters' ``.grad`` (undivided, as the JAX package's
+    ``accum_grads`` returns them). ``drop`` ([B] bool or None) marks the
+    rows whose conditioning is the model's null conditioning
+    (``model.drop_cond``): inside the model's forward for the single
+    pass, before the loop and outside the gradient for ``grad_accum > 1``.
+    ``forward`` (default ``model``) runs
     the model: a ``DistributedDataParallel`` wrapper syncs the gradients
     in the last microbatch's backward only. Returns (the mean of the
     microbatch losses, the per-row loss terms, detached)."""
@@ -333,11 +319,8 @@ def accumulate_gradients(model, diffusion: Diffusion | RectifiedFlow, x, y, t,
     B = x.shape[0]
     if B % grad_accum:
         raise ValueError(f"batch {B} not divisible by grad_accum={grad_accum}")
-    if grad_accum > 1 and drop is not None and hasattr(
-            model, "null_cond_embedding"):
-        null = full(model.null_cond_embedding.detach()).to(y.dtype)
-        y = torch.where(drop[:, None, None], null[None, None, :], y)
-        drop = None
+    if grad_accum > 1:
+        y, drop = model.drop_cond(y, drop).detach(), None
     mb = B // grad_accum
     terms_all: dict = {}
     loss_sum = torch.zeros((), device=x.device)
@@ -352,8 +335,8 @@ def accumulate_gradients(model, diffusion: Diffusion | RectifiedFlow, x, y, t,
         with (contextlib.nullcontext() if last or not hasattr(
                 forward, "no_sync") else forward.no_sync()):
             with span("train.forward"):
-                terms = training_losses(diffusion, model_fn, x[sl], t[sl],
-                                        noise[sl])
+                terms = diffusion.training_losses(model_fn, x[sl], t[sl],
+                                                  noise[sl])
                 loss = (terms["loss_total"] * weights[sl]).mean()
             with span("train.backward"):
                 loss.backward()
@@ -374,27 +357,26 @@ def mesh_groups(mesh) -> dict:
             "tp": mesh.group("tp"), "fsdp": mesh.group("fsdp")}
 
 
-def make_train_step(model, diffusion: Diffusion | RectifiedFlow,
-                    optimizer: dict,
+def make_train_step(model, diffusion, optimizer: dict,
                     ema_decay: float = 0.9999,
                     timestep_sampler: str = "uniform", grad_accum: int = 1,
                     mesh=None):
     """Returns ``train_step(state, batch, seed) -> metrics``, which
-    advances ``state`` in place. ``batch`` is {'x': [B, N, C] clean
-    tokens, 'y': [B, M, Cc] conditioning} on the model's device: this
+    advances ``state`` in place, on the objective ``diffusion`` (a Gaussian
+    diffusion or a rectified flow). ``batch`` is {'x': [B, ...] clean
+    samples, 'y': [B, M, Cc] conditioning} on the model's device: this
     rank's rows of the global batch when ``mesh`` is given (every rank
-    holding as many). It may carry the uniform sampler's draws for these
-    rows, 't' [B], 'drop' [B] bool and 'noise' [B, N, C] (another
-    framework's, for parity), which replace the step's own; under a
-    ``RectifiedFlow`` 't' is the flow time in (0, 1) and the step draws it
-    from the flow's schedule (``timestep_sampler`` is not read). Metrics are
+    holding as many). It may carry draws for these rows, 't' [B] in the
+    objective's time (a timestep, or a flow time in (0, 1)) with unit
+    weights, 'drop' [B] bool and 'noise' [B, ...] (another framework's,
+    for parity), which replace the step's own. Metrics are
     device scalars (loss, loss_mse, grad_norm[, loss_vb]), averaged over
     the ranks. Across ranks a model that ``shard_model`` did not shard is
     wrapped in ``DistributedDataParallel`` here, which is collective. A
     model that ``shard_params`` split over ``tp`` trains tensor-parallel;
     a mesh with an ``sp`` axis runs the model through ``make_cp_forward``
     (not with FSDP2)."""
-    if isinstance(diffusion, RectifiedFlow) and timestep_sampler == "lsm":
+    if timestep_sampler == "lsm" and not diffusion.num_timesteps:
         raise ValueError("timestep_sampler='lsm' weighs the Gaussian "
                          "diffusion's timesteps; a rectified flow draws "
                          "its own")
@@ -437,8 +419,7 @@ def make_train_step(model, diffusion: Diffusion | RectifiedFlow,
         grad_accum=grad_accum)
 
 
-def build_train_step(model, diffusion: Diffusion | RectifiedFlow,
-                     optimizer: dict, forward,
+def build_train_step(model, diffusion, optimizer: dict, forward,
                      split: tuple[int, int], data_group, norm: dict,
                      ema_decay: float = 0.9999,
                      timestep_sampler: str = "uniform", grad_accum: int = 1,
@@ -463,20 +444,17 @@ def build_train_step(model, diffusion: Diffusion | RectifiedFlow,
         x, y = batch["x"], batch["y"]
         B, device = x.shape[0], x.device
         rows = slice(index * B, (index + 1) * B)
+        lsm = timestep_sampler == "lsm" and state.sampler_state is not None
         with span("train.draws"):
             gen, cpu_gen = _step_generators(seed, state.step, device)
-            # every draw over the global batch, then this rank's rows
-            if isinstance(diffusion, RectifiedFlow):
-                t = diffusion.sample_t(B * parts, gen, device)[rows]
-                weights = torch.ones_like(t)
-            elif timestep_sampler == "lsm" and state.sampler_state is not None:
+            # every draw over the global batch, then this rank's rows:
+            # the times, the cond-drop mask, the noise
+            if lsm:
                 t, weights = lsm_sample(state.sampler_state, B * parts,
                                         cpu_gen)
-                t, weights = t[rows].to(device), weights[rows].to(device)
             else:
-                t, weights = uniform_sample(diffusion.num_timesteps,
-                                            B * parts, gen, device)
-                t, weights = t[rows], weights[rows]
+                t, weights = diffusion.sample_times(B * parts, gen, device)
+            t, weights = t[rows].to(device), weights[rows].to(device)
             drop = model.cond_drop_mask(B * parts, gen, device)
             drop = None if drop is None else drop[rows]
             noise = torch.randn((B * parts, *x.shape[1:]), generator=gen,
@@ -502,7 +480,7 @@ def build_train_step(model, diffusion: Diffusion | RectifiedFlow,
                 ema_decay=ema_decay, grad_prescale=1.0 / grad_accum,
                 **norm)
             model.zero_grad(set_to_none=True)
-        if timestep_sampler == "lsm" and state.sampler_state is not None:
+        if lsm:
             state.sampler_state = lsm_update(state.sampler_state, t.cpu(),
                                              terms["loss_total"], data_group)
         state.step += 1
