@@ -8,7 +8,8 @@ the script exits non-zero without a result line):
 
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles ``topiaxl_torch/csrc/*.cu`` from this checkout (no
-   kernel may spill) and the host stages' C++ library
+   kernel may spill, and ptxas may serialise no wgmma of the flash
+   forward) and the host stages' C++ library
    (``topiaxl_torch/native``, g++).
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, in bf16 on the card, with max error and times, beside
@@ -30,8 +31,9 @@ the script exits non-zero without a result line):
    the flagship config (``configs/inference_dit.yml``, random weights,
    no GLB export), with the exact kernel launch counts per image, and
    the flash forwards by tile layout: the chain's 1,400 split (head dim
-   72) and DINOv2's 12 swizzled (64), the same for the image whose chain
-   ran eager and was captured (the first) and the one that replayed it.
+   72) and DINOv2's 12 swizzled (64), and by loop: all 1,412 overlapped,
+   the same for the image whose chain ran eager and was captured (the
+   first) and the one that replayed it.
 7. serving_int8: the same with ``model.generator.quant=true`` (W8A8), in
    turns with bf16 (int8, bf16, int8 after phase 6's bf16): stage 1 of
    each run's warm image, and the same launch counts.
@@ -148,7 +150,13 @@ from PERF.md, not measured by the run), the backward form the shape rule
 takes (``bwd_form``; ``flash_attention_backward`` launches that form and
 no other, within the bar), and the redesigned forms' own planted faults:
 the forward above 80 with its second O column half left
-unrescaled, the 256 backward's dQ without its first 64-key block. Then
+unrescaled, the 256 backward's dQ without its first 64-key block; each
+forward's launch counted under its loop (``fwd_loop``: ``pingpong`` above
+72, ``overlapped`` at 36, padded to 64). Then the forward's overlapped
+loop at head dim 72 on the serving chain's 2 x 2048 x 2048 x 16 and 1 x
+2048 x 1370 x 16 (``fwd_overlap_row``: o and lse within the bars, the
+unmasked-padding fault above, one launch under ``overlapped``, ms beside
+the bound; ss_flow runs it at TRELLIS's shapes too); then
 the single pass (its overlapped loop) beside the pair at head dim 72 on
 the flagship trainer's 8 x 2048 x {2048, 1370} x 16 and at 2 x 4096 x 4096
 x 16 (``bwd_side_by_side``: both within the bar, the wrapper's one launch
@@ -254,6 +262,9 @@ EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
 # fwd_tile_layout): the chain's 1,400 at head dim 72 split (a swizzled
 # 64-column box and one 8-column chunk), DINOv2's 12 at 64 one swizzled box
 EXPECTED_FWD_LAYOUTS = {"split": 25 * 56, "swizzled": 12}
+# and by loop (flash_attention.fwd_loop): every one at head dims 72 and 64
+# in the overlapped loop
+EXPECTED_FWD_LOOPS = {"overlapped": 25 * 56 + 12, "pingpong": 0}
 
 
 def train_launches(remat=False, depth: int = 28) -> dict:
@@ -642,6 +653,12 @@ def phase_build():
               and "Performance Loss" not in line]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
+    # the forward's wgmmas run unserialised (flash_attn_fwd.cu's header)
+    serialised = [line for line in summary if "Performance Loss" in line
+                  and "flash_fwd_kernel" in line]
+    if serialised:
+        raise AssertionError(f"ptxas serialises the flash forward's wgmmas: "
+                             f"{serialised}")
     # the host stages' C++ library (g++): built here, from this checkout,
     # so that the stage 2 phase is known to run the C++ stages and not
     # their numpy fall-backs, and times stage 2 and not the build; a failed
@@ -848,11 +865,11 @@ def check_flash_backward(results: dict, randn) -> None:
 
 # the flagship rows of PERF.md's kernel table (ms on an H100 80GB HBM3 at
 # 700 W): the D 64 / 72 instances, the forward's on swizzled tiles (the
-# split layout at 72), the backward's single pass in its overlapped loop;
-# the kernels phase prints each reading beside them
-FLAGSHIP_MS = {("flash_attn_fwd", "dit_self"): 0.1225,
-               ("flash_attn_fwd", "dit_cross"): 0.0450,
-               ("flash_attn_fwd", "dinov2"): 0.0238,
+# split layout at 72) in its overlapped loop, the backward's single pass in
+# its own; the kernels phase prints each reading beside them
+FLAGSHIP_MS = {("flash_attn_fwd", "dit_self"): 0.0966,
+               ("flash_attn_fwd", "dit_cross"): 0.0386,
+               ("flash_attn_fwd", "dinov2"): 0.0201,
                ("flash_attn_bwd", "dit_self"): 0.9357,
                ("flash_attn_bwd", "dit_cross"): 0.6462}
 FLAGSHIP_TOL = 0.04
@@ -991,6 +1008,11 @@ def phase_kernels() -> dict:
 HEAD_DIM_CASES = (80, 96, 128, 36, 88, 256, 160, 200)
 HEAD_DIM_SHAPES = (("self", 2, 2048, 2048, 16), ("cross", 2, 2048, 1370, 16))
 HEAD_DIM_LONG = ("long", 2, 4096, 4096, 16)
+# the forward's overlapped loop at head dim 72 on the serving chain's
+# self-attention (CFG's batch 2) and cross-attention (batch 1: the null
+# branch takes no cross-attention)
+FWD_OVERLAP_72_SHAPES = (("dit_self", 2, 2048, 2048, 16),
+                         ("dit_cross", 1, 2048, 1370, 16))
 # the overlapped loop at head dim 72 beside the pair: the flagship
 # trainer's self- and cross-attention, and 4096 keys
 OVERLAP_72_SHAPES = (("dit_self", 8, 2048, 2048, 16),
@@ -1056,6 +1078,57 @@ def padded_bwd_launch(form: str, q, k, v, o, lse, do, scale: float):
 
     launch()
     return (dq[..., :D].to(q.dtype), dk[..., :D], dv[..., :D]), launch, parts
+
+
+def fwd_overlap_row(tag: str, q, k, v, scale: float, nb: int) -> dict:
+    """The forward at a head dim whose kernel runs the overlapped loop (64,
+    72): o and lse against the plain version on the first ``nb`` batch rows
+    (whose f32 logits fit) within ``ATTN_REL_BAR`` and ``LSE_ABS_BAR``, and
+    where Sk leaves padded keys the plain version with them unmasked (a
+    planted fault) above the bar; one wrapper launch counted under the
+    ``"overlapped"`` loop; ms (a CUDA graph of 20 calls, with the lse)
+    beside the bound. Returns the row."""
+    import torch
+
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.ops import flash_attention as fa
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    shape = f"{B}x{Sq}x{Sk}x{H}x{D}"
+    before = dict(_cuda.fwd_loops)
+    o, lse = fa._forward(q, k, v, scale, return_lse=True)
+    loops = {n: c - before[n] for n, c in _cuda.fwd_loops.items()}
+    part = [t[:nb] for t in (q, k, v)]
+    o_ref, lse_ref = fa.flash_attention_plain(*part, scale, return_lse=True)
+    torch.cuda.synchronize()
+    o_rel = rel_err(o[:nb], o_ref)
+    lse_err = (lse[:nb] - lse_ref).abs().max().item()
+    fault = (rel_err(fa.flash_attention_unmasked(*part, scale), o_ref)
+             if Sk % fa.KEY_TILE else None)
+    del o, lse, o_ref, lse_ref
+    ms = cuda_ms(lambda: fa._forward(q, k, v, scale, return_lse=True), 20)
+    bound_ms, bound_by = bound(4 * B * H * Sq * Sk * D,
+                               2 * (2 * B * Sq + 2 * B * Sk) * H * D)
+    fault_msg = ("no padded keys" if fault is None
+                 else f"unmasked-padding fault {fault:.3e}")
+    log(f"  overlapped forward at {tag} {shape}: o max rel err {o_rel:.3e} "
+        f"(bar {ATTN_REL_BAR}; {fault_msg}), lse {lse_err:.3e} (bar "
+        f"{LSE_ABS_BAR}) on the first {nb} rows; {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms, {bound_by}; share {bound_ms / ms:.1%}); loops "
+        f"{loops} ({card_line()})")
+    if not (o_rel <= ATTN_REL_BAR and lse_err <= LSE_ABS_BAR):
+        raise AssertionError(f"overlapped forward at {tag}: o {o_rel}, lse "
+                             f"{lse_err}")
+    if fault is not None and not fault > ATTN_REL_BAR:
+        raise AssertionError(f"overlapped forward at {tag}: the bar "
+                             f"{ATTN_REL_BAR} cannot see unmasked padding "
+                             f"({fault})")
+    if fa.fwd_loop(D) != "overlapped" or loops != {"overlapped": 1,
+                                                   "pingpong": 0}:
+        raise AssertionError(f"overlapped forward at {tag}: loops {loops}")
+    return dict(at=shape, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_rel_err=o_rel, lse_max_abs_err=lse_err)
 
 
 def bwd_side_by_side(tag: str, q, k, v, o, lse, do, scale: float,
@@ -1168,7 +1241,13 @@ def phase_flash_head_dims() -> dict:
                 q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
             do = randn(B, Sq, H, D)
             shape = f"{B}x{Sq}x{Sk}x{H}x{D}"
+            loops0 = dict(_cuda.fwd_loops)
             o, lse = fa._forward(q, k, v, scale, return_lse=True)
+            loops = {n: c - loops0[n] for n, c in _cuda.fwd_loops.items()}
+            want_loop = "overlapped" if inst <= 72 else "pingpong"
+            if fa.fwd_loop(D) != want_loop or loops[want_loop] != 1:
+                raise AssertionError(f"head dim {D} {tag}: forward loops "
+                                     f"{loops}, {want_loop} expected")
             o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale,
                                                       return_lse=True)
             ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
@@ -1278,8 +1357,8 @@ def phase_flash_head_dims() -> dict:
                 f"{ATTN_BWD_REL_BAR}{fault_msg}); the rule takes "
                 f"{rule_form} (through the wrapper: max rel err "
                 f"{rule_rel:.3e}); the old form's ms (PERF.md): "
-                f"{old_msg or 'not recorded'}"
-                f" ({card_id})")
+                f"{old_msg or 'not recorded'}; the forward's loop "
+                f"{want_loop} ({card_id})")
             if not (o_rel <= ATTN_REL_BAR and lse_err <= LSE_ABS_BAR):
                 raise AssertionError(f"head dim {D} {tag}: forward {o_rel}, "
                                      f"lse {lse_err}")
@@ -1314,6 +1393,20 @@ def phase_flash_head_dims() -> dict:
                     max_rel_err=max(forms["pair"][0])))
             del q, k, v, do, o, lse, o_ref, lse_ref, ref, qp, kp, vp
             torch.cuda.empty_cache()
+    # the forward's overlapped loop at head dim 72 on the serving chain's
+    # shapes (self-attention on a strided qkv view)
+    for tag, B, Sq, Sk, H in FWD_OVERLAP_72_SHAPES:
+        D = 72
+        if Sq == Sk:
+            q, k, v = randn(B, Sq, 3, H, D).unbind(2)
+        else:
+            q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
+        row = fwd_overlap_row(tag, q, k, v, 1.0 / D if Sq != Sk else
+                              D ** -0.5, nb=B)
+        rows["flash_attn_fwd"].append(dict(row, instance=D,
+                                           loop="overlapped"))
+        del q, k, v
+        torch.cuda.empty_cache()
     # the overlapped loop at head dim 72 beside the pair, on the flagship
     # trainer's shapes and past 2048 keys
     for tag, B, Sq, Sk, H in OVERLAP_72_SHAPES:
@@ -1600,7 +1693,7 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
     """``cli.infer.main`` at the flagship config on ``images`` synthetic
     images (no GLB export), the counters zeroed just before; checks each
     image's launches against ``expected`` (and, given ``layouts``, its
-    flash forwards by tile layout), its denoised PrimX (finite, shaped) and
+    flash forwards by tile layout and by loop), its denoised PrimX (finite, shaped) and
     its ``recon.jpg`` (decodes at 518 x 1036). Returns the run's total
     launches and one record per image (stage seconds, launches)."""
     import cv2
@@ -1614,7 +1707,8 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
 
         def append(self, rec):
             super().append(dict(rec, launches=dict(_cuda.launches),
-                                layouts=dict(_cuda.fwd_layouts)))
+                                layouts=dict(_cuda.fwd_layouts),
+                                loops=dict(_cuda.fwd_loops)))
 
     recs = PerImage()
     root = os.path.join(tmp, f"runs_{tag}")
@@ -1634,19 +1728,25 @@ def run_cli(tmp: str, tag: str, images: int, overrides: list,
                              f"{len(recs)} images")
     prev = dict.fromkeys(total, 0)
     prev_layouts = dict.fromkeys(_cuda.fwd_layouts, 0)
+    prev_loops = dict.fromkeys(_cuda.fwd_loops, 0)
     for rec in recs:
         per = {k: rec["launches"][k] - prev[k] for k in total}
         per_layout = {k: n - prev_layouts[k] for k, n in rec["layouts"].items()}
+        per_loop = {k: n - prev_loops[k] for k, n in rec["loops"].items()}
         prev, prev_layouts = rec["launches"], rec["layouts"]
+        prev_loops = rec["loops"]
         log(f"  [{tag}] {rec['image']}: encode {rec['encode_s']:.3f} s, "
             f"stage1 {rec['stage1_s']:.3f} s, recon {rec['recon_s']:.3f} s, "
             f"stage2 {rec['stage2_s']:.3f} s; launches {per}; flash forwards "
-            f"by tile layout {per_layout}")
+            f"by tile layout {per_layout}, by loop {per_loop}")
         if per != expected:
             raise AssertionError(f"{tag}: launches {per} != {expected}")
         if layouts is not None and per_layout != layouts:
             raise AssertionError(f"{tag}: flash forwards by tile layout "
                                  f"{per_layout} != {layouts}")
+        if layouts is not None and per_loop != EXPECTED_FWD_LOOPS:
+            raise AssertionError(f"{tag}: flash forwards by loop {per_loop} "
+                                 f"!= {EXPECTED_FWD_LOOPS}")
         out = os.path.join(root, "inference", "topiaxl-sview",
                            "inference_folder", rec["image"])
         recon = cv2.imread(os.path.join(out, "recon.jpg"))
@@ -2581,8 +2681,9 @@ def phase_train_long(tmp: str) -> dict:
 
 def phase_ss_flow() -> dict:
     """TRELLIS's flow transformer's kernels at its training shapes: the QK
-    norm forward and backward, flash #1, and the single pass (#4) beside
-    the pair (#5, #6) at head dim 64 (``bwd_side_by_side``), each against
+    norm forward and backward, flash #1 in its overlapped loop
+    (``fwd_overlap_row``), and the single pass (#4) beside the pair (#5,
+    #6) at head dim 64 (``bwd_side_by_side``), each against
     its plain version with a planted fault, ms beside its bound and the
     plain version's. Returns the rows."""
     import torch
@@ -2645,22 +2746,11 @@ def phase_ss_flow() -> dict:
         else:
             qq, k, v = randn(B, N, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
         do = randn(B, N, H, D)
+        # the forward: its overlapped loop against the plain version
+        fwd = fwd_overlap_row(f"ss_flow {tag}", qq, k, v, sc, nb=2)
+        f_ms, f_bound = fwd["ms"], fwd["bound_ms"]
+        shape = fwd["at"]
         o, lse = fa._forward(qq, k, v, sc, return_lse=True)
-        two = slice(0, 2)
-        o_ref = fa.flash_attention_plain(qq[two], k[two], v[two], sc)
-        torch.cuda.synchronize()
-        f_err = rel_err(o[two], o_ref)
-        f_ms = cuda_ms(lambda: fa._forward(qq, k, v, sc, return_lse=True), 20)
-        ops_f = 4 * B * H * N * Sk * D
-        f_bound, _ = bound(ops_f, 2 * B * H * D * (2 * N + 2 * Sk))
-        shape = f"{B}x{N}x{Sk}x{H}x{D}"
-        log(f"  ss_flow {tag} {shape}: flash_attn_fwd max rel err "
-            f"{f_err:.3e} (bar {ATTN_REL_BAR}), {f_ms:.4f} ms, bound "
-            f"{f_bound:.4f} ms (operations; share {f_bound / f_ms:.1%}) "
-            f"({card_id})")
-        if not f_err <= ATTN_REL_BAR:
-            raise AssertionError(f"ss_flow {tag}: forward {f_err}")
-        del o_ref
         # the backward: the single pass (its overlapped loop) beside the
         # pair, the rule's form through the wrapper
         back = bwd_side_by_side(f"ss_flow {tag}", qq, k, v, o, lse, do, sc,

@@ -85,11 +85,11 @@ def test_forward_tile_layout_by_head_dim():
         fa.fwd_tile_layout(257)
 
 
-def test_forward_tile_layout_mirrors_the_kernel_rule(tmp_path):
-    """``fwd_tile_layout`` against the rule the kernel is compiled with
-    (``csrc/flash_fwd_layout.cuh``, plain C++ built here by the host
-    compiler): split exactly where the rule leaves columns past the whole
-    boxes, and those at most one k16 step of 8-column chunks."""
+def _forward_rule(tmp_path, fields: list) -> list:
+    """Rows ``d, *fields`` for every instance ``d`` of ``fa.HEAD_DIMS``, as
+    the forward's rule (``csrc/flash_fwd_layout.cuh``, plain C++) computes
+    them, built and run here by the host compiler; ``fields`` are C++
+    expressions in ``d``, each printed as an int."""
     import shutil
     import subprocess
 
@@ -104,8 +104,8 @@ def test_forward_tile_layout_mirrors_the_kernel_rule(tmp_path):
         f"const int dims[] = {{{', '.join(map(str, fa.HEAD_DIMS))}}};\n"
         "int main() {\n"
         "  for (int d : dims)\n"
-        '    std::printf("%d %d %d %d\\n", d, fwd_box_cols(d), '
-        "fwd_tail_cols(d), fwd_block_n(d));\n}\n")
+        f'    std::printf("%d{" %d" * len(fields)}\\n", d, '
+        f'{", ".join(fields)});\n}}\n')
     exe = tmp_path / "rule"
     subprocess.run([cxx, "-std=c++17", "-I", str(_cuda.CSRC), str(main), "-o",
                     str(exe)], check=True, capture_output=True)
@@ -113,10 +113,53 @@ def test_forward_tile_layout_mirrors_the_kernel_rule(tmp_path):
             subprocess.run([str(exe)], check=True, capture_output=True,
                            text=True).stdout.splitlines()]
     assert [r[0] for r in rows] == list(fa.HEAD_DIMS)
+    return rows
+
+
+def test_forward_tile_layout_mirrors_the_kernel_rule(tmp_path):
+    """``fwd_tile_layout`` against the rule the kernel is compiled with
+    (``csrc/flash_fwd_layout.cuh``, plain C++ built here by the host
+    compiler): split exactly where the rule leaves columns past the whole
+    boxes, and those at most one k16 step of 8-column chunks."""
+    rows = _forward_rule(tmp_path, ["fwd_box_cols(d)", "fwd_tail_cols(d)",
+                                    "fwd_block_n(d)"])
     for d, box, tail, block_n in rows:
         assert fa.fwd_tile_layout(d) == ("split" if tail else "swizzled"), d
         assert box in (32, 64) and (d - tail) % box == 0 and tail in (0, 8, 16)
         assert block_n == fa.fwd_key_tile(d)
+
+
+def test_forward_loop_mirrors_the_kernel_rule(tmp_path):
+    """``fwd_loop`` against the loop rule the kernel is compiled with
+    (``csrc/flash_fwd_layout.cuh:fwd_overlapped``, built here by the host
+    compiler): the overlapped loop exactly on the instances the rule picks,
+    the same as the backward's (``bwd_loop``), and every head dim up to 256
+    on its instance's loop; the block's consumer warpgroups
+    (``fwd_consumers``) at the cells' launches."""
+    # (batch x heads, Sq) of the cells' launches on a 132-SM card: the
+    # chain's self- and cross-attention, the xl trainer's, DINOv2's, the
+    # flow trainer's; then no SM count read
+    launches = ((32, 2048), (16, 2048), (128, 2048), (12, 1374), (128, 4096))
+    rows = _forward_rule(tmp_path, [
+        "fwd_overlapped(d)",
+        *(f"fwd_consumers(d, {n}, {sq}, 132)" for n, sq in launches),
+        "fwd_consumers(d, 128, 4096, 0)", "fwd_block_m(3)"])
+    rule = {d: bool(r[0]) for d, *r in rows}
+    assert sorted(d for d, over in rule.items() if over) == list(
+        fa.OVERLAPPED_HEAD_DIMS)
+    # three consumer warpgroups (192-row blocks) in the overlapped loop
+    # where they take fewer of the card's waves; two elsewhere
+    consumers = {d: tuple(r[1:7]) for d, *r in rows}
+    assert consumers == {d: (3, 2, 3, 2, 3, 2) if rule[d] else (2,) * 6
+                         for d in fa.HEAD_DIMS}
+    assert all(r[-1] == 192 for r in rows)
+    for d in range(1, 257):
+        inst = fa.kernel_head_dim(d)
+        assert fa.fwd_loop(d) == ("overlapped" if rule[inst] else "pingpong"), d
+        assert (fa.fwd_loop(d) == "overlapped") == (
+            fa.bwd_loop(d) == "overlapped"), d
+    with pytest.raises(ValueError, match="257"):
+        fa.fwd_loop(257)
 
 
 def _qkv(d, seed=0, sq=37, sk=53):

@@ -24,7 +24,8 @@ also where several blocks share an output tile (their partial sums
 reduced in a fixed order, so two launches give the same bits).
 Head dim 72's split tile layout at the chain's shapes (self-attention,
 cross-attention over 1370 keys, a ragged Sq of 1000): o at the forward's
-bar, the lse at its bar, the launch counted under ``split``.
+bar, the lse at its bar, the launch counted under ``split`` and under the
+forward's ``overlapped`` loop (head dims 64 and 72; ``pingpong`` above).
 Every head dim up to 256 (80, 96, 128 and 256 on their own instances,
 the others zero-padded by the launchers) at the same bars, with a scale
 computed from the padded head dim (a planted fault) above the forward's.
@@ -96,14 +97,24 @@ def _ulp_excess(got, ref):
     (1, 130, 700, 2, 64, 64 ** -0.5),
     (3, 17, 1025, 1, 72, 1.0 / 72),
     (1, 200, 64, 2, 72, 2.0),
+    (1, 129, 256, 2, 72, 72 ** -0.5),    # two key tiles: the last turn alone
+    (1, 64, 300, 2, 64, 64 ** -0.5),     # three: one loop turn, the last
+    (1, 70, 2048, 1, 72, 72 ** -0.5),    # sixteen
 ])
 def test_flash_matches_plain(dev, B, Sq, Sk, H, D, scale):
+    """The forward on strided and offset views, at key counts that take its
+    overlapped loop (head dims 64, 72) through each of its paths: one key
+    tile (no turn of S(j + 1) and P(j) V(j)), two (the masked last tile's
+    turn alone) and more (loop turns, then the last); one launch counted
+    under ``"overlapped"``."""
     q, _, _ = _randn(dev, B, Sq, 3, H, D, seed=1).unbind(2)   # strided view
     kv = _randn(dev, B, Sk + 5, 2, H, D, seed=2)[:, 5:]        # offset view
     k, v = kv[:, :, 0], kv[:, :, 1]
-    before = _cuda.launches["flash_attn_fwd"]
+    before = _cuda.launches["flash_attn_fwd"], dict(_cuda.fwd_loops)
     got = flash_attention(q, k, v, scale)
-    assert _cuda.launches["flash_attn_fwd"] == before + 1
+    assert _cuda.launches["flash_attn_fwd"] == before[0] + 1
+    assert _cuda.fwd_loops == dict(before[1],
+                                   overlapped=before[1]["overlapped"] + 1)
     ref = flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
@@ -120,7 +131,7 @@ def test_flash_split_layout_at_72_matches_plain(dev, B, Sq, Sk, H):
     128-byte swizzle and one 8-column chunk): o and lse against the plain
     version, with q, k and v strided views of one qkv (self) or of q and kv
     tensors (cross, ragged), whose strides go into the tensor maps; one
-    launch counted under ``split``."""
+    launch counted under ``split`` and the ``overlapped`` loop."""
     from topiaxl_torch.ops import flash_attention as fa
 
     D = 72
@@ -131,10 +142,12 @@ def test_flash_split_layout_at_72_matches_plain(dev, B, Sq, Sk, H):
         q = _randn(dev, B, Sq, 3, H, D, seed=71)[:, :, 0]
         k, v = _randn(dev, B, Sk, 2, H, D, seed=72).unbind(2)
         scale = 1.0 / D
-    assert fa.fwd_tile_layout(D) == "split"
-    before = dict(_cuda.fwd_layouts)
+    assert fa.fwd_tile_layout(D) == "split" and fa.fwd_loop(D) == "overlapped"
+    before = dict(_cuda.fwd_layouts), dict(_cuda.fwd_loops)
     o, lse = fa._forward(q, k, v, scale, return_lse=True)
-    assert _cuda.fwd_layouts == dict(before, split=before["split"] + 1)
+    assert _cuda.fwd_layouts == dict(before[0], split=before[0]["split"] + 1)
+    assert _cuda.fwd_loops == dict(before[1],
+                                   overlapped=before[1]["overlapped"] + 1)
     o_ref, lse_ref = flash_attention_plain(q, k, v, scale, return_lse=True)
     torch.cuda.synchronize()
     assert o.shape == o_ref.shape and o.dtype == torch.bfloat16
@@ -205,9 +218,11 @@ def test_flash_backward_matches_plain(dev, B, Sq, Sk, H, D, scale):
 def test_flash_head_dims_match_plain(dev, D, Sk):
     """Every head dim up to 256: 80, 96, 128 and 256 on their own instances,
     the others zero-padded to the next one by the launchers, with the caller's
-    scale; one launch of each kernel as at 72. A scale recomputed from the
-    padded head dim (a planted fault) lands above the forward's bar."""
-    from topiaxl_torch.ops.flash_attention import kernel_head_dim
+    scale; one launch of each kernel as at 72, the forward's counted under
+    the overlapped loop on the 64 instance and the ping-pong one on 80-256.
+    A scale recomputed from the padded head dim (a planted fault) lands
+    above the forward's bar."""
+    from topiaxl_torch.ops.flash_attention import fwd_loop, kernel_head_dim
 
     q = _randn(dev, 1, 300, 3, 2, D, seed=51)[:, :, 0].requires_grad_()
     k, v = (t.requires_grad_() for t in _randn(
@@ -215,6 +230,7 @@ def test_flash_head_dims_match_plain(dev, D, Sk):
     do = _randn(dev, 1, 300, 2, D, seed=53)
     scale = D ** -0.5
     before = dict(_cuda.launches)
+    loops = dict(_cuda.fwd_loops)
     o = flash_attention(q, k, v, scale)
     lse = o.grad_fn.saved_tensors[4]
     o.backward(do)
@@ -224,6 +240,9 @@ def test_flash_head_dims_match_plain(dev, D, Sk):
                  "flash_attn_bwd_dkv"):
         assert _cuda.launches[name] == before[name] + (
             name == "flash_attn_fwd" or name in names), name
+    loop = "overlapped" if kernel_head_dim(D) == 64 else "pingpong"
+    assert fwd_loop(D) == loop
+    assert _cuda.fwd_loops == dict(loops, **{loop: loops[loop] + 1})
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     o_ref, lse_ref = flash_attention_plain(qd, kd, vd, scale, return_lse=True)
     ref = flash_attention_bwd_plain(qd, kd, vd, o.detach(), lse, do, scale)

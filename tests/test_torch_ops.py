@@ -37,6 +37,8 @@ from topiaxl_torch.ops.flash_attention import (
     flash_attention_bwd_unmasked,
     flash_attention_plain,
     flash_attention_unmasked,
+    fwd_loop,
+    fwd_tile_layout,
 )
 from topiaxl_torch.ops.fused_ln import ln_modulate, ln_modulate_residual
 
@@ -189,8 +191,8 @@ def test_forward_layout_counter_on_the_cpu_path():
         _cuda.reset_launch_counts()
         assert set(_cuda.fwd_layouts.values()) == {0}
         with _cuda.tally() as counts:
-            _cuda.count_launch("flash_attn_fwd", tag="split")
-            _cuda.count_launch("flash_attn_fwd", tag="swizzled")
+            _cuda.count_launch("flash_attn_fwd", "split")
+            _cuda.count_launch("flash_attn_fwd", "swizzled")
             _cuda.count_launch("ln_modulate")
         assert counts == {"flash_attn_fwd": 2, "flash_attn_fwd.split": 1,
                           "flash_attn_fwd.swizzled": 1, "ln_modulate": 1}
@@ -231,9 +233,9 @@ def test_backward_loop_counter_on_the_cpu_path():
         _cuda.reset_launch_counts()
         assert set(_cuda.bwd_loops.values()) == {0}
         with _cuda.tally() as counts:
-            _cuda.count_launch("flash_attn_bwd", tag=bwd_loop(72))
-            _cuda.count_launch("flash_attn_bwd", tag=bwd_loop(64))
-            _cuda.count_launch("flash_attn_bwd", tag=bwd_loop(128))
+            _cuda.count_launch("flash_attn_bwd", bwd_loop(72))
+            _cuda.count_launch("flash_attn_bwd", bwd_loop(64))
+            _cuda.count_launch("flash_attn_bwd", bwd_loop(128))
             _cuda.count_launch("flash_attn_bwd_dq")
         assert counts == {"flash_attn_bwd": 3, "flash_attn_bwd.overlapped": 2,
                           "flash_attn_bwd.serial": 1, "flash_attn_bwd_dq": 1}
@@ -252,6 +254,58 @@ def test_backward_loop_counter_on_the_cpu_path():
         _cuda.launches.update(saved[0])
         _cuda.fwd_layouts.update(saved[1])
         _cuda.bwd_loops.update(saved[2])
+
+
+def test_forward_loop_counter_on_the_cpu_path():
+    """The flash forward's launches by loop: the CPU path launches and counts
+    nothing; ``fwd_loop`` names the overlapped loop at the 64 and 72
+    instances (the head dims zero-padded to them too) and the ping-pong one
+    at 80-256; a launch counted with its layout and its loop adds to
+    ``launches``, ``fwd_layouts`` and ``fwd_loops`` and leaves ``bwd_loops``
+    alone; a capture's tally holds both tags under
+    ``"flash_attn_fwd.<tag>"``, which ``add_launches`` takes back and adds
+    again as a graph replay does, each to its own table;
+    ``reset_launch_counts`` zeroes it."""
+    saved = (dict(_cuda.launches), dict(_cuda.fwd_layouts),
+             dict(_cuda.fwd_loops), dict(_cuda.bwd_loops))
+    try:
+        q, k, v = (torch.from_numpy(t) for t in
+                   _qkv(np.random.default_rng(5), 1, 9, 11, 2, 64))
+        before = dict(_cuda.launches), dict(_cuda.fwd_loops)
+        flash_attention(q, k, v, 64 ** -0.5)
+        assert (dict(_cuda.launches), dict(_cuda.fwd_loops)) == before
+        for d in range(1, 257):
+            want = "overlapped" if d <= 72 else "pingpong"
+            assert fwd_loop(d) == want, d
+        _cuda.reset_launch_counts()
+        assert set(_cuda.fwd_loops.values()) == {0}
+        with _cuda.tally() as counts:
+            for d in (72, 64, 72, 128, 256):
+                _cuda.count_launch("flash_attn_fwd", fwd_tile_layout(d),
+                                   fwd_loop(d))
+        assert counts == {"flash_attn_fwd": 5, "flash_attn_fwd.split": 2,
+                          "flash_attn_fwd.swizzled": 3,
+                          "flash_attn_fwd.overlapped": 3,
+                          "flash_attn_fwd.pingpong": 2}
+        assert _cuda.fwd_loops == {"overlapped": 3, "pingpong": 2}
+        assert _cuda.fwd_layouts == {"split": 2, "swizzled": 3}
+        assert set(_cuda.bwd_loops.values()) == {0}
+        _cuda.add_launches({key: -n for key, n in counts.items()})
+        assert set(_cuda.fwd_loops.values()) == {0}
+        assert set(_cuda.fwd_layouts.values()) == {0}
+        assert set(_cuda.launches.values()) == {0}
+        for _ in range(2):
+            _cuda.add_launches(counts)
+        assert _cuda.fwd_loops == {"overlapped": 6, "pingpong": 4}
+        assert _cuda.fwd_layouts == {"split": 4, "swizzled": 6}
+        assert _cuda.launches["flash_attn_fwd"] == 10
+        _cuda.reset_launch_counts()
+        assert set(_cuda.fwd_loops.values()) == {0}
+    finally:
+        _cuda.launches.update(saved[0])
+        _cuda.fwd_layouts.update(saved[1])
+        _cuda.fwd_loops.update(saved[2])
+        _cuda.bwd_loops.update(saved[3])
 
 
 def test_kernel_sources_build_key():

@@ -16,10 +16,12 @@ import. A failed build raises.
 Every wrapper adds one to ``launches[<kernel>]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went
 through the kernels (``reset_launch_counts`` zeroes them). Two kernels
-also count their launches by a tag: the flash forward by its tile layout
+also count their launches by tags: the flash forward by its tile layout
 in ``fwd_layouts`` (``ops/flash_attention.py:fwd_tile_layout``: a
-flagship chain's 1,400 launches at head dim 72 under ``"split"``), the
-single-pass flash backward by its loop in ``bwd_loops``
+flagship chain's 1,400 launches at head dim 72 under ``"split"``) and by
+its loop in ``fwd_loops`` (``ops/flash_attention.py:fwd_loop``: the same
+1,400 under ``"overlapped"``, as a flow training step's 48 at head dim
+64), the single-pass flash backward by its loop in ``bwd_loops``
 (``ops/flash_attention.py:bwd_loop``: a flagship training step's 56
 launches at head dim 72 under ``"overlapped"``). A count is
 one call of a kernel's C entry point: one ``flash_attn_bwd`` at head dim
@@ -61,11 +63,15 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
             "ln_modulate_residual": 0, "mma_rate_loop": 0,
             "dot_form_chain": 0, "dot_form_accum": 0, "qk_rmsnorm": 0,
             "qk_rmsnorm_bwd": 0}
-# flash forward launches by tile layout, single-pass flash backward
-# launches by loop, beside ``launches``
+# flash forward launches by tile layout and by loop, single-pass flash
+# backward launches by loop, beside ``launches``
 fwd_layouts = {"split": 0, "swizzled": 0}
+fwd_loops = {"overlapped": 0, "pingpong": 0}
 bwd_loops = {"overlapped": 0, "serial": 0}
-_TAGS = {"flash_attn_fwd": fwd_layouts, "flash_attn_bwd": bwd_loops}
+# a tagged kernel's tables, one for each of its tags, in the order
+# ``count_launch`` takes them
+_TAGS = {"flash_attn_fwd": (fwd_layouts, fwd_loops),
+         "flash_attn_bwd": (bwd_loops,)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -106,22 +112,22 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for table in (launches, fwd_layouts, bwd_loops):
+    for table in (launches, fwd_layouts, fwd_loops, bwd_loops):
         for name in table:
             table[name] = 0
 
 
-def count_launch(name: str, tag: str | None = None) -> None:
+def count_launch(name: str, *tags: str) -> None:
     """One launch of kernel ``name``; the flash forward also names its tile
-    layout, the single-pass flash backward its loop, as ``tag``, counted in
-    ``fwd_layouts`` or ``bwd_loops``."""
+    layout and its loop, counted in ``fwd_layouts`` and ``fwd_loops``, the
+    single-pass flash backward its loop, counted in ``bwd_loops``."""
     launches[name] += 1
-    if tag is not None:
-        _TAGS[name][tag] += 1
+    for table, tag in zip(_TAGS.get(name, ()), tags):
+        table[tag] += 1
     counts = getattr(_tallies, "counts", None)
     if counts is not None:
         counts[name] += 1
-        if tag is not None:
+        for tag in tags:
             counts[f"{name}.{tag}"] += 1
 
 
@@ -142,7 +148,7 @@ def add_launches(counts: dict) -> None:
     for key, n in counts.items():
         name, _, tag = key.partition(".")
         if tag:
-            _TAGS[name][tag] += n
+            next(t for t in _TAGS[name] if tag in t)[tag] += n
         else:
             launches[key] += n
 

@@ -42,6 +42,11 @@ faster than the pair, 64 and 72 (its overlapped loop, ``bwd_loop``) and
 single-pass kernel when the whole KV is one block of at most
 ``FUSED_BWD_MAX_KEYS`` keys, the two-pass dq + dk/dv pair otherwise.
 
+The forward's loop is a head-dim rule (``fwd_loop``, mirroring
+``csrc/flash_fwd_layout.cuh``): the overlapped loop at 64 and 72, where a
+warpgroup runs a tile's softmax before its own P.V product has finished,
+the ping-pong loop at 80-256; both give the same bits.
+
 Head dims: each kernel has an instance for every D in ``HEAD_DIMS``. The
 launchers take any D from 1 to 256: they zero-pad q, k, v (and o, dO)
 in D up to the next instance (``kernel_head_dim``; 129 to 255 go to
@@ -110,9 +115,20 @@ def _pad_d(t: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
 
 
-# the instances whose single pass runs the overlapped loop
-# (csrc/flash_attn_bwd_sm90.cu: flash_bwd_overlap_kernel)
+# the instances whose forward and single-pass backward run their overlapped
+# loops (csrc/flash_attn_fwd.cu: flash_fwd_kernel_overlap,
+# csrc/flash_attn_bwd_sm90.cu: flash_bwd_overlap_kernel)
 OVERLAPPED_HEAD_DIMS = (64, 72)
+
+
+def fwd_loop(d: int) -> str:
+    """The forward kernel's loop at head dim ``d`` (its instance's), the rule
+    of ``csrc/flash_fwd_layout.cuh:fwd_overlapped`` mirrored:
+    ``"overlapped"`` at 64 and 72 (each warpgroup runs a tile's softmax
+    under its own P.V product), ``"pingpong"`` at 80, 96, 128 and 256 (the
+    softmax under the other warpgroup's products only).
+    ``_cuda.fwd_loops`` counts the launches by it."""
+    return "overlapped" if _instance(d) in OVERLAPPED_HEAD_DIMS else "pingpong"
 
 
 def bwd_loop(d: int) -> str:
@@ -344,7 +360,7 @@ def _forward(q, k, v, scale, return_lse):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(scale), _cuda.stream_of(q))
     _cuda.check(rc, "flash_attn_fwd")
-    _cuda.count_launch("flash_attn_fwd", tag=fwd_tile_layout(D))
+    _cuda.count_launch("flash_attn_fwd", fwd_tile_layout(D), fwd_loop(D))
     return o, lse
 
 
@@ -359,8 +375,10 @@ def _bwd_launch(name, q, k, v, o, lse, do, delta, dq, dk, dv, scale):
             *v.stride()[:3], *o.stride()[:3], *do.stride()[:3],
             float(scale), _cuda.stream_of(q))
     _cuda.check(rc, name)
-    _cuda.count_launch(name, tag=bwd_loop(D) if name == "flash_attn_bwd"
-                       else None)
+    if name == "flash_attn_bwd":
+        _cuda.count_launch(name, bwd_loop(D))
+    else:
+        _cuda.count_launch(name)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, scale: float):
