@@ -189,7 +189,13 @@ train_long, ss_flow_train runs ``cli.train`` on
 (synthetic stream, batch 8): each step's exact launches
 (``SS_FLOW_LAUNCHES``) and single-pass backwards by loop (48
 ``overlapped``), finite losses, step seconds and peak memory. Their rows print as ``{"ss_flow": ...}`` before the kernels
-line.
+line. After ss_flow_train, mmdit runs Hunyuan3D-2's shape DiT's kernels at
+its training shapes (batch 4, 16 heads of 64): the QK norm's rms form on
+q read in place from a single block's linear1 rows at 4 x 4442 x 16 x 64,
+flash #1 and #4 beside the pair at the joint shape 4 x 4442 x 4442 x 16 x
+64 (a ragged last q tile), then three ``cli.train`` steps of
+``configs/hunyuan3d_dit.yml`` (``MMDIT_LAUNCHES``, 48 ``overlapped``
+backwards a step); its rows print as ``{"mmdit": ...}``.
 
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
@@ -248,8 +254,10 @@ FLAGSHIP = os.path.join(ROOT, "configs", "inference_dit.yml")
 
 # the probes run on no path of the system but their own
 NO_PROBES = {"mma_rate_loop": 0, "dot_form_chain": 0, "dot_form_accum": 0}
-# the QK norm runs on TRELLIS's flow transformer only (models/ss_flow.py)
-NO_QK_NORM = {"qk_rmsnorm": 0, "qk_rmsnorm_bwd": 0}
+# the QK norm runs on TRELLIS's flow transformer (models/ss_flow.py; the
+# l2 form) and Hunyuan3D-2's shape DiT (models/mmdit.py; the rms form) only
+NO_QK_NORM = {"qk_rmsnorm": 0, "qk_rmsnorm_bwd": 0, "qk_rmsnorm_rms": 0,
+              "qk_rmsnorm_rms_bwd": 0}
 # per image at the flagship config: DINOv2's 12 blocks + 25 DDIM steps x
 # 28 DiT blocks x (self + cross); 25 x (28 blocks + final layer); 25 x 28 x 2;
 # serving runs no backward kernel
@@ -305,9 +313,23 @@ TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 4,
 SS_FLOW_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 48,
                     "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                     "ln_modulate": 24, "ln_modulate_residual": 48,
-                    "qk_rmsnorm": 48, "qk_rmsnorm_bwd": 48, **NO_PROBES}
+                    **NO_QK_NORM, "qk_rmsnorm": 48, "qk_rmsnorm_bwd": 48,
+                    **NO_PROBES}
 SS_FLOW_BWD_LOOPS = {"overlapped": 48, "serial": 0}
 SS_FLOW_CONFIG = os.path.join(ROOT, "configs", "trellis_ss_flow.yml")
+# one training step of Hunyuan3D-2's shape DiT (16 double and 32 single
+# blocks, 16 heads of 64, 3072 + 1370 tokens joined): a flash forward and
+# a single-pass backward (its overlapped loop) a block over 4442 keys; the
+# rms QK norm on q and k of each stream of a double block and of each
+# single block; LN+modulate before each stream's attention and each single
+# block, LN+modulate+residual into each stream's MLP
+MMDIT_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 48,
+                  "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+                  "ln_modulate": 64, "ln_modulate_residual": 32,
+                  **NO_QK_NORM, "qk_rmsnorm_rms": 128,
+                  "qk_rmsnorm_rms_bwd": 128, **NO_PROBES}
+MMDIT_BWD_LOOPS = {"overlapped": 48, "serial": 0}
+MMDIT_CONFIG = os.path.join(ROOT, "configs", "hunyuan3d_dit.yml")
 # one training step, card (bf16 compute, f32 master weights, kernels)
 # against the CPU (f32, plain versions) at full width, depth 2: the loss
 # and the global gradient norm relative to the CPU's, and the cosine of
@@ -2679,53 +2701,44 @@ def phase_train_long(tmp: str) -> dict:
     return total
 
 
-def phase_ss_flow() -> dict:
-    """TRELLIS's flow transformer's kernels at its training shapes: the QK
-    norm forward and backward, flash #1 in its overlapped loop
-    (``fwd_overlap_row``), and the single pass (#4) beside the pair (#5,
-    #6) at head dim 64 (``bwd_side_by_side``), each against
-    its plain version with a planted fault, ms beside its bound and the
-    plain version's. Returns the rows."""
+def qk_norm_rows(q, gamma, dy, scale: float, form: str, where: str) -> dict:
+    """The QK norm's kernels in ``form`` ("l2", TRELLIS's; "rms", FLUX's)
+    on q [B, N, H, D] against their plain twins: the forward within one
+    bf16 rounding (2^-8), dx and dgamma within 2^-7, a planted fault (the
+    gains left out) above each bar; ms beside the bytes bound and the
+    plain version's. Returns the rows, keyed by the launch counters' names
+    of the form."""
     import torch
 
-    from topiaxl_torch.ops import flash_attention as fa
     from topiaxl_torch.ops import qk_norm as Q
 
     card_id = card_line()
-    g = torch.Generator("cuda").manual_seed(19)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").bfloat16()
-
-    rows = {}
-    B, N, M, H, D = 8, 4096, 1374, 16, 64
-    scale = D ** 0.5
-    q = randn(B, N, 3, H, D).unbind(2)[0]
-    gamma = 1 + 0.1 * torch.randn((H, D), generator=g, device="cuda")
-    dy = randn(B, N, H, D)
-    y, (dx, dgam) = Q._forward(q, gamma, scale), Q._backward(q, dy, gamma, scale)
-    y_ref = Q.qk_rms_norm_plain(q, gamma, scale)
-    dx_ref, dg_ref = Q.qk_rms_norm_bwd_plain(q, dy, gamma, scale)
-    fault, _ = Q.qk_rms_norm_bwd_plain(q, dy, torch.ones_like(gamma), scale)
-    torch.cuda.synchronize()
-    errs = {"qk_rmsnorm": rel_err(y, y_ref),
-            "qk_rmsnorm_bwd": max(rel_err(dx, dx_ref), rel_err(dgam, dg_ref))}
-    bars = {"qk_rmsnorm": 2 ** -8, "qk_rmsnorm_bwd": 2 ** -7}
-    faults = {"qk_rmsnorm": rel_err(Q.qk_rms_norm_plain(
-        q, torch.ones_like(gamma), scale), y_ref),
-        "qk_rmsnorm_bwd": rel_err(fault, dx_ref)}
+    fwd, bwd = Q._NAMES[form]
+    B, N, H, D = q.shape
+    y, (dx, dgam) = (Q._forward(q, gamma, scale, form),
+                     Q._backward(q, dy, gamma, scale, form))
+    y_ref = Q.qk_rms_norm_plain(q, gamma, scale, form)
+    dx_ref, dg_ref = Q.qk_rms_norm_bwd_plain(q, dy, gamma, scale, form)
+    ones = torch.ones_like(gamma)
+    fault, _ = Q.qk_rms_norm_bwd_plain(q, dy, ones, scale, form)
+    errs = {fwd: rel_err(y, y_ref),
+            bwd: max(rel_err(dx, dx_ref), rel_err(dgam, dg_ref))}
+    bars = {fwd: 2 ** -8, bwd: 2 ** -7}
+    faults = {fwd: rel_err(Q.qk_rms_norm_plain(q, ones, scale, form), y_ref),
+              bwd: rel_err(fault, dx_ref)}
+    del y, dx, fault, y_ref, dx_ref
     elems = B * N * H * D
-    calls = {"qk_rmsnorm": (lambda: Q._forward(q, gamma, scale),
-                            lambda: Q.qk_rms_norm_plain(q, gamma, scale),
-                            2 * 2 * elems + 4 * H * D),
-             "qk_rmsnorm_bwd": (lambda: Q._backward(q, dy, gamma, scale),
-                                lambda: Q.qk_rms_norm_bwd_plain(
-                                    q, dy, gamma, scale),
-                                3 * 2 * elems + 8 * H * D)}
+    calls = {fwd: (lambda: Q._forward(q, gamma, scale, form),
+                   lambda: Q.qk_rms_norm_plain(q, gamma, scale, form),
+                   2 * 2 * elems + 4 * H * D),
+             bwd: (lambda: Q._backward(q, dy, gamma, scale, form),
+                   lambda: Q.qk_rms_norm_bwd_plain(q, dy, gamma, scale, form),
+                   3 * 2 * elems + 8 * H * D)}
+    rows = {}
     for name, (kern, plain, nbytes) in calls.items():
         ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
         bound_ms, bound_by = bound(10 * elems, nbytes, PEAK_F32_FLOPS)
-        log(f"  {name} {B}x{N}x{H}x{D} (q in place in qkv): max rel err "
+        log(f"  {name} {B}x{N}x{H}x{D} ({where}): max rel err "
             f"{errs[name]:.3e} (bar {bars[name]:.3e}; gains-left-out fault "
             f"{faults[name]:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}; share "
@@ -2737,7 +2750,32 @@ def phase_ss_flow() -> dict:
         rows[name] = dict(at=f"{B}x{N}x{H}x{D}", ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           max_rel_err=errs[name])
-    del q, dy, y, dx, fault
+    return rows
+
+
+def phase_ss_flow() -> dict:
+    """TRELLIS's flow transformer's kernels at its training shapes: the QK
+    norm forward and backward, flash #1 in its overlapped loop
+    (``fwd_overlap_row``), and the single pass (#4) beside the pair (#5,
+    #6) at head dim 64 (``bwd_side_by_side``), each against
+    its plain version with a planted fault, ms beside its bound and the
+    plain version's. Returns the rows."""
+    import torch
+
+    from topiaxl_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    rows = {}
+    B, N, M, H, D = 8, 4096, 1374, 16, 64
+    q = randn(B, N, 3, H, D).unbind(2)[0]
+    gamma = 1 + 0.1 * torch.randn((H, D), generator=g, device="cuda")
+    rows.update(qk_norm_rows(q, gamma, randn(B, N, H, D), D ** 0.5, "l2",
+                             "q in place in qkv"))
+    del q
     for tag, Sk in (("self", N), ("cross", M)):
         sc = D ** -0.5
         if tag == "self":
@@ -2765,9 +2803,11 @@ def phase_ss_flow() -> dict:
     return rows
 
 
-def phase_ss_flow_train(tmp: str) -> dict:
-    """``cli.train`` on TRELLIS's flow transformer at its published widths:
-    three steps, each step's launches ``SS_FLOW_LAUNCHES``; step seconds
+def cli_train_rows(config: str, tag: str, expected: dict, loops: dict,
+                   tmp: str) -> dict:
+    """``cli.train`` on ``config`` at its published widths: three steps on
+    the synthetic stream, each step's launches ``expected`` and its
+    single-pass backwards by loop ``loops``, finite losses; step seconds
     and peak memory."""
     import torch
 
@@ -2777,28 +2817,80 @@ def phase_ss_flow_train(tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     recs = PerStep()
     _cuda.reset_launch_counts()
-    rc = main([SS_FLOW_CONFIG, "train.synthetic=true", "train.max_steps=3",
+    rc = main([config, "train.synthetic=true", "train.max_steps=3",
                "train.log_every_n_steps=1", "train.ckpt_every_n_steps=1000",
-               f"root_data_dir={tmp}/ss_flow"], metrics_out=recs)
+               f"root_data_dir={tmp}/{tag}"], metrics_out=recs)
     if rc != 0 or [r["step"] for r in recs] != [1, 2, 3]:
-        raise AssertionError(f"ss_flow cli.train returned {rc} after steps "
+        raise AssertionError(f"{tag} cli.train returned {rc} after steps "
                              f"{[r['step'] for r in recs]}")
     prev = dict.fromkeys(_cuda.launches, 0)
     for rec in recs:
         per = {k: rec["launches"][k] - prev[k] for k in prev}
         prev = rec["launches"]
-        log(f"  ss_flow step {rec['step']}: {rec['seconds']:.3f} s, loss "
+        log(f"  {tag} step {rec['step']}: {rec['seconds']:.3f} s, loss "
             f"{rec['loss']:.5f}, grad norm {rec['grad_norm']:.5f}; launches "
             f"{per}")
-        if per != SS_FLOW_LAUNCHES or not np.isfinite(
+        if per != expected or not np.isfinite(
                 [rec["loss"], rec["grad_norm"]]).all():
-            raise AssertionError(f"ss_flow step {rec['step']}: launches "
-                                 f"{per} != {SS_FLOW_LAUNCHES} or metrics "
-                                 f"{rec}")
-    step_loops(recs, SS_FLOW_BWD_LOOPS)
+            raise AssertionError(f"{tag} step {rec['step']}: launches "
+                                 f"{per} != {expected} or metrics {rec}")
+    step_loops(recs, loops)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  ss_flow: peak memory {peak:.2f} GB ({card_line()})")
+    log(f"  {tag}: peak memory {peak:.2f} GB ({card_line()})")
     return {"step_s": [r["seconds"] for r in recs], "peak_gb": peak}
+
+
+def phase_ss_flow_train(tmp: str) -> dict:
+    """``cli.train`` on TRELLIS's flow transformer at its published widths
+    (``cli_train_rows``), each step's launches ``SS_FLOW_LAUNCHES``."""
+    return cli_train_rows(SS_FLOW_CONFIG, "ss_flow", SS_FLOW_LAUNCHES,
+                          SS_FLOW_BWD_LOOPS, tmp)
+
+
+def phase_mmdit(tmp: str) -> dict:
+    """Hunyuan3D-2's shape DiT at its training shapes (batch 4, 16 heads of
+    64, 3072 latent + 1370 conditioning tokens joined): the QK norm's rms
+    form on q read in place from a single block's linear1 rows (7168 wide)
+    at 4 x 4442 x 16 x 64 (``qk_norm_rows``); flash #1 in its overlapped
+    loop (``fwd_overlap_row``) and the single pass (#4) beside the pair
+    (``bwd_side_by_side``) at the joint shape 4 x 4442 x 4442 x 16 x 64,
+    whose last q tile is ragged (4442 = 34 x 128 + 90), v strided as
+    linear1 leaves it; then three ``cli.train`` steps of
+    ``configs/hunyuan3d_dit.yml`` (``cli_train_rows``, each step's launches
+    ``MMDIT_LAUNCHES``). Returns the rows."""
+    import torch
+
+    from topiaxl_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    B, L, H, D, W = 4, 4442, 16, 64, 7168
+    lin = randn(B, L, W)
+    q = lin[..., :3 * H * D].unflatten(-1, (3, H, D)).unbind(2)[0]
+    gain = 1 + 0.1 * torch.randn((D,), generator=g, device="cuda")
+    rows = qk_norm_rows(q, gain.expand(H, D).contiguous(), randn(B, L, H, D),
+                        1.0, "rms", "q in place in linear1's rows")
+    q, k, v = lin[..., :3 * H * D].unflatten(-1, (3, H, D)).unbind(2)
+    q, k = q.contiguous(), k.contiguous()
+    do = randn(B, L, H, D)
+    sc = D ** -0.5
+    fwd = fwd_overlap_row("mmdit joint", q, k, v, sc, nb=1)
+    o, lse = fa._forward(q, k, v, sc, return_lse=True)
+    back = bwd_side_by_side("mmdit joint", q, k, v, o, lse, do, sc, nb=1)
+    rows["flash_joint"] = dict(at=fwd["at"], fwd_ms=fwd["ms"],
+                               fwd_bound_ms=fwd["bound_ms"],
+                               bwd_form=fa.bwd_form(L, D),
+                               bwd_ms=back["single_pass_ms"],
+                               bwd_pair_ms=back["pair_ms"],
+                               bwd_bound_ms=back["bound_ms"])
+    del lin, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    rows["train"] = cli_train_rows(MMDIT_CONFIG, "mmdit", MMDIT_LAUNCHES,
+                                   MMDIT_BWD_LOOPS, tmp)
+    return rows
 
 
 def phase_train_parity():
@@ -4454,6 +4546,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("ss_flow_train"):
             ss_flow["train"] = phase_ss_flow_train(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("mmdit"):
+            mmdit = phase_mmdit(tmp)
     with Phase("train_parity"):
         phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4500,6 +4595,7 @@ def main() -> int:
                for name, (src, rep) in KERNELS.items()]
     log(f"ring launches (kernels line: main paths only): {ring_launches}")
     print(json.dumps({"ss_flow": ss_flow}))
+    print(json.dumps({"mmdit": mmdit}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s (limit 1200 s)")
     print(json.dumps({"kernels": kernels}))

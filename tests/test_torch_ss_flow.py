@@ -442,9 +442,9 @@ def test_one_block_forward_and_backward_match_the_reference_on_the_card():
 @pytest.mark.cuda
 def test_one_step_launches_at_the_published_widths():
     """One training step of the 24-block model at batch 8: flash forward 48
-    (24 self over 4096 keys, 24 cross over 1374), the two-pass backward
-    pair 24 + 24 (4096 keys), the single pass 24 (1374 keys), the QK norm
-    48 + 48, LN+modulate 24 and 48."""
+    (24 self over 4096 keys, 24 cross over 1374), the single pass 48 (at
+    head dim 64 ``bwd_form`` takes it at every key length; no pair), the
+    QK norm 48 + 48, LN+modulate 24 and 48."""
     from topiaxl_torch.ops import _cuda
     from topiaxl_torch.pipelines import train as T
 
@@ -463,6 +463,6 @@ def test_one_step_launches_at_the_published_widths():
     assert math.isfinite(float(metrics["loss"]))
     diff = {k: _cuda.launches[k] - before[k] for k in before}
     assert diff == dict(
-        {k: 0 for k in before}, flash_attn_fwd=48, flash_attn_bwd_dq=24,
-        flash_attn_bwd_dkv=24, flash_attn_bwd=24, qk_rmsnorm=48,
-        qk_rmsnorm_bwd=48, ln_modulate=24, ln_modulate_residual=48)
+        {k: 0 for k in before}, flash_attn_fwd=48, flash_attn_bwd=48,
+        qk_rmsnorm=48, qk_rmsnorm_bwd=48, ln_modulate=24,
+        ln_modulate_residual=48)

@@ -26,9 +26,11 @@ written under one mesh resumes under any other). Without ``torchrun``
 the run is one process on one device, every rank on a mesh of one.
 
 The DiT is the one ``model.generator.class_name`` names (``topiaxl.DiT``
-or ``topiaxl.DiTAdditivePosEmb``), or TRELLIS's sparse-structure flow
+or ``topiaxl.DiTAdditivePosEmb``), TRELLIS's sparse-structure flow
 transformer (``SparseStructureFlowModel``, ``configs/trellis_ss_flow.yml``:
-a [8, 16, 16, 16] latent grid a sample). ``train_recipe``, which
+a [8, 16, 16, 16] latent grid a sample), or Hunyuan3D-2's shape DiT
+(``Hunyuan3DDiT``, ``configs/hunyuan3d_dit.yml``: a [3072, 64] latent set
+a sample). ``train_recipe``, which
 ``cli.profile`` calls too, reads the objective (``diffusion.name:
 rectified_flow``, ``diffusion/flow.py``, or else the Gaussian diffusion) and
 the schedule (``scheduler.class_name: constant``, or else cosine warm-up).

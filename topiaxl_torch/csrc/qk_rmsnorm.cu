@@ -1,16 +1,27 @@
-// Per-head RMS normalisation of attention queries and keys (the QK norm of
-// TRELLIS's MultiHeadRMSNorm) for Hopper (sm_90a), bf16 in / bf16 out,
-// forward and backward.
+// Per-head RMS normalisation of attention queries and keys for Hopper
+// (sm_90a), bf16 in / bf16 out, forward and backward, in two forms chosen
+// at compile time (kRms) by the entry point.
 //
 // Replaces no TPU kernel: the JAX package has no QK norm. It was added
-// for TRELLIS's sparse-structure flow transformer
-// (models/ss_flow.py), whose self-attention normalises q and k per head:
+// for TRELLIS's sparse-structure flow transformer (models/ss_flow.py),
+// whose self-attention normalises q and k per head, the "l2" form
+// (TRELLIS's MultiHeadRMSNorm):
 //   forward:  y = x / max(||x||, 1e-12) * gamma[h] * scale
 //   backward: with n = max(||x||, 1e-12), xh = x / n, g = gamma[h] * scale * dy,
 //             dx = (g - xh * <xh, g>) / n where ||x|| > 1e-12, else g / n,
 //             dgamma[h] = scale * sum over rows of head h of dy * xh
+// and, for Hunyuan3D-2's shape DiT (models/mmdit.py), the "rms" form
+// (FLUX's RMSNorm in its QKNorm: the epsilon inside the mean):
+//   forward:  y = x * r * gamma[h] * scale, r = rsqrt(sum(x^2) / D + 1e-6)
+//   backward: with xh = x * r, g = gamma[h] * scale * dy,
+//             dx = r * (g - xh * <xh, g> / D),
+//             dgamma[h] = scale * sum over rows of head h of dy * xh
 // over each row of D values (one head of one token); the math in f32,
-// each output rounded to bf16 once. scale is sqrt(D) in the model.
+// each output rounded to bf16 once. scale is sqrt(D) in TRELLIS's model,
+// 1 in Hunyuan3D-2's, whose gain is one vector shared by the heads (the
+// wrapper passes it expanded to [H, D] and sums its gradient over H).
+// The two forms share every load, store and reduction; they differ in the
+// row's factor alone (and the l2 form's clamp).
 //
 // What bounds it on an H100: device-memory bytes. The forward reads a row
 // and writes it (~1 FLOP per byte); the backward reads x and dy and writes
@@ -36,7 +47,8 @@
 
 namespace {
 
-constexpr float kEps = 1e-12f;
+constexpr float kEps = 1e-12f;      // the l2 form's clamp of ||x||
+constexpr float kRmsEps = 1e-6f;    // the rms form's epsilon, in the mean
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -76,6 +88,7 @@ struct Rows {
   }
 };
 
+template <bool kRms>
 __global__ void qk_rmsnorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                                       const float* __restrict__ gamma,
                                       __nv_bfloat16* __restrict__ y,
@@ -94,7 +107,12 @@ __global__ void qk_rmsnorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   float ss = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) ss += v[j] * v[j];
-  const float inv = scale / fmaxf(sqrtf(row_sum(ss, L)), kEps);
+  float inv;
+  if constexpr (kRms) {
+    inv = scale * rsqrtf(row_sum(ss, L) / D + kRmsEps);
+  } else {
+    inv = scale / fmaxf(sqrtf(row_sum(ss, L)), kEps);
+  }
   const float* gh = gamma + static_cast<int>(r % in.H) * D + c;
   *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(gh);
   *reinterpret_cast<float4*>(g + 4) = *reinterpret_cast<const float4*>(gh + 4);
@@ -103,6 +121,7 @@ __global__ void qk_rmsnorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   if (live) *reinterpret_cast<uint4*>(y + r * D + c) = pack8(v);
 }
 
+template <bool kRms>
 __global__ void qk_rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                                       const __nv_bfloat16* __restrict__ dy,
                                       const float* __restrict__ gamma,
@@ -139,8 +158,14 @@ __global__ void qk_rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
     float ss = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) ss += xv[j] * xv[j];
-    const float norm = sqrtf(row_sum(ss, L));
-    const float inv = 1.f / fmaxf(norm, kEps);
+    float norm, inv;
+    if constexpr (kRms) {
+      norm = 0.f;                   // unused: the rms form has no clamp
+      inv = rsqrtf(row_sum(ss, L) / D + kRmsEps);
+    } else {
+      norm = sqrtf(row_sum(ss, L));
+      inv = 1.f / fmaxf(norm, kEps);
+    }
     float dot = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -150,7 +175,11 @@ __global__ void qk_rmsnorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
       dot += xv[j] * gy[j];
     }
     dot = row_sum(dot, L);
-    if (!(norm > kEps)) dot = 0.f;  // the clamp: y = x * scale * gamma / eps
+    if constexpr (kRms) {
+      dot /= D;
+    } else {
+      if (!(norm > kEps)) dot = 0.f;  // the clamp: y = x * scale * gamma / eps
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) gy[j] = (gy[j] - xv[j] * dot) * inv;
     if (live) *reinterpret_cast<uint4*>(dx + r * D + c) = pack8(gy);
@@ -184,15 +213,10 @@ int block_threads(int H, int D) {
   return k * per_token <= 1024 ? k * per_token : 0;
 }
 
-}  // namespace
-
-// x [B, N, H, D] bf16 at element strides (sb, sn, sh, 1); gamma [H, D] f32
-// contiguous; y [B, N, H, D] bf16 contiguous. D / 8 a power of two up to
-// 32. Returns the launch's CUDA error code.
-extern "C" int topiaxl_qk_rmsnorm(const void* x, const void* gamma, void* y,
-                                  int B, int N, int H, int D, long long sb,
-                                  long long sn, long long sh, float scale,
-                                  void* stream) {
+template <bool kRms>
+int launch_fwd(const void* x, const void* gamma, void* y, int B, int N,
+               int H, int D, long long sb, long long sn, long long sh,
+               float scale, void* stream) {
   const long long rows = static_cast<long long>(B) * N * H;
   if (B <= 0 || N <= 0 || block_threads(H, D) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -201,17 +225,64 @@ extern "C" int topiaxl_qk_rmsnorm(const void* x, const void* gamma, void* y,
   const long long per_block = threads / (D >> 3);
   const long long blocks = (rows + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  qk_rmsnorm_fwd_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  qk_rmsnorm_fwd_kernel<kRms><<<static_cast<unsigned>(blocks), threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
       static_cast<__nv_bfloat16*>(y), Rows{sb, sn, sh, N, H}, rows, D,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The number of blocks the backward launches at this shape (the rows of
-// the partial dgamma [blocks, H, D] f32 the caller allocates), or 0 for
-// a shape the kernel does not take.
+template <bool kRms>
+int launch_bwd(const void* x, const void* dy, const void* gamma, void* dx,
+               void* dgamma_part, int blocks, int B, int N, int H, int D,
+               long long sb, long long sn, long long sh, float scale,
+               void* stream) {
+  const long long rows = static_cast<long long>(B) * N * H;
+  const int threads = block_threads(H, D);
+  if (B <= 0 || N <= 0 || blocks <= 0 || threads == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * (threads / (D >> 3)) * D;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qk_rmsnorm_bwd_kernel<kRms>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  qk_rmsnorm_bwd_kernel<kRms><<<blocks, threads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(gamma),
+      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dgamma_part),
+      Rows{sb, sn, sh, N, H}, rows, D, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x [B, N, H, D] bf16 at element strides (sb, sn, sh, 1); gamma [H, D] f32
+// contiguous; y [B, N, H, D] bf16 contiguous. D / 8 a power of two up to
+// 32. Returns the launch's CUDA error code. topiaxl_qk_rmsnorm computes
+// the l2 form, topiaxl_qk_rmsnorm_rms the rms form (header).
+extern "C" int topiaxl_qk_rmsnorm(const void* x, const void* gamma, void* y,
+                                  int B, int N, int H, int D, long long sb,
+                                  long long sn, long long sh, float scale,
+                                  void* stream) {
+  return launch_fwd<false>(x, gamma, y, B, N, H, D, sb, sn, sh, scale, stream);
+}
+
+extern "C" int topiaxl_qk_rmsnorm_rms(const void* x, const void* gamma,
+                                      void* y, int B, int N, int H, int D,
+                                      long long sb, long long sn,
+                                      long long sh, float scale,
+                                      void* stream) {
+  return launch_fwd<true>(x, gamma, y, B, N, H, D, sb, sn, sh, scale, stream);
+}
+
+// The number of blocks the backward launches at this shape, either form
+// (the rows of the partial dgamma [blocks, H, D] f32 the caller
+// allocates), or 0 for a shape the kernel does not take.
 extern "C" int topiaxl_qk_rmsnorm_bwd_blocks(int B, int N, int H, int D,
                                              int sms) {
   const long long rows = static_cast<long long>(B) * N * H;
@@ -227,30 +298,24 @@ extern "C" int topiaxl_qk_rmsnorm_bwd_blocks(int B, int N, int H, int D,
 
 // x as the forward's; dy and dx [B, N, H, D] bf16 contiguous; gamma [H, D]
 // f32; dgamma_part [blocks, H, D] f32, blocks from
-// topiaxl_qk_rmsnorm_bwd_blocks.
+// topiaxl_qk_rmsnorm_bwd_blocks. The l2 form, then the rms form.
 extern "C" int topiaxl_qk_rmsnorm_bwd(const void* x, const void* dy,
                                       const void* gamma, void* dx,
                                       void* dgamma_part, int blocks, int B,
                                       int N, int H, int D, long long sb,
                                       long long sn, long long sh,
                                       float scale, void* stream) {
-  const long long rows = static_cast<long long>(B) * N * H;
-  const int threads = block_threads(H, D);
-  if (B <= 0 || N <= 0 || blocks <= 0 || threads == 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(float) * (threads / (D >> 3)) * D;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qk_rmsnorm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  qk_rmsnorm_bwd_kernel<<<blocks, threads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(gamma),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dgamma_part),
-      Rows{sb, sn, sh, N, H}, rows, D, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<false>(x, dy, gamma, dx, dgamma_part, blocks, B, N, H, D,
+                           sb, sn, sh, scale, stream);
+}
+
+extern "C" int topiaxl_qk_rmsnorm_rms_bwd(const void* x, const void* dy,
+                                          const void* gamma, void* dx,
+                                          void* dgamma_part, int blocks,
+                                          int B, int N, int H, int D,
+                                          long long sb, long long sn,
+                                          long long sh, float scale,
+                                          void* stream) {
+  return launch_bwd<true>(x, dy, gamma, dx, dgamma_part, blocks, B, N, H, D,
+                          sb, sn, sh, scale, stream);
 }

@@ -242,6 +242,23 @@ class MultiHeadRMSNorm(nn.Module):
         return qk_rms_norm(x, self.gamma.float(), self.scale)
 
 
+class RMSNorm(nn.Module):
+    """RMS norm of each head of queries or keys [B, N, H, D] with one gain
+    vector shared by the heads (FLUX's ``RMSNorm`` in its ``QKNorm``, key
+    ``scale`` [D], ones at init): ``x * rsqrt(mean(x^2) + 1e-6) * scale``,
+    in f32 (``ops/qk_norm.py``'s "rms" form; the gain is handed to it
+    expanded over the heads, so its gradient sums over them)."""
+
+    def __init__(self, dim: int, param_dtype=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(dim, device=META,
+                                              dtype=param_dtype or dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gain = self.scale.float().expand(x.shape[2], -1).contiguous()
+        return qk_rms_norm(x, gain, 1.0, form="rms")
+
+
 class SelfAttention(nn.Module):
     """Fused-QKV self-attention (keys ``qkv``, ``proj``; both W8A8 when
     ``quant``). ``backend`` and ``group`` go to ``multi_head_attention``:

@@ -62,7 +62,8 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
             "flash_attn_bwd_dkv": 0, "ln_modulate": 0,
             "ln_modulate_residual": 0, "mma_rate_loop": 0,
             "dot_form_chain": 0, "dot_form_accum": 0, "qk_rmsnorm": 0,
-            "qk_rmsnorm_bwd": 0}
+            "qk_rmsnorm_bwd": 0, "qk_rmsnorm_rms": 0,
+            "qk_rmsnorm_rms_bwd": 0}
 # flash forward launches by tile layout and by loop, single-pass flash
 # backward launches by loop, beside ``launches``
 fwd_layouts = {"split": 0, "swizzled": 0}
@@ -101,13 +102,15 @@ _SIGNATURES = {
     # int8, ta, tb, coef, N
     "topiaxl_mma_probe_occupancy": [_I] * 5,
     # x, gamma, y; B, N, H, D; 3 strides of x; scale; stream
-    # (csrc/qk_rmsnorm.cu)
+    # (csrc/qk_rmsnorm.cu; the l2 form, then the rms form)
     "topiaxl_qk_rmsnorm": [_P] * 3 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    "topiaxl_qk_rmsnorm_rms": [_P] * 3 + [_I] * 4 + [_L] * 3 + [_F, _P],
     # B, N, H, D, SMs
     "topiaxl_qk_rmsnorm_bwd_blocks": [_I] * 5,
     # x, dy, gamma, dx, dgamma partials; blocks, B, N, H, D; 3 strides of
     # x; scale; stream
     "topiaxl_qk_rmsnorm_bwd": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
+    "topiaxl_qk_rmsnorm_rms_bwd": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
 }
 
 

@@ -19,6 +19,15 @@ dtype), and the options the port does not implement (a patch size other
 than 1, ``pe_mode`` other than ``ape``, ``share_mod``,
 ``qk_rms_norm_cross``) raise. ``cond_drop_prob`` is the trainer's
 ``p_uncond``.
+Hunyuan3D-2's shape DiT (``Hunyuan3DDiT``, also under its config's
+``target`` path and ``topiaxl.Hunyuan3DDiT``) takes the keys of its
+published ``config.yaml`` (``in_channels``, ``context_in_dim``,
+``hidden_size``, ``depth``, ``depth_single_blocks``, ...) and the port's
+``num_latents`` (the ShapeVAE's latent count), ``cond_drop_prob`` and
+``dtype``; ``axes_dim`` and ``theta`` are accepted and unused, as in the
+published model (its latents take no position embedding), and
+``guidance_embed: true`` or a ``time_factor`` other than 1000 (the port's
+objective hands the model 1000 t) raise.
 ``scan_blocks: true`` builds the unrolled DiT: JAX's scan over the blocks
 is the same math in a layout that compiles faster on the TPU, and the
 port has no stacked layout (``core/weights.py`` reads JAX's stacked
@@ -103,6 +112,29 @@ def make_ss_flow(device=None, generator=None, param_dtype=None, **kw):
         num_blocks=kw.get("num_blocks", 24), num_heads=heads,
         mlp_ratio=kw.get("mlp_ratio", 4.0),
         qk_rms_norm=bool(kw.get("qk_rms_norm", False)),
+        cond_drop_prob=kw.get("cond_drop_prob", 0.0), dtype=_dtype(kw),
+        param_dtype=param_dtype, device=device, generator=generator)
+
+
+@register("topiaxl.Hunyuan3DDiT", "Hunyuan3DDiT",
+          "hy3dgen.shapegen.models.Hunyuan3DDiT")
+def make_hunyuan3d_dit(device=None, generator=None, param_dtype=None, **kw):
+    from .models.mmdit import Hunyuan3DDiT
+
+    unsupported = {"guidance_embed": False, "time_factor": 1000}
+    for key, only in unsupported.items():
+        if kw.get(key, only) != only:
+            raise ValueError(f"Hunyuan3DDiT: {key}={kw[key]!r} is not "
+                             f"implemented (only {only!r})")
+    return Hunyuan3DDiT(
+        in_channels=kw.get("in_channels", 64),
+        context_in_dim=kw.get("context_in_dim", 1536),
+        hidden_size=kw.get("hidden_size", 1024),
+        mlp_ratio=kw.get("mlp_ratio", 4.0), num_heads=kw.get("num_heads", 16),
+        depth=kw.get("depth", 16),
+        depth_single_blocks=kw.get("depth_single_blocks", 32),
+        qkv_bias=bool(kw.get("qkv_bias", True)),
+        num_latents=kw.get("num_latents", 3072),
         cond_drop_prob=kw.get("cond_drop_prob", 0.0), dtype=_dtype(kw),
         param_dtype=param_dtype, device=device, generator=generator)
 
