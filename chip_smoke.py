@@ -197,6 +197,18 @@ flash #1 and #4 beside the pair at the joint shape 4 x 4442 x 4442 x 16 x
 ``configs/hunyuan3d_dit.yml`` (``MMDIT_LAUNCHES``, 48 ``overlapped``
 backwards a step); its rows print as ``{"mmdit": ...}``.
 
+After ss_flow, adamw_ema runs the trainers' clip + AdamW + EMA kernel
+(``csrc/adamw_ema.cu``) on each trainer's parameters as ``cli.train``
+builds them (the flagship DiT, TRELLIS's flow transformer, Hunyuan3D-2's
+shape DiT): one step against the plain foreach version with a planted
+fault (no second-moment bias correction), one launch a call, ms beside
+its 36 B-a-parameter bound, the plain version's ms and
+``torch.optim.AdamW(fused=True)``'s (a yardstick the port never calls),
+and the host's median ms a call of ``fused_adamw_ema_update``, the kernel's
+wrapper and the plain version, the card idle at each; its rows print
+as ``{"adamw_ema": ...}``. Every training phase's launch table holds one
+``adamw_ema`` launch a step; serving, stage 2 and data preparation none.
+
 The serving phases (6-9) also check each image's ``recon.jpg`` (the
 renderer's frontal rgb | prim-box snapshot, 518 x 1036) and print its
 seconds. After stage 2 come four phases of the renderer, U^2-Net and
@@ -242,6 +254,7 @@ import gc
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -260,12 +273,12 @@ NO_QK_NORM = {"qk_rmsnorm": 0, "qk_rmsnorm_bwd": 0, "qk_rmsnorm_rms": 0,
               "qk_rmsnorm_rms_bwd": 0}
 # per image at the flagship config: DINOv2's 12 blocks + 25 DDIM steps x
 # 28 DiT blocks x (self + cross); 25 x (28 blocks + final layer); 25 x 28 x 2;
-# serving runs no backward kernel
+# serving runs no backward kernel and no optimizer
 EXPECTED_LAUNCHES = {"flash_attn_fwd": 12 + 25 * 56, "flash_attn_bwd": 0,
                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                      "ln_modulate": 25 * 29,
                      "ln_modulate_residual": 25 * 56, **NO_PROBES,
-                     **NO_QK_NORM}
+                     **NO_QK_NORM, "adamw_ema": 0}
 # the same image's flash forwards by tile layout (flash_attention.
 # fwd_tile_layout): the chain's 1,400 at head dim 72 split (a swizzled
 # 64-column box and one 8-column chunk), DINOv2's 12 at 64 one swizzled box
@@ -284,14 +297,14 @@ def train_launches(remat=False, depth: int = 28) -> dict:
     and three LN kernels twice. A remat policy keeps the flash outputs
     (every policy) and the LN outputs (``dots_plus``), whose kernels then
     run once. ``tests/test_torch_remat.py`` counts the same ops on the CPU
-    at depth 3."""
+    at depth 3. Every step ends in one clip + AdamW + EMA launch."""
     again = 2 if remat is True else 1
     ln_again = 2 if remat and remat != "dots_plus" else 1
     return {"flash_attn_fwd": 2 * depth * again,
             "flash_attn_bwd": 2 * depth, "flash_attn_bwd_dq": 0,
             "flash_attn_bwd_dkv": 0, "ln_modulate": depth * ln_again + 1,
             "ln_modulate_residual": 2 * depth * ln_again, **NO_PROBES,
-            **NO_QK_NORM}
+            **NO_QK_NORM, "adamw_ema": 1}
 
 
 TRAIN_LAUNCHES = train_launches()
@@ -305,16 +318,16 @@ TRAIN_BWD_LOOPS = {"overlapped": 56, "serial": 0}
 TRAIN_LONG_LAUNCHES = {"flash_attn_fwd": 4, "flash_attn_bwd": 4,
                        "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                        "ln_modulate": 3, "ln_modulate_residual": 4,
-                       **NO_PROBES, **NO_QK_NORM}
+                       **NO_PROBES, **NO_QK_NORM, "adamw_ema": 1}
 # one training step of TRELLIS's flow transformer (24 blocks, 16 heads of
 # 64): flash forwards for self-attention (4096 keys) and cross-attention
 # (1374), the single pass (its overlapped loop) for both backwards, the QK
-# norm on q and k, the LN kernels three a block
+# norm on q and k, the LN kernels three a block, one optimizer update
 SS_FLOW_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 48,
                     "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                     "ln_modulate": 24, "ln_modulate_residual": 48,
                     **NO_QK_NORM, "qk_rmsnorm": 48, "qk_rmsnorm_bwd": 48,
-                    **NO_PROBES}
+                    **NO_PROBES, "adamw_ema": 1}
 SS_FLOW_BWD_LOOPS = {"overlapped": 48, "serial": 0}
 SS_FLOW_CONFIG = os.path.join(ROOT, "configs", "trellis_ss_flow.yml")
 # one training step of Hunyuan3D-2's shape DiT (16 double and 32 single
@@ -322,12 +335,12 @@ SS_FLOW_CONFIG = os.path.join(ROOT, "configs", "trellis_ss_flow.yml")
 # a single-pass backward (its overlapped loop) a block over 4442 keys; the
 # rms QK norm on q and k of each stream of a double block and of each
 # single block; LN+modulate before each stream's attention and each single
-# block, LN+modulate+residual into each stream's MLP
+# block, LN+modulate+residual into each stream's MLP, one optimizer update
 MMDIT_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 48,
                   "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                   "ln_modulate": 64, "ln_modulate_residual": 32,
                   **NO_QK_NORM, "qk_rmsnorm_rms": 128,
-                  "qk_rmsnorm_rms_bwd": 128, **NO_PROBES}
+                  "qk_rmsnorm_rms_bwd": 128, **NO_PROBES, "adamw_ema": 1}
 MMDIT_BWD_LOOPS = {"overlapped": 48, "serial": 0}
 MMDIT_CONFIG = os.path.join(ROOT, "configs", "hunyuan3d_dit.yml")
 # one training step, card (bf16 compute, f32 master weights, kernels)
@@ -630,7 +643,7 @@ def ptxas_summary(build_log: str) -> list[str]:
                           "flash_bwd_overlap_kernel",
                           "flash_bwd_wide_kernel", "flash_bwd_dq_kernel",
                           "ln_modulate_kernel", "qk_rmsnorm_fwd_kernel",
-                          "qk_rmsnorm_bwd_kernel",
+                          "qk_rmsnorm_bwd_kernel", "adamw_ema_kernel",
                           "mma_probe_kernel", "reduce_splits_kernel"):
                 if short in name:
                     name = short + name.split(short)[1].split("EEv")[0]
@@ -2893,6 +2906,170 @@ def phase_mmdit(tmp: str) -> dict:
     return rows
 
 
+# adamw_ema: the trainers' parameter sets (each model as cli.train builds
+# it: f32 masters on the card), one update through the kernel against the
+# plain foreach version on copies, both on the card: p, m, v and e within
+# 1e-6 of each tensor's max |plain|, and the change p' - p, beyond one f32
+# ulp of the tensor's largest weight, within 1e-5 of its max |plain
+# change| (where the two round u an ulp apart, p' may land an ulp away: at
+# LayerNorm gains of 1 and lr 1e-4 that ulp is ~1e-3 of the change); the
+# plain version without the second moment's bias correction (a planted
+# fault) must land above the change's bar. 36 bytes a parameter bound it.
+ADAMW_SETS = (("xl_train", FLAGSHIP), ("trellis_ss_flow", SS_FLOW_CONFIG),
+              ("hunyuan3d_dit", MMDIT_CONFIG))
+ADAMW_BYTES = 36
+ADAMW_BARS = {"p": 1e-6, "m": 1e-6, "v": 1e-6, "e": 1e-6, "change": 1e-5}
+
+
+def adamw_gaps(got: dict, ref: dict, p0: list) -> dict:
+    """Worst over the tensors of max |got - ref| / max |ref| for p, m, v,
+    e, and of the change p' - p against ``ref``'s beyond one f32 ulp of
+    the tensor's largest weight, over ``ref``'s max change (p0 the weights
+    before the step)."""
+    import torch
+
+    out = {}
+    for key in "pmve":
+        out[key] = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(got[key], ref[key]) if b.numel())
+    ulp = torch.finfo(torch.float32).eps
+    out["change"] = max(
+        max(float((a - b).abs().max() - ulp * b.abs().max()), 0.0)
+        / float((b - w).abs().max())
+        for a, b, w in zip(got["p"], ref["p"], p0) if w.numel())
+    return out
+
+
+def phase_adamw_ema() -> dict:
+    """The clip + AdamW + EMA kernel (``csrc/adamw_ema.cu``) at the three
+    trainers' parameter sets: its errors against the plain version with a
+    planted fault, its ms beside its 36 B-a-parameter bound, the plain
+    foreach version's ms, ``torch.optim.AdamW(fused=True)``'s (a yardstick:
+    no clip, no EMA; the port never calls it), the host's ms a call
+    (``fused_adamw_ema_update`` through the kernel, the wrapper alone, the
+    plain version alone; each call started with the card idle) and one
+    launch a call. Returns the rows."""
+    import torch
+
+    from topiaxl_torch.cli.train import build_dit
+    from topiaxl_torch.core.config import load_config
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.ops import adamw_ema as A
+    from topiaxl_torch.pipelines import train as T
+
+    rows = {}
+    for tag, config in ADAMW_SETS:
+        gen = torch.Generator("cuda").manual_seed(24)
+        model = build_dit(load_config(config).model.generator, "cuda", gen)
+        params = list(model.parameters())
+        p = [t.data for t in params]
+        n = sum(t.numel() for t in p)
+
+        def draw(scale, like):
+            return [scale * torch.randn(t.shape, generator=gen, device="cuda")
+                    for t in like]
+
+        g, m = draw(1e-3, p), draw(1e-4, p)
+        v = [t.square() for t in draw(1e-4, p)]
+        e = [t + d for t, d in zip(p, draw(1e-3, p))]
+        # the count of a step well into training: bias corrections near 1
+        hyper = dict(lr=1e-4, c1=float(1 - np.float32(0.9) ** 101),
+                     c2=float(1 - np.float32(0.999) ** 101), b1=0.9,
+                     b2=0.999, eps=1e-8, wd=0.01, decay=0.9999)
+        gscale = torch.full((), 0.5, device="cuda")
+        items = len(A.work_items([t.numel() for t in p]))
+
+        def copies(*lists):
+            return [[t.clone() for t in ts] for ts in lists]
+
+        # one step from the same state each way
+        p0, *ref = copies(p, p, m, v, e)
+        before = _cuda.launches["adamw_ema"]
+        A.adamw_ema(p, g, m, v, e, gscale, **hyper)
+        launched = _cuda.launches["adamw_ema"] - before
+        A.adamw_ema_plain(*ref[:1], g, *ref[1:], gscale, **hyper)
+        gaps = adamw_gaps(dict(p=p, m=m, v=v, e=e), dict(zip("pmve", ref)),
+                          p0)
+        del p0, ref
+        torch.cuda.empty_cache()
+        # the next step from the kernel's state, against the plain version
+        # without the second moment's bias correction (c2 = 1)
+        p1, *bad = copies(p, p, m, v, e)
+        A.adamw_ema(p, g, m, v, e, gscale, **hyper)
+        A.adamw_ema_plain(*bad[:1], g, *bad[1:], gscale,
+                          **dict(hyper, c2=1.0))
+        fault = adamw_gaps(dict(p=p, m=m, v=v, e=e), dict(zip("pmve", bad)),
+                           p1)["change"]
+        del p1, bad
+        torch.cuda.empty_cache()
+        if launched != 1 or fault <= ADAMW_BARS["change"] or any(
+                gaps[k] > bar for k, bar in ADAMW_BARS.items()):
+            raise AssertionError(f"adamw_ema {tag}: launches {launched}, gaps "
+                                 f"{gaps} (bars {ADAMW_BARS}), planted fault "
+                                 f"{fault:.3e}")
+        kernel_ms = events_ms(lambda: A.adamw_ema(p, g, m, v, e, gscale,
+                                                  **hyper), 20)
+        plain_ms = events_ms(lambda: A.adamw_ema_plain(p, g, m, v, e, gscale,
+                                                       **hyper), 5)
+        torch.cuda.empty_cache()
+
+        # the host's median ms a call, each call started with the card idle
+        # (so nothing waits on a full queue or a busy pinned buffer): the
+        # trainer's whole update through the kernel, the kernel's wrapper
+        # alone and the plain foreach version alone
+        names = [str(i) for i in range(len(p))]
+        state = T.AdamState(100, dict(zip(names, m)), dict(zip(names, v)))
+        spec = T.make_optimizer(lr=1e-4, weight_decay=0.01, grad_clip=1.0,
+                                schedule="constant")
+        args = (dict(zip(names, g)), state, dict(zip(names, params)),
+                dict(zip(names, e)), spec)
+
+        def host_ms(update, calls=21) -> float:
+            """The median of ``calls`` calls' host ms."""
+            times = []
+            for _ in range(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                update()
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return statistics.median(times)
+
+        host = host_ms(lambda: T.fused_adamw_ema_update(*args))
+        wrapper_host = host_ms(lambda: A.adamw_ema(p, g, m, v, e, gscale,
+                                                   **hyper))
+        plain_host = host_ms(lambda: A.adamw_ema_plain(p, g, m, v, e, gscale,
+                                                       **hyper))
+        torch.cuda.empty_cache()
+        del m, v, e, state, args
+        for t, d in zip(params, g):
+            t.grad = d
+        opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01,
+                                fused=True)
+        library = events_ms(opt.step, 10)
+        del opt, g, p, params, model
+        bound_ms = ADAMW_BYTES * n / PEAK_BYTES_PER_S * 1e3
+        rows[tag] = dict(params=n, tensors=len(names), items=items,
+                         ms=kernel_ms, bound_ms=bound_ms,
+                         share=bound_ms / kernel_ms, plain_ms=plain_ms,
+                         library_ms=library, host_ms=host,
+                         wrapper_host_ms=wrapper_host,
+                         plain_host_ms=plain_host, gaps=gaps,
+                         planted_fault=fault)
+        log(f"  adamw_ema {tag}: {n} parameters in {len(names)} tensors, "
+            f"{items} work items: {kernel_ms:.4f} ms (bound "
+            f"{bound_ms:.4f} ms at {ADAMW_BYTES} B a parameter, "
+            f"{100 * bound_ms / kernel_ms:.1f}%), plain foreach "
+            f"{plain_ms:.4f} ms, torch.optim.AdamW(fused=True) {library:.4f}"
+            f" ms; host ms a call {host:.3f} (the wrapper {wrapper_host:.3f}"
+            f", the plain version {plain_host:.3f}); gaps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + f" (bars {ADAMW_BARS}), planted fault {fault:.2e}; "
+            f"{card_line()}")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_parity():
     import torch
 
@@ -2939,7 +3116,8 @@ def phase_train_parity():
     ref_loss, ref = step(cpu, "cpu")
     expect = {"flash_attn_fwd": 4, "flash_attn_bwd": 4, "flash_attn_bwd_dq": 0,
               "flash_attn_bwd_dkv": 0, "ln_modulate": 3,
-              "ln_modulate_residual": 4, **NO_PROBES, **NO_QK_NORM}
+              "ln_modulate_residual": 4, **NO_PROBES, **NO_QK_NORM,
+              "adamw_ema": 0}
     if launches != expect:
         raise AssertionError(f"parity step launches {launches} != {expect}")
     gnorm = lambda g: torch.sqrt(sum((v.double() ** 2).sum()  # noqa: E731
@@ -3799,7 +3977,7 @@ TP_GEN_LAUNCHES = {"flash_attn_fwd": TP_GEN_STEPS * 2 * TP_GEN_DEPTH,
                    "flash_attn_bwd_dkv": 0,
                    "ln_modulate": TP_GEN_STEPS * (TP_GEN_DEPTH + 1),
                    "ln_modulate_residual": TP_GEN_STEPS * 2 * TP_GEN_DEPTH,
-                   **NO_PROBES, **NO_QK_NORM}
+                   **NO_PROBES, **NO_QK_NORM, "adamw_ema": 0}
 
 
 # the ranks of the tp, pp and restore phases: argv[1] is the repository,
@@ -4503,6 +4681,8 @@ def main() -> int:
             results[name]["head_dims"] = rows
     with Phase("ss_flow"):
         ss_flow = phase_ss_flow()
+    with Phase("adamw_ema"):
+        adamw = phase_adamw_ema()
     with Phase("probes"):
         results.update(phase_probes())
     with Phase("probe_path"):
@@ -4596,6 +4776,7 @@ def main() -> int:
     log(f"ring launches (kernels line: main paths only): {ring_launches}")
     print(json.dumps({"ss_flow": ss_flow}))
     print(json.dumps({"mmdit": mmdit}))
+    print(json.dumps({"adamw_ema": adamw}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s (limit 1200 s)")
     print(json.dumps({"kernels": kernels}))

@@ -471,7 +471,8 @@ def test_one_step_launches_at_the_published_widths():
     48 (16 joint over 4442 keys in the double blocks, 32 in the single
     blocks), the single-pass backward 48, the RMS QK norm on q and k of
     each stream of each double block and of each single block (128 + 128),
-    none of TRELLIS's form, LN+modulate 64 and 32."""
+    none of TRELLIS's form, LN+modulate 64 and 32, one AdamW + EMA
+    update."""
     from topiaxl_torch.ops import _cuda
     from topiaxl_torch.pipelines import train as T
 
@@ -491,4 +492,4 @@ def test_one_step_launches_at_the_published_widths():
     assert diff == dict(
         {k: 0 for k in before}, flash_attn_fwd=48, flash_attn_bwd=48,
         qk_rmsnorm_rms=128, qk_rmsnorm_rms_bwd=128, ln_modulate=64,
-        ln_modulate_residual=32)
+        ln_modulate_residual=32, adamw_ema=1)

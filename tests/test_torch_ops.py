@@ -312,9 +312,9 @@ def test_kernel_sources_build_key():
     """The build is keyed on the sources: every .cu file and shared header
     is found, and editing nothing gives the same directory."""
     names = [p.name for p in _cuda.sources()]
-    assert names == ["flash_attn_bwd.cu", "flash_attn_bwd_sm90.cu",
-                     "flash_attn_fwd.cu", "ln_modulate.cu", "mma_probe.cu",
-                     "qk_rmsnorm.cu"]
+    assert names == ["adamw_ema.cu", "flash_attn_bwd.cu",
+                     "flash_attn_bwd_sm90.cu", "flash_attn_fwd.cu",
+                     "ln_modulate.cu", "mma_probe.cu", "qk_rmsnorm.cu"]
     assert [p.name for p in _cuda.headers()] == ["flash_fwd_layout.cuh",
                                                  "sm90.cuh"]
     assert _cuda.build_dir() == _cuda.build_dir()

@@ -444,7 +444,7 @@ def test_one_step_launches_at_the_published_widths():
     """One training step of the 24-block model at batch 8: flash forward 48
     (24 self over 4096 keys, 24 cross over 1374), the single pass 48 (at
     head dim 64 ``bwd_form`` takes it at every key length; no pair), the
-    QK norm 48 + 48, LN+modulate 24 and 48."""
+    QK norm 48 + 48, LN+modulate 24 and 48, one AdamW + EMA update."""
     from topiaxl_torch.ops import _cuda
     from topiaxl_torch.pipelines import train as T
 
@@ -465,4 +465,4 @@ def test_one_step_launches_at_the_published_widths():
     assert diff == dict(
         {k: 0 for k in before}, flash_attn_fwd=48, flash_attn_bwd=48,
         qk_rmsnorm=48, qk_rmsnorm_bwd=48, ln_modulate=24,
-        ln_modulate_residual=48)
+        ln_modulate_residual=48, adamw_ema=1)

@@ -11,7 +11,13 @@ user's cache (``$XDG_CACHE_HOME`` or ``~/.cache``, then
 headers they share (``csrc/*.cuh``) and the flags; the compiler's output
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside it in
 ``build.log``. The build happens at the first kernel launch, never at
-import. A failed build raises.
+import. A failed build raises. The sources: the flash forward
+(``flash_attn_fwd.cu``), the single-pass backward and the two-pass pair
+(``flash_attn_bwd_sm90.cu``, ``flash_attn_bwd.cu``), the LN + modulate
+kernels (``ln_modulate.cu``), the tensor-core probes (``mma_probe.cu``),
+the QK norm (``qk_rmsnorm.cu``) and the trainers' clip + AdamW + EMA
+update, one launch over every parameter (``adamw_ema.cu``,
+``ops/adamw_ema.py``).
 
 Every wrapper adds one to ``launches[<kernel>]`` where it launches its
 kernel and nowhere else, so a run can show that its main path went
@@ -63,7 +69,7 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "flash_attn_bwd_dq": 0,
             "ln_modulate_residual": 0, "mma_rate_loop": 0,
             "dot_form_chain": 0, "dot_form_accum": 0, "qk_rmsnorm": 0,
             "qk_rmsnorm_bwd": 0, "qk_rmsnorm_rms": 0,
-            "qk_rmsnorm_rms_bwd": 0}
+            "qk_rmsnorm_rms_bwd": 0, "adamw_ema": 0}
 # flash forward launches by tile layout and by loop, single-pass flash
 # backward launches by loop, beside ``launches``
 fwd_layouts = {"split": 0, "swizzled": 0}
@@ -83,6 +89,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 # q, k, v, o, dout, lse, delta, dq, dk, dv; B, H, Sq, Sk, D; 15 strides;
 # scale; stream (csrc/flash_attn_bwd.cu, csrc/flash_attn_bwd_sm90.cu)
 _BWD = [_P] * 10 + [_I] * 5 + [_L] * 15 + [_F, _P]
@@ -111,6 +118,10 @@ _SIGNATURES = {
     # x; scale; stream
     "topiaxl_qk_rmsnorm_bwd": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
     "topiaxl_qk_rmsnorm_rms_bwd": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
+    # tensor table, work items; items; gscale; lr, c1, c2; b1, b2; eps,
+    # wd; decay; stream (csrc/adamw_ema.cu)
+    "topiaxl_adamw_ema": [_P] * 2 + [_I, _P] + [_F] * 3 + [_D] * 2
+                         + [_F] * 2 + [_D, _P],
 }
 
 

@@ -16,8 +16,8 @@ velocity MSE, ``diffusion/flow.py``); the model draws the mask
 
 The model holds f32 master weights (``DiT(param_dtype=torch.float32)``);
 Adam moments and EMA are f32 tensors keyed by parameter name. The update
-runs in place on the parameters, moments, EMA and gradients, where the
-JAX package returns new trees.
+runs in place on the parameters, moments and EMA, where the JAX package
+returns new trees; on the card it is one kernel over every tensor.
 
 Random draws come from generators seeded with ``(seed, step)``, so a
 resumed run draws what an uninterrupted one would.
@@ -74,6 +74,7 @@ from ..diffusion.timestep_sampler import (
     lsm_sample,
     lsm_update,
 )
+from ..ops.adamw_ema import adamw_ema
 from ..parallel.collectives import all_mean, full, local
 
 # the axes a global batch is split over; the others (tp, sp, pp) hold the
@@ -138,7 +139,9 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
     the clip taking effect only when ``gnorm >= clip`` (no epsilon on the
     norm, unlike ``clip_grad_norm_``); the learning rate from the
     schedule at the count before this step; the EMA folded in after the
-    parameter update. Dicts are keyed alike; ``grads`` is scaled in place.
+    parameter update. Dicts are keyed alike; ``grads`` is left as it is.
+    After the norm, one pass over every tensor (``ops/adamw_ema.py``: the
+    CUDA kernel on the card, its plain foreach twin on the CPU).
     Returns the global norm of the prescaled gradient (a device scalar).
     FSDP2 parameters update their local shards; ``norm_group`` (the ranks
     a shard is split over) sums the squared norms of the shards. Under
@@ -175,22 +178,9 @@ def fused_adamw_ema_update(grads: dict, opt_state: AdamState, params: dict,
     if clip:
         gscale = grad_prescale * torch.where(gnorm < clip, 1.0, clip / gnorm)
     else:
-        gscale = torch.tensor(grad_prescale, device=gnorm.device)
-    torch._foreach_mul_(g, gscale)
-    torch._foreach_mul_(m, b1)
-    torch._foreach_add_(m, g, alpha=1.0 - b1)
-    torch._foreach_mul_(v, b2)
-    torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
-    denom = torch._foreach_div(v, c2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, eps)
-    upd = torch._foreach_div(m, c1)
-    torch._foreach_div_(upd, denom)
-    if wd:
-        torch._foreach_add_(upd, p, alpha=wd)
-    torch._foreach_add_(p, upd, alpha=-lr)
-    torch._foreach_mul_(e, ema_decay)
-    torch._foreach_add_(e, p, alpha=1.0 - ema_decay)
+        gscale = torch.full((), grad_prescale, device=gnorm.device)
+    adamw_ema(p, g, m, v, e, gscale, lr=lr, c1=c1, c2=c2, b1=b1, b2=b2,
+              eps=eps, wd=wd, decay=ema_decay)
     opt_state.count += 1
     return gnorm
 
