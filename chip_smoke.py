@@ -195,7 +195,17 @@ q read in place from a single block's linear1 rows at 4 x 4442 x 16 x 64,
 flash #1 and #4 beside the pair at the joint shape 4 x 4442 x 4442 x 16 x
 64 (a ragged last q tile), then three ``cli.train`` steps of
 ``configs/hunyuan3d_dit.yml`` (``MMDIT_LAUNCHES``, 48 ``overlapped``
-backwards a step); its rows print as ``{"mmdit": ...}``.
+backwards a step); its rows print as ``{"mmdit": ...}``. After mmdit, h21
+runs Hunyuan3D-2.1's shape DiT's kernels at its training shapes (batch 2,
+16 heads of 128): the QK norm's rms form at 2 x 4097 x 16 x 128, flash #1
+(its ping-pong loop) and the backward the rule takes (the pair over 4097
+keys, the single pass over 1370) beside the other form at 2 x 4097 x
+{4097, 1370} x 16 x 128 (ragged last q and key tiles), one MoE block at
+the published widths forward and backward with no host sync and its
+grouped product's rate, then three ``cli.train`` steps of
+``configs/hunyuan3d21_dit.yml`` (``H21_LAUNCHES``, 13 ``serial``
+backwards a step, every MoE layer's slots 2 x 8194 a step); its rows
+print as ``{"h21": ...}``.
 
 After ss_flow, adamw_ema runs the trainers' clip + AdamW + EMA kernel
 (``csrc/adamw_ema.cu``) on each trainer's parameters as ``cli.train``
@@ -343,6 +353,24 @@ MMDIT_LAUNCHES = {"flash_attn_fwd": 48, "flash_attn_bwd": 48,
                   "qk_rmsnorm_rms_bwd": 128, **NO_PROBES, "adamw_ema": 1}
 MMDIT_BWD_LOOPS = {"overlapped": 48, "serial": 0}
 MMDIT_CONFIG = os.path.join(ROOT, "configs", "hunyuan3d_dit.yml")
+# one training step of Hunyuan3D-2.1's shape DiT as configs/hunyuan3d21_dit.yml
+# cuts it (13 blocks, 16 heads of 128, 4096 latent tokens and the time
+# token, 1370 conditioning tokens): in each block a flash forward over 4097
+# and over 1370 keys (the ping-pong loop at 128), the pair for the
+# self-attention's backward (past FUSED_BWD_MAX_KEYS at 80-128) and the
+# single pass (its serial loop at 128) for the cross-attention's; the rms
+# QK norm on the self-attention's q and k and the cross-attention's q and
+# k; LN+modulate for norm1 in every block and skip_norm in the 6 skip
+# blocks, LN+modulate+residual for norm2 and norm3; one optimizer update.
+# The experts' grouped products are PyTorch's (torch._grouped_mm): no
+# counted kernel.
+H21_LAUNCHES = {"flash_attn_fwd": 26, "flash_attn_bwd": 13,
+                "flash_attn_bwd_dq": 13, "flash_attn_bwd_dkv": 13,
+                "ln_modulate": 19, "ln_modulate_residual": 26,
+                **NO_QK_NORM, "qk_rmsnorm_rms": 52, "qk_rmsnorm_rms_bwd": 52,
+                **NO_PROBES, "adamw_ema": 1}
+H21_BWD_LOOPS = {"overlapped": 0, "serial": 13}
+H21_CONFIG = os.path.join(ROOT, "configs", "hunyuan3d21_dit.yml")
 # one training step, card (bf16 compute, f32 master weights, kernels)
 # against the CPU (f32, plain versions) at full width, depth 2: the loss
 # and the global gradient norm relative to the CPU's, and the cosine of
@@ -2906,6 +2934,166 @@ def phase_mmdit(tmp: str) -> dict:
     return rows
 
 
+def flash_d128_rows(tag: str, q, k, v, do, scale: float) -> dict:
+    """#1 (its ping-pong loop at 128) and the backward the rule takes
+    (``bwd_form``) through the wrappers, beside the other form
+    (``padded_bwd_launch``), against the plain versions on the first batch
+    row within ``ATTN_REL_BAR``, ``LSE_ABS_BAR`` and ``ATTN_BWD_REL_BAR``,
+    the unmasked-padding and no-delta faults above them; ms (CUDA graphs)
+    beside the bounds. Returns the row."""
+    import torch
+
+    from topiaxl_torch.ops import _cuda
+    from topiaxl_torch.ops import flash_attention as fa
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    shape = f"{B}x{Sq}x{Sk}x{H}x{D}"
+    before = dict(_cuda.fwd_loops), dict(_cuda.launches)
+    o, lse = fa._forward(q, k, v, scale, return_lse=True)
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    loops = {n: c - before[0][n] for n, c in _cuda.fwd_loops.items()}
+    names = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    launched = {n: _cuda.launches[n] - before[1][n] for n in names}
+    part = [t[:1] for t in (q, k, v)]
+    o_ref, lse_ref = fa.flash_attention_plain(*part, scale, return_lse=True)
+    o_rel = rel_err(o[:1], o_ref)
+    lse_err = (lse[:1] - lse_ref).abs().max().item()
+    unmasked = (rel_err(fa.flash_attention_unmasked(*part, scale), o_ref)
+                if Sk % fa.KEY_TILE else None)
+    del o_ref, lse_ref
+    ref = fa.flash_attention_bwd_plain(*part, o[:1], lse[:1], do[:1], scale)
+    b_rel = max(rel_err(a[:1], r) for a, r in zip(grads, ref))
+    no_delta = max(rel_err(a, r) for a, r in zip(fa.flash_attention_bwd_plain(
+        *part, o[:1], lse[:1], do[:1], scale, with_delta=False)[:2], ref[:2]))
+    del grads, ref
+    f_ms = cuda_ms(lambda: fa._forward(q, k, v, scale, return_lse=True), 10)
+    f_bound, _ = bound(4 * B * H * Sq * Sk * D,
+                       2 * (2 * B * Sq + 2 * B * Sk) * H * D)
+    form = fa.bwd_form(Sk, D)
+    ms = {}
+    for name in ("fused", "pair"):
+        _, launch, _ = padded_bwd_launch(name, q, k, v, o, lse, do, scale)
+        ms[name] = cuda_ms(launch, 3)
+    b_bound, _ = bound(8 * B * H * Sq * Sk * D,
+                       2 * B * H * D * (4 * Sq + 4 * Sk) + 4 * B * H * Sq)
+    rule_ms = ms["fused" if form == "fused" else "pair"]
+    log(f"  h21 {tag} {shape}: forward (loops {loops}) o max rel err "
+        f"{o_rel:.3e} (bar {ATTN_REL_BAR}; unmasked-padding fault "
+        f"{unmasked}), lse {lse_err:.3e}, {f_ms:.4f} ms (bound {f_bound:.4f}, "
+        f"share {f_bound / f_ms:.1%}); backward {form} (launches {launched}) "
+        f"max rel err {b_rel:.3e} (bar {ATTN_BWD_REL_BAR}; no-delta fault "
+        f"{no_delta:.3e}), single pass {ms['fused']:.4f} ms, pair "
+        f"{ms['pair']:.4f} ms (bound {b_bound:.4f}, the rule's share "
+        f"{b_bound / rule_ms:.1%}) ({card_line()})")
+    pair = form != "fused"
+    if not (o_rel <= ATTN_REL_BAR and lse_err <= LSE_ABS_BAR
+            and b_rel <= ATTN_BWD_REL_BAR < no_delta
+            and (unmasked is None or unmasked > ATTN_REL_BAR)):
+        raise AssertionError(f"h21 {tag}: o {o_rel}, lse {lse_err}, backward "
+                             f"{b_rel}, faults {unmasked} / {no_delta}")
+    if loops != {"overlapped": 0, "pingpong": 1} or launched != dict(
+            zip(names, (int(not pair), int(pair), int(pair)))):
+        raise AssertionError(f"h21 {tag}: loops {loops}, launches {launched}")
+    return dict(at=shape, fwd_ms=f_ms, fwd_bound_ms=f_bound, bwd_form=form,
+                bwd_ms=rule_ms, bwd_single_pass_ms=ms["fused"],
+                bwd_pair_ms=ms["pair"], bwd_bound_ms=b_bound,
+                max_rel_err=max(o_rel, b_rel))
+
+
+def phase_h21(tmp: str) -> dict:
+    """Hunyuan3D-2.1's shape DiT at its training shapes (batch 2, 16 heads
+    of 128, 4096 latent tokens and the time token, 1370 conditioning
+    tokens): the QK norm's rms form at D 128 on q read in place from the
+    joined heads (``qk_norm_rows``); flash #1 and the backward the rule
+    takes at 2 x 4097 x {4097, 1370} x 16 x 128, ragged last q (and key)
+    tiles (``flash_d128_rows``); one MoE block at the published widths,
+    forward and backward under ``torch.cuda.set_sync_debug_mode("error")``
+    (no read to the host), its grouped products timed beside their
+    operations; then three ``cli.train`` steps of
+    ``configs/hunyuan3d21_dit.yml`` (``cli_train_rows``, each step's
+    launches ``H21_LAUNCHES``), every MoE layer's slot counter at 2 x
+    8194 a step. Returns the rows."""
+    import torch
+
+    from topiaxl_torch.models import hunyuandit as H
+    from topiaxl_torch.models import moe as MOE
+
+    g = torch.Generator("cuda").manual_seed(25)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    B, L, M, H_, D = 2, 4097, 1370, 16, 128
+    joined = randn(B, L, H_, 3 * D)
+    gain = 1 + 0.1 * torch.randn((D,), generator=g, device="cuda")
+    rows = qk_norm_rows(joined[..., :D], gain.expand(H_, D).contiguous(),
+                        randn(B, L, H_, D), 1.0, "rms",
+                        "q in place in the joined heads")
+    q, k, v = (t.contiguous() if i < 2 else t
+               for i, t in enumerate(joined.split(D, dim=-1)))
+    rows["flash_self"] = flash_d128_rows("self", q, k, v, randn(B, L, H_, D),
+                                         D ** -0.5)
+    kv = randn(B, M, H_, 2 * D)
+    rows["flash_cross"] = flash_d128_rows(
+        "cross", randn(B, L, H_, D), kv[..., :D].contiguous(), kv[..., D:],
+        randn(B, L, H_, D), D ** -0.5)
+    del joined, q, k, v, kv
+    torch.cuda.empty_cache()
+    blk = H.HunYuanDiTBlock(2048, 16, 1024, skip=True, moe=True,
+                            param_dtype=torch.float32)
+    blk.to_empty(device="cuda")
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=g)
+            elif p.dim() == 1:
+                p.normal_(1.0, 0.02, generator=g)
+            else:
+                p.normal_(0.0, p.shape[-1] ** -0.5, generator=g)
+    blk.moe.counter = "block"
+    blk.train()
+    x, skip = (randn(B, L, 2048).requires_grad_() for _ in range(2))
+    y = torch.nn.functional.layer_norm(torch.randn(
+        (B, M, 1024), generator=g, device="cuda"), (1024,)).bfloat16()
+    blk(x, y, skip).float().square().mean().backward()
+    torch.cuda.synchronize()
+    MOE.reset_expert_tokens()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blk(x, y, skip).float().square().mean().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counted = MOE.read_expert_tokens()["block"]
+    if sum(counted) != 2 * B * L:
+        raise AssertionError(f"h21 MoE block: slots {counted}")
+    flat = x.detach().reshape(-1, 2048)
+    experts, _, _ = blk.moe.route(flat)
+    dest, offs, row_expert, _ = MOE.dispatch_plan(experts.reshape(-1), 8)
+    buf = flat.new_zeros((MOE.rows(2 * B * L, 8), 2048)).index_copy(
+        0, dest, flat.repeat_interleave(2, dim=0))
+    w1 = blk.moe.fc1_weight.detach().bfloat16()
+    ms = cuda_ms(lambda: MOE.grouped_mm(buf, w1.transpose(1, 2), offs), 10)
+    flops = 2 * 2 * B * L * 2048 * 8192
+    log(f"  h21 MoE block: forward and backward with no host sync, slots by "
+        f"expert {counted}; fc1's grouped product {ms:.4f} ms ("
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {flops / ms / 1e9 / 989.4:.1%} of "
+        f"the bf16 peak) ({card_line()})")
+    rows["moe_fc1"] = dict(at=f"{2 * B * L}x2048x8192 in 8 groups", ms=ms,
+                           tflops=flops / ms / 1e9, slots=counted)
+    del blk, x, skip, y, flat, buf, w1
+    torch.cuda.empty_cache()
+    MOE.reset_expert_tokens()
+    rows["train"] = cli_train_rows(H21_CONFIG, "h21", H21_LAUNCHES,
+                                   H21_BWD_LOOPS, tmp)
+    slots = MOE.read_expert_tokens()
+    if len(slots) != 4 or any(sum(c) != 3 * 2 * B * L for c in slots.values()):
+        raise AssertionError(f"h21 cli.train: slots {slots}")
+    log(f"  h21 cli.train: slots by layer and expert over three steps {slots}")
+    return rows
+
+
 # adamw_ema: the trainers' parameter sets (each model as cli.train builds
 # it: f32 masters on the card), one update through the kernel against the
 # plain foreach version on copies, both on the card: p, m, v and e within
@@ -4729,6 +4917,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("mmdit"):
             mmdit = phase_mmdit(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("h21"):
+            h21 = phase_h21(tmp)
     with Phase("train_parity"):
         phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4776,6 +4967,7 @@ def main() -> int:
     log(f"ring launches (kernels line: main paths only): {ring_launches}")
     print(json.dumps({"ss_flow": ss_flow}))
     print(json.dumps({"mmdit": mmdit}))
+    print(json.dumps({"h21": h21}))
     print(json.dumps({"adamw_ema": adamw}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s (limit 1200 s)")

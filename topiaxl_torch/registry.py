@@ -28,6 +28,18 @@ published ``config.yaml`` (``in_channels``, ``context_in_dim``,
 published model (its latents take no position embedding), and
 ``guidance_embed: true`` or a ``time_factor`` other than 1000 (the port's
 objective hands the model 1000 t) raise.
+Hunyuan3D-2.1's shape DiT (``HunYuanDiTPlain``, also under its config's
+``target`` path and ``topiaxl.HunYuanDiTPlain``) takes the keys of its
+published ``config.yaml`` (``input_size``, ``in_channels``,
+``hidden_size``, ``context_dim``, ``depth``, ``num_heads``,
+``num_moe_layers``, ``num_experts``, ``moe_top_k``, ...) and the port's
+``cond_drop_prob`` and ``dtype``; ``text_len`` is accepted and unused (it
+sizes only the attention pooling), and what the published model does not
+use raises: decoupled cross-attention, attention pooling, position
+embeddings, ``guidance_cond_proj_dim``, ``timested_modulate``, an RMS
+``norm_type``, a LayerNorm ``qk_norm_type``, ``qk_norm`` false,
+``qkv_bias`` true, an ``mlp_ratio`` other than 4 (the release's blocks are
+4C wide whatever it says).
 ``scan_blocks: true`` builds the unrolled DiT: JAX's scan over the blocks
 is the same math in a layout that compiles faster on the TPU, and the
 port has no stacked layout (``core/weights.py`` reads JAX's stacked
@@ -135,6 +147,32 @@ def make_hunyuan3d_dit(device=None, generator=None, param_dtype=None, **kw):
         depth_single_blocks=kw.get("depth_single_blocks", 32),
         qkv_bias=bool(kw.get("qkv_bias", True)),
         num_latents=kw.get("num_latents", 3072),
+        cond_drop_prob=kw.get("cond_drop_prob", 0.0), dtype=_dtype(kw),
+        param_dtype=param_dtype, device=device, generator=generator)
+
+
+@register("topiaxl.HunYuanDiTPlain", "HunYuanDiTPlain",
+          "hy3dshape.models.denoisers.hunyuandit.HunYuanDiTPlain")
+def make_hunyuan3d21_dit(device=None, generator=None, param_dtype=None, **kw):
+    from .models.hunyuandit import HunYuanDiTPlain
+
+    unsupported = {"norm_type": "layer", "qk_norm_type": "rms",
+                   "with_decoupled_ca": False, "use_attention_pooling": False,
+                   "use_pos_emb": False, "guidance_cond_proj_dim": None,
+                   "timested_modulate": False, "mlp_ratio": 4.0,
+                   "qk_norm": True, "qkv_bias": False}
+    for key, only in unsupported.items():
+        if kw.get(key, only) != only:
+            raise ValueError(f"HunYuanDiTPlain: {key}={kw[key]!r} is not "
+                             f"implemented (only {only!r})")
+    return HunYuanDiTPlain(
+        input_size=kw.get("input_size", 4096),
+        in_channels=kw.get("in_channels", 64),
+        hidden_size=kw.get("hidden_size", 2048),
+        context_dim=kw.get("context_dim", 1024), depth=kw.get("depth", 21),
+        num_heads=kw.get("num_heads", 16),
+        num_moe_layers=kw.get("num_moe_layers", 6),
+        num_experts=kw.get("num_experts", 8), moe_top_k=kw.get("moe_top_k", 2),
         cond_drop_prob=kw.get("cond_drop_prob", 0.0), dtype=_dtype(kw),
         param_dtype=param_dtype, device=device, generator=generator)
 
