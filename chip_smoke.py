@@ -200,7 +200,8 @@ runs Hunyuan3D-2.1's shape DiT's kernels at its training shapes (batch 2,
 16 heads of 128): the QK norm's rms form at 2 x 4097 x 16 x 128, flash #1
 (its ping-pong loop) and the backward the rule takes (the pair over 4097
 keys, the single pass over 1370) beside the other form at 2 x 4097 x
-{4097, 1370} x 16 x 128 (ragged last q and key tiles), one MoE block at
+{4097, 1370} x 16 x 128 (ragged last q and key tiles), both LN kernels
+at 2 x 4097 x 2048 with the blocks' operands, one MoE block at
 the published widths forward and backward with no host sync and its
 grouped product's rate, then three ``cli.train`` steps of
 ``configs/hunyuan3d21_dit.yml`` (``H21_LAUNCHES``, 13 ``serial``
@@ -955,9 +956,6 @@ def phase_kernels() -> dict:
     from topiaxl_torch.ops.flash_attention import (
         KEY_TILE, flash_attention, flash_attention_plain,
         flash_attention_unmasked)
-    from topiaxl_torch.ops.fused_ln import (
-        ln_modulate, ln_modulate_plain, ln_modulate_residual,
-        ln_modulate_residual_plain)
 
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
@@ -1025,43 +1023,65 @@ def phase_kernels() -> dict:
         x, delta = randn(B, 2048, D), randn(B, 2048, D)
         mods = randn(B, 9 * D) * 0.5
         sh, sc, gate = mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D]
-        lns = [("ln_modulate", lambda: (ln_modulate(x, sh, sc),),
-                lambda: (ln_modulate_plain(x, sh, sc),)),
-               ("ln_modulate_residual",
-                lambda: ln_modulate_residual(x, delta, gate, sh, sc),
-                lambda: ln_modulate_residual_plain(x, delta, gate, sh, sc))]
-        for name, kern, plain in lns:
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            excess = max(bf16_ulp_excess(a, b) for a, b in zip(got, ref))
-            err = max((a.float() - b.float()).abs().max().item()
-                      for a, b in zip(got, ref))
-            rel = max(((a.float() - b.float()).abs()
-                       / b.float().abs().clamp_min(1e-3)).max().item()
-                      for a, b in zip(got, ref))
-            ms = cuda_ms(kern, 200)
-            plain_ms = cuda_ms(plain, 50)
-            # bf16 rows in and out once, the [B, D] modulation vectors;
-            # ~10 f32 operations an element outside the tensor cores
-            n_x, n_mod = B * 2048 * D, B * D
-            nbytes = (2 * (2 * n_x + 2 * n_mod) if name == "ln_modulate"
-                      else 2 * (4 * n_x + 3 * n_mod))
-            bound_ms, bound_by = bound(10 * n_x, nbytes, PEAK_F32_FLOPS)
-            log(f"  {name} {B}x2048x1152: max_abs_err {err:.3e}, max rel err "
-                f"{rel:.3e} (|ref| >= 1e-3), max excess over 1 bf16 ulp "
-                f"{excess:.3e} (bar {LN_ABS_SLACK}), kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; kernel/bound {ms / bound_ms:.2f}), library: "
-                f"none (no single PyTorch call computes it)")
-            if not excess <= LN_ABS_SLACK:
-                raise AssertionError(f"{name} at batch {B}: {excess} over 1 "
-                                     f"ulp > {LN_ABS_SLACK}")
-            entry = results.setdefault(name, {
-                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                "at": f"{B}x2048x1152", "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None})
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        for name, row in ln_rows(x, delta, gate, sh, sc).items():
+            entry = results.setdefault(name, dict(
+                max_abs_err=0.0, library_ms=None,
+                **{k: row[k] for k in ("ms", "plain_ms", "at", "bound_ms",
+                                       "bound_by")}))
+            entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
     return results
+
+
+def ln_rows(x, delta, gate, sh, sc) -> dict:
+    """``ln_modulate`` and ``ln_modulate_residual`` on x, delta [B, N, D]
+    with the modulation rows gate, shift, scale [B, D] (any batch stride
+    the kernels take) against their plain versions: each output within
+    one bf16 ulp of the plain result plus ``LN_ABS_SLACK``, the relative
+    error printed, the times beside the bound. Returns {name: row}."""
+    import torch
+
+    from topiaxl_torch.ops.fused_ln import (
+        ln_modulate, ln_modulate_plain, ln_modulate_residual,
+        ln_modulate_residual_plain)
+
+    B, N, D = x.shape
+    at = f"{B}x{N}x{D}"
+    lns = [("ln_modulate", lambda: (ln_modulate(x, sh, sc),),
+            lambda: (ln_modulate_plain(x, sh, sc),)),
+           ("ln_modulate_residual",
+            lambda: ln_modulate_residual(x, delta, gate, sh, sc),
+            lambda: ln_modulate_residual_plain(x, delta, gate, sh, sc))]
+    rows = {}
+    for name, kern, plain in lns:
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        excess = max(bf16_ulp_excess(a, b) for a, b in zip(got, ref))
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, ref))
+        rel = max(((a.float() - b.float()).abs()
+                   / b.float().abs().clamp_min(1e-3)).max().item()
+                  for a, b in zip(got, ref))
+        ms = cuda_ms(kern, 200)
+        plain_ms = cuda_ms(plain, 50)
+        # bf16 rows in and out once, the [B, D] modulation vectors;
+        # ~10 f32 operations an element outside the tensor cores
+        n_x, n_mod = B * N * D, B * D
+        nbytes = (2 * (2 * n_x + 2 * n_mod) if name == "ln_modulate"
+                  else 2 * (4 * n_x + 3 * n_mod))
+        bound_ms, bound_by = bound(10 * n_x, nbytes, PEAK_F32_FLOPS)
+        log(f"  {name} {at}: max_abs_err {err:.3e}, max rel err "
+            f"{rel:.3e} (|ref| >= 1e-3), max excess over 1 bf16 ulp "
+            f"{excess:.3e} (bar {LN_ABS_SLACK}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; kernel/bound {ms / bound_ms:.2f}), library: "
+            f"none (no single PyTorch call computes it)")
+        if not excess <= LN_ABS_SLACK:
+            raise AssertionError(f"{name} at {at}: {excess} over 1 ulp > "
+                                 f"{LN_ABS_SLACK}")
+        rows[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                          plain_ms=plain_ms, at=at, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    return rows
 
 
 # flash_head_dims: the head dims of the instances past 72 and four that the
@@ -3008,7 +3028,9 @@ def phase_h21(tmp: str) -> dict:
     tokens): the QK norm's rms form at D 128 on q read in place from the
     joined heads (``qk_norm_rows``); flash #1 and the backward the rule
     takes at 2 x 4097 x {4097, 1370} x 16 x 128, ragged last q (and key)
-    tiles (``flash_d128_rows``); one MoE block at the published widths,
+    tiles (``flash_d128_rows``); ``ln_modulate`` and
+    ``ln_modulate_residual`` at 2 x 4097 x 2048 with the blocks' operands
+    (``ln_rows``); one MoE block at the published widths,
     forward and backward under ``torch.cuda.set_sync_debug_mode("error")``
     (no read to the host), its grouped products timed beside their
     operations; then three ``cli.train`` steps of
@@ -3040,6 +3062,17 @@ def phase_h21(tmp: str) -> dict:
         "cross", randn(B, L, H_, D), kv[..., :D].contiguous(), kv[..., D:],
         randn(B, L, H_, D), D ** -0.5)
     del joined, q, k, v, kv
+    # the LNs at width 2048 (the launcher's widest-row instance) with the
+    # operands the blocks pass: an affine LN as a modulation (shift the
+    # bias, scale the gain less one, one row for the batch) and a gate of
+    # ones
+    C = 2048
+    weight = 1 + 0.1 * torch.randn((C,), generator=g, device="cuda")
+    bias = 0.1 * torch.randn((C,), generator=g, device="cuda")
+    sh = bias.bfloat16()[None].expand(B, -1)
+    sc = (weight - 1).bfloat16()[None].expand(B, -1)
+    one = torch.ones(C, dtype=torch.bfloat16, device="cuda")[None].expand(B, -1)
+    rows["ln"] = ln_rows(randn(B, L, C), randn(B, L, C), one, sh, sc)
     torch.cuda.empty_cache()
     blk = H.HunYuanDiTBlock(2048, 16, 1024, skip=True, moe=True,
                             param_dtype=torch.float32)

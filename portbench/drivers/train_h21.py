@@ -31,7 +31,8 @@ first gradient waits on the host and the EMA is kept as its move from the
 start (``ema - p0`` follows the same recurrence). ``fault``: "half_batch"
 leaves out half of each batch; "renorm_topk" divides each token's top-2
 weights by their sum in the program (the release's ``norm_topk_prob``);
-"no_aux" drops the auxiliary loss's gradient in the program (alpha 0).
+"no_aux" drops the auxiliary loss's gradient in the program (the gate
+scores it reads leave the graph). Both wrap each MoE layer's ``route``.
 """
 
 from __future__ import annotations
@@ -45,8 +46,25 @@ from ..reference import judge, ops
 from ..reference import train as rtrain
 from . import train_flow
 
-FAULTS = {"renorm_topk": ("norm_topk_prob", True),
-          "no_aux": ("aux_loss_alpha", 0.0)}
+
+def _renorm_topk(route):
+    """``route`` with each token's top-k weights divided by their sum."""
+    def routed(x):
+        experts, weights, scores = route(x)
+        return experts, weights / weights.sum(-1, keepdim=True), scores
+    return routed
+
+
+def _no_aux(route):
+    """``route`` whose scores, which only the auxiliary loss reads, carry no
+    gradient: the forward is the same, the aux gradient is gone."""
+    def routed(x):
+        experts, weights, scores = route(x)
+        return experts, weights, scores.detach()
+    return routed
+
+
+FAULTS = {"renorm_topk": _renorm_topk, "no_aux": _no_aux}
 
 
 class Driver(train_flow.Driver):
@@ -82,10 +100,9 @@ class Driver(train_flow.Driver):
                               cond_drop_prob=c["train"]["p_uncond"]),
                          device=dev, param_dtype=torch.float32).train()
         if self.fault in FAULTS:
-            key, value = FAULTS[self.fault]
             for m in self.dit.modules():
                 if isinstance(m, moe.MoEFFN):
-                    setattr(m, key, value)
+                    m.route = FAULTS[self.fault](m.route)
         self.diffusion = flow.from_config(c["diffusion"])
         o = c["optimizer"]
         self.opt = T.make_optimizer(lr=o["lr"], weight_decay=o["weight_decay"],

@@ -3,7 +3,8 @@ are found by name; its counts hold against ``FlopCounterMode`` on the
 plain reference at two tiny sizes and come to what the configuration's
 shapes give; a run of its driver on the CPU at a tiny size (in f32) comes
 out correct, and not correct under each fault (a state left unchanged,
-half of each batch left out, renormalised top-2 weights); its readers read
+half of each batch left out, renormalised top-2 weights); the routing
+faults of the calibration change what they name; its readers read
 nothing from a program without the counter or the spans; a program
 without the model fails at set-up; a run and the reference import what
 they may."""
@@ -33,7 +34,8 @@ COND = 23
 METRICS = ["h21_train_mfu", "attn_roofline.h21_train",
            "qk_norm_roofline.h21_train", "moe_device_ms.h21_train",
            "moe_expert_roofline.h21_train", "moe_load_max.h21_train",
-           "device_idle.h21_train", "backward_device_ms.h21_train"]
+           "device_idle.h21_train", "backward_device_ms.h21_train",
+           "forward_device_ms.h21_train", "optimizer_device_ms.h21_train"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "topiaxl"}
 
 
@@ -88,7 +90,8 @@ def test_the_cell_its_mix_driver_and_metrics_are_found():
     assert (g["depth"], g["num_moe_layers"], g["hidden_size"], g["num_heads"],
             g["input_size"], g["context_dim"]) == (13, 4, 2048, 16, 4096, 1024)
     assert c["train"]["batch_size"] == 2 and c["cond_tokens"] == 1370
-    assert set(cell["limits"]) == {"grad_median_diff", "update_gap"}
+    assert set(cell["limits"]) == {"grad_median_diff", "grad_median_gap",
+                                   "update_gap", "update_median_gap"}
     e2e, layer = R.cell_metrics(BENCH, CELL)
     assert {m["name"] for m in e2e} == {"train_samples_per_s", "setup_s"}
     assert [m["name"] for m in layer] == METRICS
@@ -101,6 +104,8 @@ def test_the_cell_its_mix_driver_and_metrics_are_found():
     assert spans["moe_device_ms.h21_train"] == "h21.moe"
     assert spans["moe_expert_roofline.h21_train"] == "h21.moe.experts"
     assert spans["backward_device_ms.h21_train"] == "train.backward"
+    assert spans["forward_device_ms.h21_train"] == "train.forward"
+    assert spans["optimizer_device_ms.h21_train"] == "train.optimizer"
 
 
 def _weights(depth, moe, C, H, cin, cc, E, seed=0) -> dict:
@@ -219,6 +224,43 @@ def test_a_sound_run_is_correct():
 def test_a_fault_in_the_program_fails(fault):
     res = _run(fault=fault)
     assert not res["correct"], res["checks"]
+
+
+def test_the_routing_faults_change_what_they_name():
+    """``renorm_topk`` gives each token's top-2 weights a sum of one;
+    ``no_aux`` leaves the forward as it was and the gate the gradient of
+    a layer without the auxiliary loss (in eval mode, as the release's
+    gate)."""
+    from portbench.drivers import train_h21
+    from topiaxl_torch.models import moe
+
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.randn((2, 11, 16), generator=g)
+
+    def layer(fault=None, training=True):
+        m = moe.MoEFFN(16, 24, 4, 2, dtype=torch.float32,
+                       param_dtype=torch.float32).to_empty(device="cpu")
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                    .manual_seed(p.numel())))
+        if fault is not None:
+            m.route = train_h21.FAULTS[fault](m.route)
+        return m.train(training)
+
+    _, w, _ = layer("renorm_topk").route(x0.reshape(-1, 16))
+    assert torch.allclose(w.sum(-1), torch.ones(22))
+    outs, grads = [], []
+    for m in (layer(), layer("no_aux"), layer(training=False)):
+        y = m(x0)
+        # a loss small beside the auxiliary one, as a training loss's
+        # gradient at the gate is
+        (1e-6 * y.square().sum()).backward()
+        outs.append(y.detach())
+        grads.append(m.gate.weight.grad)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    assert torch.allclose(grads[1], grads[2], rtol=1e-6, atol=0)
+    assert not torch.allclose(grads[0], grads[2], rtol=1e-3, atol=0)
 
 
 def test_a_step_that_leaves_its_state_unchanged_fails(monkeypatch):

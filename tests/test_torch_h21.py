@@ -26,7 +26,8 @@ Tolerances, each for a reason:
   step of up to a few percent of the rate).
 - on the card, bf16 against f32: the QK norm within one bf16 rounding of
   its output (2^-8), dx within 2^-7 of its largest entry; flash within the
-  chip_smoke bars (``ATTN_REL_BAR``, ``ATTN_BWD_REL_BAR``); the grouped
+  chip_smoke bars (``ATTN_REL_BAR``, ``ATTN_BWD_REL_BAR``); the LN kernels
+  within its bar of one bf16 ulp (``LN_ABS_SLACK``); the grouped
   products within 2^-7 of the largest entry (bf16 operands, f32 sums in
   another order, one rounding).
 """
@@ -240,12 +241,13 @@ def test_two_train_steps_match_the_reference_trainer():
     assert state.step == 2 and state.opt_state.count == 2
 
 
-def _layer(seed: int = 5, experts: int = 4, aux_loss_alpha: float = 0.01):
+def _layer(seed: int = 5, experts: int = 4, aux: bool = True):
+    """A small layer in training (with its auxiliary loss) or, ``aux``
+    False, in eval mode, where the release's gate adds none."""
     layer = MOE.MoEFFN(32, 48, experts, 2, dtype=torch.float32,
                        param_dtype=torch.float32).to_empty(device="cpu")
     _fill_(layer, seed)
-    layer.aux_loss_alpha = aux_loss_alpha
-    return layer.train()
+    return layer.train(aux)
 
 
 def _loop_moe(layer, x):
@@ -297,17 +299,23 @@ def test_the_dropless_dispatch_equals_a_per_expert_loop(starved):
 
 def test_top2_weights_are_not_renormalised():
     """The weights are the raw softmax scores of the chosen experts (their
-    sum below one); ``norm_topk_prob`` divides them by their sum, and the
-    output moves."""
+    sum below one); dividing them by their sum (the release's
+    ``norm_topk_prob``) moves the output."""
     layer = _layer()
     x = torch.randn((1, 20, 32), generator=torch.Generator().manual_seed(7))
     experts, weights, scores = layer.route(x.reshape(-1, 32))
     assert torch.equal(weights, scores.gather(1, experts))
     assert float(weights.sum(-1).max()) < 1.0
     assert torch.equal(experts, torch.topk(scores, 2, dim=-1).indices)
+    route = layer.route
+
+    def renormalised(flat):
+        experts, weights, scores = route(flat)
+        return experts, weights / weights.sum(-1, keepdim=True), scores
+
     with torch.no_grad():
         raw = layer(x)
-        layer.norm_topk_prob = True
+        layer.route = renormalised
         _, w_norm, _ = layer.route(x.reshape(-1, 32))
         renorm = layer(x)
     assert torch.allclose(w_norm.sum(-1), torch.ones(20))
@@ -318,19 +326,19 @@ def test_the_auxiliary_gradient_equals_autograd_of_the_explicit_aux():
     """The layer's backward (aux at alpha 0.01, injected at weight 1) equals
     autograd of the loss plus ``alpha sum_e P_e f_e`` written out (f_e from
     the counts, no gradient) through a layer without it; the forward is
-    unchanged; alpha 0 gives another gate gradient."""
+    unchanged; without it (eval mode) the gate's gradient differs."""
     x0 = torch.randn((2, 25, 32), generator=torch.Generator().manual_seed(8))
     # a loss the size of a training loss's, so that the gate's gradient
     # from the auxiliary loss is no rounding of the rest
     w = 1e-4 * torch.randn((2, 25, 32),
                            generator=torch.Generator().manual_seed(9))
     grads, outs = [], []
-    for alpha in (0.01, 0.0):
-        layer = _layer(aux_loss_alpha=alpha)
+    for aux in (True, False):
+        layer = _layer(aux=aux)
         x = x0.clone().requires_grad_()
         y = layer(x)
         total = (y * w).sum()
-        if alpha == 0.0:
+        if not aux:
             _, scores, idx = _loop_moe(layer, x)
             f = torch.bincount(idx.reshape(-1), minlength=4).float() \
                 * (4 / idx.numel())
@@ -342,7 +350,7 @@ def test_the_auxiliary_gradient_equals_autograd_of_the_explicit_aux():
     assert torch.equal(outs[0], outs[1])
     for k in grads[0]:
         assert _max_rel(grads[0][k], grads[1][k]) < 1e-5, k
-    plain = _layer(aux_loss_alpha=0.0)
+    plain = _layer(aux=False)
     (plain(x0) * w).sum().backward()
     assert _max_rel(plain.gate.weight.grad, grads[0]["gate.weight"]) > 0.02
 
@@ -645,7 +653,7 @@ def test_the_grouped_experts_match_the_per_expert_loop_on_the_card():
     xr = x.detach().float().requires_grad_()
     ref, scores, idx = _loop_moe(ref_layer, xr)
     f = torch.bincount(idx.reshape(-1), minlength=8).float() * (8 / idx.numel())
-    ((ref * w).sum() + ref_layer.aux_loss_alpha * (scores.mean(0) * f).sum()
+    ((ref * w).sum() + MOE.AUX_LOSS_ALPHA * (scores.mean(0) * f).sum()
      ).backward()
     assert c_rel(y.detach(), ref.detach()) <= 2 ** -7
     want = {"x": xr.grad, **{k: p.grad for k, p in ref_layer.named_parameters()}}
@@ -689,3 +697,34 @@ def test_an_moe_block_runs_without_a_host_sync_and_counts_its_slots():
     assert list(got) == ["blocks.12.moe"] and sum(got["blocks.12.moe"]) == \
         2 * 2 * 4097
     assert torch.isfinite(x.grad).all() and torch.isfinite(skip.grad).all()
+
+
+@pytest.mark.cuda
+def test_the_ln_kernels_at_width_2048_match_plain_on_the_card():
+    """``ln_modulate`` and ``ln_modulate_residual`` at 2 x 4097 x 2048 (the
+    launcher's instance for the widest rows) with the operands the blocks
+    pass (the shift the LN's bias, the scale its gain less one, one row
+    for the batch; a gate of ones) within chip_smoke's bar of one bf16 ulp
+    of the plain result plus ``LN_ABS_SLACK``."""
+    import chip_smoke as c
+    from topiaxl_torch.ops.fused_ln import (
+        ln_modulate, ln_modulate_plain, ln_modulate_residual,
+        ln_modulate_residual_plain)
+
+    dev = _card()
+    g = torch.Generator(dev).manual_seed(17)
+    x, delta = (torch.randn((2, 4097, 2048), generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+    norm = H.LayerNorm(2048, torch.float32).to_empty(device=dev)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn((2048,), generator=g,
+                                                device=dev))
+        norm.bias.copy_(0.1 * torch.randn((2048,), generator=g, device=dev))
+    sh, sc = norm.modulation(2, torch.bfloat16)
+    one = torch.ones(2048, dtype=torch.bfloat16, device=dev)[None].expand(2, -1)
+    pairs = [((ln_modulate(x, sh, sc),), (ln_modulate_plain(x, sh, sc),)),
+             (ln_modulate_residual(x, delta, one, sh, sc),
+              ln_modulate_residual_plain(x, delta, one, sh, sc))]
+    for got, ref in pairs:
+        for a, b in zip(got, ref):
+            assert c.bf16_ulp_excess(a, b) <= c.LN_ABS_SLACK

@@ -58,6 +58,8 @@ from .layers import META, Mlp, xavier_
 ALIGN = 16
 # rows of the ones operand that sums a group's rows for the bias gradient
 _SUM_ROWS = 16
+# the release's MoEGate.aux_loss_alpha
+AUX_LOSS_ALPHA = 0.01
 
 # the program counter: {layer name: [E] int64 slots on the device}
 expert_tokens: dict = {}
@@ -189,12 +191,6 @@ class MoEFFN(nn.Module):
     """E routed experts (top ``top_k`` a token) and a shared expert, each
     C -> ``hidden`` -> C with exact GELU; see the module docstring."""
 
-    # the release's MoEGate: the auxiliary loss's weight, and the top-k
-    # weights left as the raw scores (the benchmark's calibration plants its
-    # routing faults by setting these on a layer)
-    aux_loss_alpha = 0.01
-    norm_topk_prob = False
-
     def __init__(self, dim: int, hidden: int, num_experts: int = 8,
                  top_k: int = 2, dtype=torch.bfloat16, param_dtype=None):
         super().__init__()
@@ -228,8 +224,6 @@ class MoEFFN(nn.Module):
         scores = torch.softmax(F.linear(x.float(), self.gate.weight.float()),
                                dim=-1)
         weights, experts = torch.topk(scores, self.top_k, dim=-1)
-        if self.norm_topk_prob:
-            weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
         return experts, weights, scores
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -260,8 +254,8 @@ class MoEFFN(nn.Module):
         routed = (out.index_select(0, dest).view(T, k, -1).float()
                   * weights[..., None]).sum(1)
         y = (routed + self.shared(flat).float()).to(dt)
-        if self.training and self.aux_loss_alpha > 0 and torch.is_grad_enabled():
+        if self.training and torch.is_grad_enabled():
             share = counts.float() * (E / (T * k))
-            aux = (scores.mean(0) * share).sum() * self.aux_loss_alpha
+            aux = (scores.mean(0) * share).sum() * AUX_LOSS_ALPHA
             y = AddAuxiliaryLoss.apply(y, aux)
         return y.view(shape)
